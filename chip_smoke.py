@@ -1,0 +1,638 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100 and check
+it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. device   — requires CUDA; prints the card's name and power limit and the
+              torch / CUDA / nvcc / driver versions.
+2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``.
+3. kernels  — holds each kernel against its plain PyTorch version on the
+              card at the main path's shapes, and times the kernel, the
+              plain version, a PyTorch yardstick call and the bound.
+4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
+              vocab 128256, random weights from a seed) through the PANN
+              ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
+              6 requests, prompt 32, gen 16; checks the launch counts of the
+              packed matmul and attention kernels per decode step.
+5. backends — the same config cut to 2 layers served by 'ref', 'fused' and
+              'packed' engines over ONE weight store: logits and tokens must
+              be bit-identical; counts the fused matmul kernel's launches.
+
+The line before the last is the ``{"kernels": [...]}`` summary; the last line
+is ``{"ok": true, "device": {...}}``. A longer report is written to
+``chiprun_out/chip_smoke.json`` (git-ignored output directory).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
+LADDER = (2, 4, 6)
+BATCH, PROMPT, GEN, REQUESTS = 4, 32, 16, 6
+CACHE_BITS = 4
+L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
+SLEEP_CYCLES = 400_000_000         # ~0.2 s of GPU clock: host enqueues ahead
+PROFILE_STEPS = 2
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+_flush = None
+
+
+def _cold():
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    _flush.zero_()
+
+
+def time_ms(fn, iters: int) -> float:
+    """Median device time of ``fn`` over ``iters`` calls, each after an L2
+    flush, with CUDA events around the call only. A GPU sleep queued first
+    lets the host enqueue every call before the card reaches them, so the
+    events time the work of the call (its wrapper's small ops included) and
+    not the host's Python between launches."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        _cold()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sh(cmd: list[str]) -> str:
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed: {out.stderr}")
+    return out.stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (K, N) of every projection of one llama3-8b layer, with its count per
+# layer, and the lm_head once per step
+LAYER_SHAPES = [((4096, 4096), 2, "wq,wo"), ((4096, 1024), 2, "wk,wv"),
+                ((4096, 14336), 2, "w_gate,w_up"), ((14336, 4096), 1,
+                                                     "w_down")]
+HEAD_SHAPE = ((4096, 128256), 1, "lm_head")
+
+
+def _matmul_operands(gen, m, k, n):
+    from repro_torch.core import quant
+    from repro_torch.kernels.pann_matmul_packed import pack_planes
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    pos = torch.empty((7, k, n), dtype=torch.int8, device="cuda")
+    neg = torch.empty_like(pos)
+    for p in range(7):
+        pos[p] = (codes.clamp(min=0) >> p) & 1
+        neg[p] = ((-codes).clamp(min=0) >> p) & 1
+    del codes
+    ppk = torch.stack([pack_planes(pos[p]) for p in range(7)])
+    npk = torch.stack([pack_planes(neg[p]) for p in range(7)])
+    lo, hi = quant.act_range_bounds(x)
+    n127 = torch.full((), 127.0, device="cuda")
+    s, z = quant.affine_scale_zp(lo, hi, n127)
+    gamma = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    zcol = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    return x, pos, neg, ppk, npk, s, z, n127, gamma, zcol
+
+
+def check_matmuls(gen) -> dict:
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    rows = {"pann_matmul_act": [], "pann_matmul_packed_act": []}
+    for (k, n), count, names in LAYER_SHAPES + [HEAD_SHAPE]:
+        m = BATCH
+        x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = _matmul_operands(
+            gen, m, k, n)
+        err = {"pann_matmul_act": 0.0, "pann_matmul_packed_act": 0.0}
+        for shift in range(7):
+            qp = torch.stack([s, z, n127, torch.full((), float(shift),
+                                                     device="cuda")])
+            y1 = pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol)
+            p1 = pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol)
+            y2 = pk.pann_matmul_packed_act(x, ppk, npk, qp, gamma, zcol)
+            p2 = pk.pann_matmul_packed_act_plain(x, ppk, npk, qp, gamma,
+                                                 zcol)
+            torch.cuda.synchronize()
+            for name, y, p in (("pann_matmul_act", y1, p1),
+                               ("pann_matmul_packed_act", y2, p2)):
+                diff = (y - p).abs().max().item()
+                err[name] = max(err[name], diff)
+                if not torch.equal(y, p):
+                    raise AssertionError(
+                        f"{name} K={k} N={n} shift={shift}: max |diff| "
+                        f"{diff} (must be 0)")
+            if not torch.equal(p1, p2):
+                raise AssertionError(f"plain versions disagree K={k} N={n}")
+            del y1, p1, y2, p2
+        # timings at plane_shift 0: every plane live (the top rung)
+        qp = torch.stack([s, z, n127, torch.zeros((), device="cuda")])
+        w_deq = (pm.rebuild_weight(pos, neg, qp[3]).float()
+                 * gamma[None, :])
+        lib = time_ms(lambda: torch.matmul(x, w_deq), 20)
+        del w_deq
+        small = 4 * (m * k + 2 * n + 4 + m * n)
+        for name, fn, plain, plane_bytes in (
+                ("pann_matmul_act",
+                 lambda: pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol),
+                 lambda: pm.pann_matmul_act_plain(x, pos, neg, qp, gamma,
+                                                  zcol),
+                 2 * 7 * k * n),
+                ("pann_matmul_packed_act",
+                 lambda: pk.pann_matmul_packed_act(x, ppk, npk, qp, gamma,
+                                                   zcol),
+                 lambda: pk.pann_matmul_packed_act_plain(x, ppk, npk, qp,
+                                                         gamma, zcol),
+                 2 * 7 * (k // 8) * n)):
+            b_ms, b_by = bound_ms(small + plane_bytes, 2 * m * k * n)
+            rows[name].append({
+                "K": k, "N": n, "M": m, "modules": names,
+                "per_step": count * (32 if names != "lm_head" else 1),
+                "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
+                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                "shifts_checked": 7, "max_abs_err": err[name]})
+        del x, pos, neg, ppk, npk
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _attention_operands(gen, b, kh, g, hd, s, k_bits, v_bits):
+    from repro_torch.kernels import ref
+    kc = torch.randint(0, 1 << k_bits, (b, s, kh, hd), generator=gen,
+                       device="cuda")
+    vc = torch.randint(0, 1 << v_bits, (b, s, kh, hd), generator=gen,
+                       device="cuda")
+    return dict(
+        qq=torch.randint(0, 128, (b, kh, g, hd), generator=gen,
+                         device="cuda", dtype=torch.int32),
+        q_z=torch.full((), 41.0, device="cuda"),
+        q_scale=torch.full((), 0.004, device="cuda"),
+        k_planes=ref.pack_cache_codes(kc).movedim(0, 1).contiguous(),
+        k_s=torch.rand((b, s), generator=gen, device="cuda") * 0.1 + 0.01,
+        k_z=torch.randint(0, 1 << k_bits, (b, s), generator=gen,
+                          device="cuda").float(),
+        v_planes=ref.pack_cache_codes(vc).movedim(0, 1).contiguous(),
+        v_s=torch.rand((b, s), generator=gen, device="cuda") * 0.1 + 0.01,
+        v_z=torch.randint(0, 1 << v_bits, (b, s), generator=gen,
+                          device="cuda").float(),
+        kc=kc, vc=vc)
+
+
+ATT_KEYS = ("qq", "q_z", "q_scale", "k_planes", "k_s", "k_z", "v_planes",
+            "v_s", "v_z")
+
+
+def check_attention(gen) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels import pann_attention as pa
+    b, kh, g, hd = BATCH, 8, 4, 128
+    out = []
+    for s in (48, 4096):
+        err = 0.0
+        for bits in range(1, 8):
+            a = _attention_operands(gen, b, kh, g, hd, s, bits, bits)
+            args = [a[key] for key in ATT_KEYS]
+            pact = torch.full((), float(bits), device="cuda")
+            for pos, window in ((s - 1, None), (s // 2, None),
+                                (s - 1, max(s // 4, 8))):
+                p = torch.full((), pos, dtype=torch.int32, device="cuda")
+                y = pa.decode_attention(*args, p, pact, pact, window=window)
+                ref_y = pa.decode_attention_plain(*args, p, window=window)
+                diff = (y - ref_y).abs().max().item()
+                err = max(err, diff)
+                if not torch.equal(y, ref_y):
+                    raise AssertionError(
+                        f"decode_attention S={s} bits={bits} pos={pos} "
+                        f"window={window}: max |diff| {diff} (must be 0)")
+            if bits != CACHE_BITS:
+                continue
+            # timings at the serve's cache bits, full cache, no window
+            p = torch.full((), s - 1, dtype=torch.int32, device="cuda")
+            qf = torch.randn((b, kh * g, 1, hd), generator=gen,
+                             device="cuda")
+            kf = a["kc"].float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+            vf = a["vc"].float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf),
+                          20)
+            live = 2 * bits * s * kh * (hd // 8)
+            nbytes = 4 * b * kh * g * hd * 2 + b * live + 4 * 4 * b * s
+            b_ms, b_by = bound_ms(nbytes, 4 * b * kh * g * s * hd)
+            row = {
+                "B": b, "KH": kh, "G": g, "hd": hd, "S": s,
+                "planes_live": bits, "per_step": 32,
+                "ms": time_ms(lambda: pa.decode_attention(
+                    *args, p, pact, pact), 20),
+                "plain_ms": time_ms(lambda: pa.decode_attention_plain(
+                    *args, p), 3),
+                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+        # the largest difference over every live-plane count, position and
+        # window checked at this S
+        row["max_abs_err"] = err
+        out.append(row)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: serving through the port's entry points
+# ---------------------------------------------------------------------------
+
+def _requests(cfg, seed):
+    from repro_torch.serve_engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               PROMPT).astype(np.int32),
+                    max_new_tokens=GEN,
+                    power_budget_bits=LADDER[i % len(LADDER)])
+            for i in range(REQUESTS)]
+
+
+def _reset_counts():
+    from repro_torch.kernels import pann_attention as pa
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    pm.launches = pk.launches = pa.launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import pann_attention as pa
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    return {"pann_matmul_act": pm.launches,
+            "pann_matmul_packed_act": pk.launches,
+            "decode_attention": pa.launches}
+
+
+def full_width_serve() -> dict:
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import model as MD
+    from repro_torch.serve_engine import ServeEngine
+    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, MD.init_params(cfg, seed=0, device="cuda"),
+                         ladder_bits=LADDER, max_batch=BATCH,
+                         max_len=PROMPT + GEN, backend="packed",
+                         cache_bits=CACHE_BITS, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine.warmup()
+    reqs = _requests(cfg, seed=0)
+    steps0 = dict(engine.steps_by_rung)
+    _reset_counts()
+    t0 = time.perf_counter()
+    responses = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    steps_by_rung = {b: engine.steps_by_rung[b] - steps0[b] for b in LADDER}
+    steps = sum(steps_by_rung.values())
+    n_layers = cfg.num_layers
+    want = {"pann_matmul_act": 0,
+            "pann_matmul_packed_act": (7 * n_layers + 1) * steps,
+            "decode_attention": n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want} "
+                             f"over {steps} decode steps")
+    for r in responses:
+        if len(r.tokens) != GEN or not all(0 <= t < cfg.vocab_size
+                                           for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
+    # the first wave again by hand: finite logits, and its greedy token is
+    # the one the engine served
+    wave = [r for r in reqs if r.power_budget_bits == LADDER[0]]
+    rows = np.stack([r.prompt for r in wave]
+                    + [wave[0].prompt] * (BATCH - len(wave)))
+    rows = torch.as_tensor(rows.astype(np.int64), device="cuda")
+    view = engine.variants[LADDER[0]]
+    state = MD.init_decode_state(view, engine.cfg, BATCH, PROMPT + GEN)
+    for i in range(PROMPT):
+        logits, state = MD.decode_step(view, engine.cfg, state,
+                                       rows[:, i:i + 1])
+    if logits.shape != (BATCH, 1, cfg.padded_vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("full-width logits not finite / wrong shape")
+    profile = profile_steps(engine.variants, steps_by_rung, engine.cfg,
+                            state, logits, cfg.vocab_size)
+    first = torch.argmax(logits[:, 0, :cfg.vocab_size], -1).tolist()
+    got = {r.uid: r.tokens[0] for r in responses}
+    for j, r in enumerate(wave):
+        if first[j] != got[r.uid]:
+            raise AssertionError(f"request {r.uid}: replayed first token "
+                                 f"{first[j]} != served {got[r.uid]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 70.0:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
+    n_tok = sum(len(r.tokens) for r in responses)
+    out = {
+        "config": "llama3-8b full width, 32 layers, random weights seed 0",
+        "ladder": list(LADDER), "backend": "packed", "cache_bits": CACHE_BITS,
+        "max_batch": BATCH, "prompt": PROMPT, "gen": GEN,
+        "requests": REQUESTS, "decode_steps": steps,
+        "steps_by_rung": steps_by_rung,
+        "store_build_s": build_s, "generate_s": wall,
+        "ms_per_step": wall / steps * 1e3,
+        "profile": profile,
+        # the rung-weighted device time of a step over its host wall time
+        "device_busy_share": (None if profile["device_ms_per_step"] is None
+                              else profile["device_ms_per_step"]
+                              / (wall / steps * 1e3)),
+        "tok_per_s": n_tok / wall, "generated": n_tok,
+        "peak_mem_gb": peak_gb, "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "tokens": {r.uid: r.tokens for r in responses},
+        "rung_bits": {r.uid: r.rung_bits for r in responses},
+        "est_gbitflips_per_token": {
+            r.uid: r.metadata["est_gbitflips_per_token"] for r in responses},
+    }
+    del engine, state, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    for kind in ("pann_matmul_packed_act", "pann_matmul_act",
+                 "decode_attention", "epilogue"):
+        if kind in name:
+            return kind
+    return "other PyTorch kernels"
+
+
+def _profile_rung(view, cfg, state, tok) -> tuple:
+    """(device ms by kernel kind, device ops by kind) of PROFILE_STEPS
+    decode steps of one rung view, from torch.profiler; the state advances
+    in place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as MD
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            _, state = MD.decode_step(view, cfg, state, tok)
+        torch.cuda.synchronize()
+    ms: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = _kernel_kind(e.name)
+        ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+        count[kind] = count.get(kind, 0) + 1
+    return ms, count, state
+
+
+def profile_steps(views: dict, steps_by_rung: dict, cfg, state, logits,
+                  vocab: int) -> dict:
+    """Device kernel time per decode step of each rung (PROFILE_STEPS steps
+    each, torch.profiler), and the mean over rungs weighted by the serve's
+    steps per rung: the device time of the serve's average step, by kernel
+    kind. The profiler's own host overhead does not enter the device times.
+    Reported as None when the profiler records no device activity on this
+    machine."""
+    tok = torch.argmax(logits[:, :, :vocab], -1)
+    by_rung = {}
+    for bits in LADDER:
+        ms, count, state = _profile_rung(views[bits], cfg, state, tok)
+        if not ms:
+            print("[profile] the profiler recorded no device activity: "
+                  "device time per step not measured", flush=True)
+            return {"device_ms_per_step": None}
+        by_rung[bits] = {
+            "device_ms_per_step": sum(ms.values()) / PROFILE_STEPS,
+            "ms_per_step_by_kind": {k: v / PROFILE_STEPS
+                                    for k, v in sorted(ms.items())},
+            "device_ops_per_step_by_kind": {k: v / PROFILE_STEPS
+                                            for k, v in sorted(
+                                                count.items())}}
+    total = sum(steps_by_rung.values())
+
+    def weighted(key):
+        kinds = sorted({k for r in by_rung.values() for k in r[key]})
+        return {k: sum(steps_by_rung[b] * r[key].get(k, 0.0)
+                       for b, r in by_rung.items()) / total for k in kinds}
+
+    return {"steps_per_rung": PROFILE_STEPS, "weights": steps_by_rung,
+            "device_ms_per_step": sum(
+                steps_by_rung[b] * r["device_ms_per_step"]
+                for b, r in by_rung.items()) / total,
+            "ms_per_step_by_kind": weighted("ms_per_step_by_kind"),
+            "device_ops_per_step_by_kind": weighted(
+                "device_ops_per_step_by_kind"),
+            "by_rung": by_rung}
+
+
+def backends_agree() -> dict:
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import model as MD
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import ServeEngine, build_ladder
+    cfg = dataclasses.replace(
+        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
+        num_layers=2)
+    ladder = build_ladder(LADDER, d=float(cfg.d_model))
+    ws = serving.build_weight_store(
+        MD.init_params(cfg, seed=1, device="cuda"), cfg,
+        {op.bits: (op.r, op.b_x_tilde) for op in ladder},
+        serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+    reqs = _requests(cfg, seed=1)
+    tokens, logits, launches = {}, {}, {}
+    for backend in ("ref", "fused", "packed"):
+        eng = ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
+                          max_batch=BATCH, max_len=PROMPT + GEN,
+                          backend=backend, cache_bits=CACHE_BITS,
+                          device="cuda")
+        _reset_counts()
+        res = eng.generate(reqs)
+        torch.cuda.synchronize()
+        launches[backend] = _counts()
+        launches[backend]["decode_steps"] = sum(eng.steps_by_rung.values())
+        tokens[backend] = [r.tokens for r in res]
+        # teacher-forced logits of every rung over the first request's
+        # prompt + tokens
+        rows = torch.as_tensor(np.stack([reqs[0].prompt] * BATCH).astype(
+            np.int64), device="cuda")
+        per_rung = []
+        for bits in LADDER:
+            view = eng.variants[bits]
+            state = MD.init_decode_state(view, eng.cfg, BATCH, PROMPT)
+            steps = []
+            for i in range(PROMPT):
+                lg, state = MD.decode_step(view, eng.cfg, state,
+                                           rows[:, i:i + 1])
+                steps.append(lg)
+            per_rung.append(torch.cat(steps, 1))
+        logits[backend] = torch.stack(per_rung)
+    for backend in ("fused", "packed"):
+        if not torch.equal(logits[backend], logits["ref"]):
+            d = (logits[backend] - logits["ref"]).abs().max().item()
+            raise AssertionError(f"{backend} logits differ from ref by {d}")
+        if tokens[backend] != tokens["ref"]:
+            raise AssertionError(f"{backend} tokens differ from ref")
+    steps = launches["fused"]["decode_steps"]
+    if launches["fused"]["pann_matmul_act"] != (7 * 2 + 1) * steps \
+            or launches["fused"]["decode_attention"] != 2 * steps:
+        raise AssertionError(f"fused launch counts {launches['fused']}")
+    if any(v for k, v in launches["ref"].items() if k != "decode_steps"):
+        raise AssertionError(f"ref backend launched kernels: "
+                             f"{launches['ref']}")
+    return {"config": "llama3-8b full width cut to 2 layers (the only cut), "
+                      "random weights seed 1",
+            "cache_bits": CACHE_BITS, "logits_bit_identical": True,
+            "tokens_identical": True, "logits_shape": list(
+                logits["ref"].shape), "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+
+def _kernel_entry(name, source, replaces, rows, launches, per_step_key,
+                  tolerance):
+    def total(key):
+        return float(sum(r[key] * r[per_step_key] for r in rows))
+    by = {r["bound_by"] for r in rows}
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": float(max(r["max_abs_err"] for r in rows)),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": total("library_ms"),
+            "parity": "bit-identical to the plain version",
+            "tolerance": tolerance,
+            "times_are": "one full-width decode step's launches, cold L2",
+            "shapes": rows}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "runs the port on an NVIDIA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+
+    # phase 1: device
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"])
+    driver = sh(["nvidia-smi", "--query-gpu=driver_version",
+                 "--format=csv,noheader"])
+    nvcc = sh([build.nvcc_path(), "--version"]).splitlines()[-1]
+    print(smi, flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"nvcc '{nvcc}' driver {driver} "
+          f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    build.build_all()
+    print(f"[build] {len(build.SOURCES)} kernels built in "
+          f"{build.build_seconds:.2f} s", flush=True)
+    for name, log in build.build_log.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"[build] {name}: {regs}", flush=True)
+
+    # phase 3: kernels against their plain versions
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    mm_rows = check_matmuls(gen)
+    att_rows = check_attention(gen)
+    print(f"[kernels] all bit-identical to their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name, rows in list(mm_rows.items()) + [("decode_attention",
+                                                 att_rows)]:
+        for r in rows:
+            print(f"[kernels] {name} " + json.dumps(
+                {k: v for k, v in r.items()}), flush=True)
+
+    # phase 4: full-width serve through the ladder
+    serve = full_width_serve()
+    print("[serve] " + json.dumps({k: v for k, v in serve.items()
+                                   if k != "tokens"}), flush=True)
+    for uid, toks in serve["tokens"].items():
+        print(f"[serve] request {uid} (rung {serve['rung_bits'][uid]}) "
+              f"tokens {toks}", flush=True)
+
+    # phase 5: backends agree
+    agree = backends_agree()
+    print("[backends] " + json.dumps(agree), flush=True)
+
+    kernels = [
+        _kernel_entry("pann_matmul_act", "src/repro_torch/csrc/pann_matmul.cu",
+                      "src/repro/kernels/pann_matmul.py:329",
+                      mm_rows["pann_matmul_act"],
+                      agree["launches"]["fused"]["pann_matmul_act"],
+                      "per_step", "bit-identical (0)"),
+        _kernel_entry("pann_matmul_packed_act",
+                      "src/repro_torch/csrc/pann_matmul_packed.cu",
+                      "src/repro/kernels/pann_matmul_packed.py:255",
+                      mm_rows["pann_matmul_packed_act"],
+                      serve["launches"]["pann_matmul_packed_act"],
+                      "per_step", "bit-identical (0)"),
+        _kernel_entry("decode_attention",
+                      "src/repro_torch/csrc/pann_attention.cu",
+                      "src/repro/kernels/pann_attention.py:188",
+                      [r for r in att_rows if r["S"] == PROMPT + GEN],
+                      serve["launches"]["decode_attention"],
+                      "per_step", "bit-identical (0)"),
+    ]
+    kernels[2]["shapes"] = att_rows
+    kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in att_rows)
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was never launched on its path")
+    report = {"device": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "nvcc": nvcc, "driver": driver,
+              "build_s": build.build_seconds, "kernels": kernels,
+              "serve": serve, "backends": agree}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(smi)
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k != "shapes"} for e in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,185 @@
+"""The serving matmul and decode-attention dispatch (port of
+``repro.kernels.dispatch``): the single choke point that turns one
+module's weight-store leaves into projection outputs.
+
+Backends:
+
+  ``ref``     the plain integer dataflow in PyTorch, on any device.
+  ``fused``   the bit-plane kernel (``kernels/pann_matmul``) on planes
+              rebuilt from the int8 codes on every call.
+  ``packed``  the packed-plane kernel (``kernels/pann_matmul_packed``) on
+              the store's ``w_planes_pos``/``w_planes_neg`` uint8 leaves.
+
+Every backend realizes the same integer dataflow, so their fp32 outputs
+are bit-identical: affine codes q = clip(round(x/s) + z, 0, n), the exact
+integer y = q @ w_q - zcol, then y * s * gamma. ``fused`` and ``packed``
+run their kernel's plain version on CPU tensors and launch the kernel on
+CUDA tensors; there is no other fallback, and the JAX package's
+``:force`` (Pallas interpret mode) has no meaning here and raises.
+
+Every value that differs between rungs — ``plane_shift``, ``act_nlvl``,
+the derived (s, z), ``k_nlvl``/``v_nlvl`` — stays a device tensor that the
+kernels read, so one step function serves every rung without host syncs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant
+from repro_torch.core.pann import bitplane_decompose, masked_codes
+from repro_torch.kernels import pann_attention as _pa
+from repro_torch.kernels import pann_matmul as _pm
+from repro_torch.kernels import pann_matmul_packed as _pk
+from repro_torch.kernels import ref as _ref
+
+Tensor = torch.Tensor
+
+BACKENDS = ("ref", "fused", "packed")
+
+# int8 serving codes are clipped to +-127 = 2^7 - 1, so 7 planes always
+# reconstruct them exactly.
+INT8_PLANES = 7
+
+# n = 2^7 - 1: the kernels hold unsigned codes in [0, 127] (the paper's
+# App.-A.4 half-range convention).
+HALF_RANGE_LEVELS = 127.0
+
+
+def parse_backend(spec: str) -> str:
+    """'fused' -> 'fused'. Options after ':' (the JAX package's ':force')
+    are refused: the port has no interpret mode."""
+    name, sep, opt = spec.partition(":")
+    if sep:
+        raise ValueError(f"backend option {opt!r} in {spec!r} has no meaning "
+                         "in the port: CPU tensors run the plain versions, "
+                         "CUDA tensors the kernels")
+    if name not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {name!r}; have {BACKENDS}")
+    return name
+
+
+def resolve_backend(spec: str, p: dict) -> str:
+    """The backend for artifact ``p``; 'packed' without plane leaves is a
+    build error, raised."""
+    name = parse_backend(spec)
+    if name == "packed" and "w_planes_pos" not in p:
+        raise ValueError(
+            "backend 'packed' needs the w_planes_pos/w_planes_neg leaves; "
+            "build the store with ServingQuantSpec(pack_planes=True)")
+    return name
+
+
+def _scalar(x: Tensor, like: Tensor) -> Tensor:
+    return x.to(device=like.device, dtype=torch.float32).reshape(())
+
+
+def _act_scalars(xf: Tensor, p: dict) -> tuple[Tensor, Tensor, Tensor]:
+    """(s, z, n_lvl) of the projection's activation quantizer as 0-dim
+    device tensors: the view's ``act_nlvl`` level count (127, the
+    half-range ceiling, when the view has none), and the frozen-calibration
+    ``act_s``/``act_z`` leaves when present (stores carried across from the
+    JAX package may hold them), else (s, z) derived from x."""
+    nlvl = p.get("act_nlvl")
+    n_lvl = (_scalar(nlvl, xf) if nlvl is not None
+             else xf.new_full((), HALF_RANGE_LEVELS))
+    if p.get("act_s") is not None:
+        return _scalar(p["act_s"], xf), _scalar(p["act_z"], xf), n_lvl
+    lo, hi = quant.act_range_bounds(xf, include_zero=True)
+    s, z = quant.affine_scale_zp(lo, hi, n_lvl)
+    return s, z, n_lvl
+
+
+def _gamma_zcol(p: dict, s: Tensor, z: Tensor) -> tuple[Tensor, Tensor]:
+    """(gamma, zcol): the per-output-channel dequant scale and the exact
+    int32 zero-point/bias row z*colsum(w) - round(b / (s*gamma)), with the
+    view's precomputed colsum of the codes its kernels realize."""
+    gamma = p["w_scale"].to(torch.float32).reshape(-1)
+    zcol = z.to(torch.int32) * p["w_colsum"]
+    if "b" in p:
+        b_q = torch.clamp(torch.round(p["b"].to(torch.float32) / (s * gamma)),
+                          -2.0 ** 30, 2.0 ** 30).to(torch.int32)
+        zcol = zcol - b_q
+    return gamma, zcol
+
+
+def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
+                   n_lvl: Tensor, gamma: Tensor, zcol: Tensor,
+                   name: str) -> Tensor:
+    """The backend branch on fixed scalars: (M, K) fp32 rows in, (M, N)
+    fp32 out. ``plane_shift`` (the view's count of skipped low planes) is a
+    device tensor: the kernels read it, the 'ref' path masks the codes."""
+    w_q = p["w_q"]
+    shift = p["plane_shift"].to(torch.float32).reshape(())
+    qparams = torch.stack([s, z, n_lvl, shift])
+    if name == "fused":
+        n_planes = (p["w_planes_pos"].shape[-3] if "w_planes_pos" in p
+                    else INT8_PLANES)
+        pos = bitplane_decompose(torch.clamp(w_q, min=0), n_planes)
+        neg = bitplane_decompose(torch.clamp(-w_q.to(torch.int32), min=0),
+                                 n_planes)
+        return _pm.pann_matmul_act(xf, pos, neg, qparams, gamma, zcol)
+    if name == "packed":
+        pp, pn = p["w_planes_pos"], p["w_planes_neg"]
+        k_full = pp.shape[-2] * 8       # pack_planes padded K up to 8
+        if xf.shape[1] != k_full:
+            xf = F.pad(xf, (0, k_full - xf.shape[1]))
+        return _pk.pann_matmul_packed_act(xf, pp, pn, qparams, gamma, zcol)
+    q = quant.affine_encode(xf, s, z, n_lvl)
+    return _pm.matmul_epilogue(q, masked_codes(w_q, shift), s, gamma, zcol)
+
+
+def serving_linear(x: Tensor, p: dict, backend: str) -> Tensor:
+    """The serving projection y = affine-quant(x) @ deq(w_q) [+ b] through
+    the selected backend; ``p`` is one rung view's (K, N) leaves. Output
+    dtype follows x."""
+    name = resolve_backend(backend, p)
+    w_q = p["w_q"]
+    if w_q.ndim != 2:
+        raise ValueError(f"serving_linear wants a (K, N) weight, got "
+                         f"{tuple(w_q.shape)}")
+    lead, k = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, k).to(torch.float32).contiguous()
+    s, z, n_lvl = _act_scalars(xf, p)
+    gamma, zcol = _gamma_zcol(p, s, z)
+    y = _dispatch_rows(xf, p, s, z, n_lvl, gamma, zcol, name)
+    return y.reshape(*lead, w_q.shape[-1]).to(x.dtype)
+
+
+def cache_planes_active(n_lvl) -> Tensor:
+    """Live LOW bit-planes of a cache code space with ``n_lvl`` levels:
+    codes <= n_lvl < 2^b zero every plane >= b = log2(n_lvl + 1)."""
+    n = n_lvl.to(torch.float32).reshape(())
+    return torch.ceil(torch.log2(n + 1.0) - 1e-6)
+
+
+def decode_attention(q: Tensor, kv, backend, *, num_kv_heads: int,
+                     window=None, softcap: float = 0.0,
+                     k_nlvl=None, v_nlvl=None) -> Tensor:
+    """Decode attention over a quantized KV cache. ``q``: (B, H, hd) fp
+    queries (RoPE applied); ``kv``: a ``models.attention.QuantKVCache``.
+
+    Queries are affine-quantized per tensor at the half-range ceiling;
+    'fused'/'packed' both name the one bit-plane attention kernel, 'ref'
+    the plain version. ``k_nlvl``/``v_nlvl`` (0-dim device tensors) let the
+    kernel skip the dead high planes. Returns (B, H, hd) fp32."""
+    name = parse_backend(backend or "ref")
+    b, h, hd = q.shape
+    g = h // num_kv_heads
+    qf = q.to(torch.float32).reshape(b, num_kv_heads, g, hd)
+    n127 = qf.new_full((), HALF_RANGE_LEVELS)
+    lo, hi = quant.act_range_bounds(qf, include_zero=True)
+    s_q, z_q = quant.affine_scale_zp(lo, hi, n127)
+    q_scale = s_q * qf.new_full((), float(hd) ** -0.5)
+    qq = quant.affine_encode(qf, s_q, z_q, n127).to(torch.int32).contiguous()
+    args = (qq, z_q, q_scale, kv.k_planes, kv.k_s, kv.k_z,
+            kv.v_planes, kv.v_s, kv.v_z, kv.length)
+    if name == "ref":
+        out = _ref.decode_attention_ref(*args, window=window,
+                                        softcap=softcap)
+    else:
+        k_pact = None if k_nlvl is None else cache_planes_active(k_nlvl)
+        v_pact = None if v_nlvl is None else cache_planes_active(v_nlvl)
+        out = _pa.decode_attention(*args, k_pact, v_pact, window=window,
+                                   softcap=softcap)
+    return out.reshape(b, h, hd)

@@ -1,0 +1,213 @@
+"""Decode attention with RoPE, GQA and KV caches (port of the decode half
+of ``repro.models.attention``).
+
+Two caches: ``KVCache`` holds K/V in floating point; ``QuantKVCache``
+holds them as packed bit-plane affine codes, written by ``_cache_write``
+and read by ``kernels.dispatch.decode_attention``. Unlike the JAX
+package, whose arrays are immutable, the port writes each new token into
+the cache IN PLACE (``index_copy_`` at the device-resident position), so a
+decode step allocates no new cache; a cache belongs to one decode state.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
+from repro_torch.kernels import dispatch as KD
+from repro_torch.kernels import ref as KREF
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> Tensor:
+    idx = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / idx.new_full((), float(head_dim))))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, T, H, hd); positions: (B, T) or (T,)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    if angles.ndim == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    return {
+        "wq": L.init_linear(gen, d, cfg.num_heads * hd, device,
+                            bias=cfg.qkv_bias),
+        "wk": L.init_linear(gen, d, cfg.num_kv_heads * hd, device,
+                            bias=cfg.qkv_bias),
+        "wv": L.init_linear(gen, d, cfg.num_kv_heads * hd, device,
+                            bias=cfg.qkv_bias),
+        "wo": L.init_linear(gen, cfg.num_heads * hd, d, device),
+    }
+
+
+class KVCache(NamedTuple):
+    k: Tensor          # (B, S_max, K, hd)
+    v: Tensor          # (B, S_max, K, hd)
+    length: Tensor     # () int32 — tokens currently cached
+
+
+class QuantKVCache(NamedTuple):
+    """K/V as packed bit-plane affine codes, plane axis pinned at
+    ``kernels.ref.CACHE_PLANES`` whatever the rung's cache bits; per
+    position quantizer rows (s, z), z integer-valued fp32."""
+    k_planes: Tensor   # (B, P, S_max, K, hd//8) uint8
+    v_planes: Tensor   # (B, P, S_max, K, hd//8) uint8
+    k_s: Tensor        # (B, S_max) f32
+    k_z: Tensor        # (B, S_max) f32
+    v_s: Tensor        # (B, S_max) f32
+    v_z: Tensor        # (B, S_max) f32
+    length: Tensor     # () int32
+
+
+def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig):
+    hd = cfg.resolved_head_dim
+    b, t, _ = x.shape
+    q = L.project(x, p["wq"], cfg, "attn.wq").reshape(b, t, cfg.num_heads, hd)
+    k = L.project(x, p["wk"], cfg, "attn.wk").reshape(b, t, cfg.num_kv_heads,
+                                                      hd)
+    v = L.project(x, p["wv"], cfg, "attn.wv").reshape(b, t, cfg.num_kv_heads,
+                                                      hd)
+    return q, k, v
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    hd = cfg.resolved_head_dim
+    if cfg.cache_bits:
+        if hd % 8:
+            raise ValueError(f"quantized KV cache packs 8 codes/byte along "
+                             f"head_dim; head_dim={hd} is not a multiple of 8")
+        shape = (batch, KREF.CACHE_PLANES, max_len, cfg.num_kv_heads,
+                 hd // 8)
+
+        def row():
+            return torch.zeros((batch, max_len), dtype=torch.float32,
+                               device=device)
+
+        return QuantKVCache(
+            k_planes=torch.zeros(shape, dtype=torch.uint8, device=device),
+            v_planes=torch.zeros(shape, dtype=torch.uint8, device=device),
+            k_s=row(), k_z=row(), v_s=row(), v_z=row(),
+            length=torch.zeros((), dtype=torch.int32, device=device))
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
+                  window: Optional[int] = None, use_rope: bool = True):
+    """One-token decode step. x: (B, 1, d). Returns (out, updated cache)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = cache.length
+    q, k_new, v_new = _project_qkv(x, p, cfg)
+    if use_rope:
+        posv = pos.expand(b, 1)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    if isinstance(cache, QuantKVCache):
+        return _decode_attend_quant(x, cache, p, cfg, q, k_new, v_new,
+                                    window=window)
+    idx = pos.reshape(1).to(torch.int64)
+    cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    s_max = cache.k.shape[1]
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, cfg.num_kv_heads, g, hd) * hd ** -0.5
+    scores = torch.einsum("btkgh,bskh->btkgs", qg, cache.k.to(qg.dtype))
+    if cfg.attn_softcap > 0:
+        scores = L.softcap(scores, cfg.attn_softcap)
+    k_pos = torch.arange(s_max, device=x.device)
+    valid = k_pos <= pos
+    if window is not None:
+        valid &= (pos - k_pos) < window
+    scores = torch.where(valid, scores, torch.full((), NEG_INF,
+                                                   device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("btkgs,bskh->btkgh", probs.to(x.dtype),
+                       cache.v.to(x.dtype))
+    y = L.project(out.reshape(b, 1, -1), p["wo"], cfg, "attn.wo")
+    return y, cache._replace(length=pos + 1)
+
+
+def _cache_rows(new: Tensor, s_leaf, z_leaf, n_lvl) -> tuple[Tensor, Tensor]:
+    """Per-batch quantizer (s, z) of one new K or V token (B, 1, K, hd):
+    the frozen calibration leaves broadcast, else the dynamic per-batch
+    extremes, zero-extended."""
+    b = new.shape[0]
+    if s_leaf is not None:
+        return (s_leaf.to(torch.float32).reshape(()).expand(b),
+                z_leaf.to(torch.float32).reshape(()).expand(b))
+    xf = new.to(torch.float32)
+    lo = torch.clamp(torch.amin(xf, dim=(1, 2, 3)), max=0.0)
+    hi = torch.clamp(torch.amax(xf, dim=(1, 2, 3)), min=0.0)
+    return quant.affine_scale_zp(lo, hi, n_lvl)
+
+
+def _cache_write(planes: Tensor, s_row: Tensor, z_row: Tensor, new: Tensor,
+                 s: Tensor, z: Tensor, n_lvl, pos: Tensor):
+    """Encode one token and write its packed planes and quantizer row at
+    ``pos``, in place."""
+    codes = quant.affine_encode(new.to(torch.float32),
+                                s[:, None, None, None],
+                                z[:, None, None, None], n_lvl)
+    codes = codes[:, 0].to(torch.int32)                     # (B, K, hd)
+    tok = KREF.pack_cache_codes(codes).movedim(0, 1)        # (B, P, K, d8)
+    idx = pos.reshape(1).to(torch.int64)
+    planes.index_copy_(2, idx, tok[:, :, None])
+    s_row.index_copy_(1, idx, s[:, None].contiguous())
+    z_row.index_copy_(1, idx, z[:, None].contiguous())
+    return planes, s_row, z_row
+
+
+def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
+                         cfg: ModelConfig, q: Tensor, k_new: Tensor,
+                         v_new: Tensor, *, window: Optional[int]):
+    """Write this token's K/V at the rung's cache bits, then attend through
+    the packed planes (``kernels.dispatch.decode_attention``). Cache bits
+    come from the rung's ``kv_cache`` device leaves (``k_nlvl``/``v_nlvl``),
+    else from the static ``cfg.cache_bits``."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = cache.length
+    kc = p.get("kv_cache", {})
+
+    def nlvl(leaf):
+        if leaf is not None:
+            return leaf.to(torch.float32).reshape(())
+        return x.new_full((), float(quant.cap_levels(int(cfg.cache_bits or 8))),
+                          dtype=torch.float32)
+
+    k_nlvl = nlvl(kc.get("k_nlvl"))
+    v_nlvl = nlvl(kc.get("v_nlvl"))
+    ks, kz = _cache_rows(k_new, kc.get("k_s"), kc.get("k_z"), k_nlvl)
+    vs, vz = _cache_rows(v_new, kc.get("v_s"), kc.get("v_z"), v_nlvl)
+    _cache_write(cache.k_planes, cache.k_s, cache.k_z, k_new, ks, kz,
+                 k_nlvl, pos)
+    _cache_write(cache.v_planes, cache.v_s, cache.v_z, v_new, vs, vz,
+                 v_nlvl, pos)
+    out = KD.decode_attention(q.reshape(b, cfg.num_heads, hd), cache,
+                              cfg.kernel_backend or "ref",
+                              num_kv_heads=cfg.num_kv_heads, window=window,
+                              softcap=cfg.attn_softcap,
+                              k_nlvl=k_nlvl, v_nlvl=v_nlvl)
+    y = L.project(out.to(x.dtype).reshape(b, 1, -1), p["wo"], cfg, "attn.wo")
+    return y, cache._replace(length=pos + 1)

@@ -1,0 +1,92 @@
+"""Top-level model for decode serving (port of the decode half of
+``repro.models.model``): parameter init, decode state and ``decode_step``.
+
+Parameters are a plain dict: {"embed": {"table"}, "layers": [one dict per
+layer], "final_norm": {"scale"}, "lm_head": {"w"}}; a weight store's views
+have the same structure with quantized projection leaves.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+Tensor = torch.Tensor
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. 'cuda' without a card raises: the
+    CPU is used only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def layer_specs(cfg: ModelConfig) -> list:
+    """The LayerSpec of every layer, in order (groups then tail)."""
+    pattern, n_groups, n_tail = T.group_layout(cfg)
+    return list(pattern) * n_groups + [pattern[i] for i in range(n_tail)]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random fp32 parameters from ``seed`` (a torch.Generator on the
+    device; the values differ from the JAX package's, whose params are
+    carried across with ``repro_torch.convert`` where they must match)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    if cfg.tie_embeddings:
+        raise ValueError("tied embeddings are not ported yet")
+    return {
+        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dev),
+        "layers": [T.init_layer(gen, cfg, spec, dev)
+                   for spec in layer_specs(cfg)],
+        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dev),
+        "lm_head": L.init_linear(gen, cfg.d_model, cfg.padded_vocab, dev,
+                                 scale=0.02),
+    }
+
+
+class DecodeState(NamedTuple):
+    caches: list           # one cache per layer
+    position: Tensor       # () int32
+
+
+def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
+                      max_len: int) -> DecodeState:
+    dev = params["embed"]["table"].device
+    caches = [T.init_layer_cache(cfg, spec, batch, max_len, _dtype(cfg), dev)
+              for spec in layer_specs(cfg)]
+    return DecodeState(caches=caches,
+                       position=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+
+
+def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
+                tokens: Tensor) -> tuple[Tensor, DecodeState]:
+    """tokens: (B, 1) -> (logits (B, 1, V), new state). Caches are updated
+    in place (``models.attention``)."""
+    x = L.embed(tokens, params["embed"], _dtype(cfg))
+    if cfg.scale_embed:
+        x = x * cfg.d_model ** 0.5
+    new_caches: list[Any] = []
+    for spec, lp, cache in zip(layer_specs(cfg), params["layers"],
+                               state.caches):
+        x, c = T.decode_layer(x, cache, lp, cfg, spec)
+        new_caches.append(c)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = L.project(x, params["lm_head"], cfg, "lm_head")
+    logits = L.softcap(logits.to(torch.float32), cfg.logit_softcap)
+    return logits, DecodeState(caches=new_caches,
+                               position=state.position + 1)

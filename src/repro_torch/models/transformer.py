@@ -1,0 +1,110 @@
+"""Model assembly for the serving path (port of ``repro.models.transformer``).
+
+Every architecture is a repeating *group pattern* of layer kinds; the port
+keeps the pattern functions verbatim (``core/costs`` prices layers by them)
+and holds the layers of one model as a plain per-layer list instead of the
+JAX package's group-stacked leaves. Only ``attn`` layers (self-attention +
+dense MLP) are ported so far.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Group patterns
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str
+    window: Optional[int] = None
+
+
+def group_pattern(cfg: ModelConfig, role: str = "decoder") -> list[LayerSpec]:
+    """Smallest repeating pattern of layers for this architecture."""
+    if role == "encoder":  # encdec encoder: bidirectional self-attn blocks
+        return [LayerSpec("attn")]
+    if cfg.family == "encdec":  # decoder: self-attn + cross-attn every layer
+        return [LayerSpec("cross_attn")]
+    if cfg.family == "moe":
+        return [LayerSpec("attn_moe", cfg.sliding_window)]
+    if cfg.family == "ssm":
+        return [LayerSpec("rwkv")]
+    if cfg.family == "hybrid":
+        period = cfg.attn_period or 6
+        return [LayerSpec("mamba")] * (period - 1) + [LayerSpec("mamba_attn")]
+    if cfg.family == "vlm":
+        period = cfg.cross_attn_period or 5
+        return [LayerSpec("cross_attn")] + [LayerSpec("attn")] * (period - 1)
+    if cfg.local_global_period:  # gemma2: alternate local / global
+        return [LayerSpec("attn", cfg.local_window), LayerSpec("attn", None)]
+    return [LayerSpec("attn", cfg.sliding_window)]
+
+
+def group_layout(cfg: ModelConfig, num_layers: Optional[int] = None,
+                 role: str = "decoder") -> tuple[list[LayerSpec], int, int]:
+    """(pattern, n_groups, n_tail): n_tail layers don't fill a full group and
+    run outside the scan (e.g. zamba2's 38 = 6*6 + 2)."""
+    pattern = group_pattern(cfg, role)
+    n_layers = num_layers if num_layers is not None else cfg.num_layers
+    n_groups = n_layers // len(pattern)
+    n_tail = n_layers - n_groups * len(pattern)
+    return pattern, n_groups, n_tail
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / decode (attention + dense MLP layers)
+# ---------------------------------------------------------------------------
+
+def _require_attn(spec: LayerSpec) -> None:
+    if spec.kind != "attn":
+        raise ValueError(f"layer kind {spec.kind!r} is not ported yet "
+                         "(attn only)")
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               device) -> dict:
+    _require_attn(spec)
+    d = cfg.d_model
+    return {"norm1": L.init_norm(d, cfg.norm, device),
+            "attn": A.init_attention(gen, cfg, device),
+            "norm2": L.init_norm(d, cfg.norm, device),
+            "mlp": M.init_mlp(gen, cfg, device)}
+
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, dtype, device) -> Any:
+    _require_attn(spec)
+    win = spec.window
+    cache_len = min(max_len, win) if win else max_len
+    return A.init_cache(cfg, batch, cache_len, dtype, device)
+
+
+def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
+              post_key: str) -> Tensor:
+    if cfg.post_norm and post_key in p:
+        delta = L.apply_norm(delta, p[post_key], cfg.norm)
+    return x + delta
+
+
+def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,
+                 spec: LayerSpec) -> tuple[Tensor, Any]:
+    """Single-token decode step of one layer."""
+    _require_attn(spec)
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    h, cache = A.decode_attend(h, cache, p["attn"], cfg, window=spec.window)
+    x = _residual(x, h, p, cfg, "post1")
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    h = M.apply_mlp(h, p["mlp"], cfg)
+    return _residual(x, h, p, cfg, "post2"), cache
