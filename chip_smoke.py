@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device   — requires CUDA; prints the card's name and power limit and the
               torch / CUDA / nvcc / driver versions.
-2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``.
+2. build    — compiles the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card at the main path's shapes, and times the kernel, the
               plain version, a PyTorch yardstick call and the bound.
@@ -20,6 +20,18 @@ Phases (any failure raises and the script exits non-zero):
 5. backends — the same config cut to 2 layers served by 'ref', 'fused' and
               'packed' engines over ONE weight store: logits and tokens must
               be bit-identical; counts the fused matmul kernel's launches.
+6. unfused  — the kernel API (``repro_torch.kernels.ops``), one PANN linear
+              deployed as "quantize, then multiply codes", over a layer's
+              seven projections and the lm_head at llama3-8b's full widths,
+              at M = 4 (the decode batch) and M = 512 (a prefill chunk):
+              x -> quantize_act -> pann_matmul ('fused' and 'planes'),
+              pann_matmul_packed and unsigned_matmul, and x -> pann_matmul
+              through the prologue kernel in both modes. Every kernel is
+              held bit for bit against its plain version, the four codes
+              products against each other and ``ref.pann_matmul_ref``, and
+              quantize_act against ``ref.quantize_act_ref`` at 2, 4, 6 and 8
+              bits and on bf16; checks the launch counts of the pass, then
+              repeats the checks (uncounted) at ragged M and K.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last line
 is ``{"ok": true, "device": {...}}``. A longer report is written to
@@ -42,6 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 LADDER = (2, 4, 6)
 BATCH, PROMPT, GEN, REQUESTS = 4, 32, 16, 6
 CACHE_BITS = 4
@@ -84,9 +97,10 @@ def time_ms(fn, iters: int) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -282,20 +296,30 @@ def _requests(cfg, seed):
             for i in range(REQUESTS)]
 
 
+# every wrapper's launch counter: (kernel, module, attribute)
+COUNTERS = (("pann_matmul_act", "pann_matmul", "launches"),
+            ("pann_matmul_packed_act", "pann_matmul_packed", "launches"),
+            ("decode_attention", "pann_attention", "launches"),
+            ("pann_matmul", "pann_matmul", "pann_matmul_launches"),
+            ("pann_matmul_packed", "pann_matmul_packed",
+             "pann_matmul_packed_launches"),
+            ("unsigned_matmul", "unsigned_matmul", "launches"),
+            ("quantize_act", "quantize_act", "launches"))
+
+
+def _counter_module(name: str):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
 def _reset_counts():
-    from repro_torch.kernels import pann_attention as pa
-    from repro_torch.kernels import pann_matmul as pm
-    from repro_torch.kernels import pann_matmul_packed as pk
-    pm.launches = pk.launches = pa.launches = 0
+    for _, mod, attr in COUNTERS:
+        setattr(_counter_module(mod), attr, 0)
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import pann_attention as pa
-    from repro_torch.kernels import pann_matmul as pm
-    from repro_torch.kernels import pann_matmul_packed as pk
-    return {"pann_matmul_act": pm.launches,
-            "pann_matmul_packed_act": pk.launches,
-            "decode_attention": pa.launches}
+    return {kernel: getattr(_counter_module(mod), attr)
+            for kernel, mod, attr in COUNTERS}
 
 
 def full_width_serve() -> dict:
@@ -324,9 +348,9 @@ def full_width_serve() -> dict:
     steps_by_rung = {b: engine.steps_by_rung[b] - steps0[b] for b in LADDER}
     steps = sum(steps_by_rung.values())
     n_layers = cfg.num_layers
-    want = {"pann_matmul_act": 0,
-            "pann_matmul_packed_act": (7 * n_layers + 1) * steps,
-            "decode_attention": n_layers * steps}
+    want = dict.fromkeys(counts, 0)
+    want.update({"pann_matmul_packed_act": (7 * n_layers + 1) * steps,
+                 "decode_attention": n_layers * steps})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want} "
                              f"over {steps} decode steps")
@@ -521,23 +545,293 @@ def backends_agree() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the unfused path through the kernel API
+# ---------------------------------------------------------------------------
 
-def _kernel_entry(name, source, replaces, rows, launches, per_step_key,
-                  tolerance):
+UNFUSED_M = (4, 512)        # the serve's decode batch; a prefill chunk
+PATH_BITS = 8               # the path's activation bits
+SWEEP_BITS = (2, 4, 6)      # quantize_act also checked at these widths
+PLAIN_ITERS = 2
+
+
+def _projections(cfg) -> list:
+    """(name, K, N) of one llama3-8b layer's seven projections, then the
+    lm_head."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
+            ("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff),
+            ("w_down", cfg.d_ff, d), ("lm_head", d, cfg.vocab_size)]
+
+
+def _agree(name: str, got, want, err: dict) -> None:
+    """Bit-identity of a kernel's output with its plain version; records
+    the measured max |difference| under ``name``."""
+    diff = (got.double() - want.double()).abs().max().item()
+    err[name] = max(err.get(name, 0.0), diff)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: max |diff| {diff} (must be 0)")
+
+
+def _check_unfused(x, packed, w, out, err: dict) -> None:
+    """Every output of one pass at one projection and M against its plain
+    version, the codes products against each other and the oracle, and
+    quantize_act at the sweep's other widths and on bf16 (launches made
+    here are not the path's)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    from repro_torch.kernels import unsigned_matmul as um
+    xq, sx = out["quantize_act"]
+    qr, sr = ref.quantize_act_ref(x, PATH_BITS)
+    _agree("quantize_act", xq, qr, err)
+    _agree("quantize_act", sx, sr, err)
+    for bits, xb in [(b, x) for b in SWEEP_BITS] + [
+            (PATH_BITS, x.to(torch.bfloat16))]:
+        q, s = ops.quantize_act(xb, bits=bits)
+        qr, sr = ref.quantize_act_ref(xb, bits)
+        _agree("quantize_act", q, qr, err)
+        _agree("quantize_act", s, sr, err)
+    pp, pn, gamma = packed["planes_pos"], packed["planes_neg"], \
+        packed["gamma"]
+    oracle = ref.pann_matmul_ref(xq, pp, pn, sx, gamma)
+    for mode in pm.MODES:
+        _agree("pann_matmul", out[f"pann_matmul/{mode}"],
+               pm.pann_matmul_plain(xq, pp, pn, sx, gamma, mode=mode), err)
+    if "pann_matmul_packed" in out:
+        _agree("pann_matmul_packed", out["pann_matmul_packed"],
+               pk.pann_matmul_packed_plain(xq, w["ppk"], w["pnk"], sx,
+                                           gamma), err)
+    _agree("unsigned_matmul", out["unsigned_matmul"],
+           um.unsigned_matmul_plain(xq, w["w_q"], sx, gamma), err)
+    for key in ("pann_matmul/fused", "pann_matmul/planes",
+                "pann_matmul_packed", "unsigned_matmul"):
+        if key in out and not torch.equal(out[key], oracle):
+            raise AssertionError(f"{key} differs from ref.pann_matmul_ref")
+    n = pp.shape[2]
+    operands = ops.act_operands(x, packed, PATH_BITS)
+    for mode in pm.MODES:
+        _agree("pann_matmul_act", out[f"pann_matmul_act/{mode}"],
+               pm.pann_matmul_act_plain(*operands, mode)[:, :n], err)
+    if not torch.equal(out["pann_matmul_act/fused"],
+                       out["pann_matmul_act/planes"]):
+        raise AssertionError("pann_matmul_act modes disagree")
+
+
+def _time_unfused(x, packed, w, out, names, per_pass) -> list:
+    """Kernel, plain and library times (cold L2) and the bound of every
+    kernel of the pass at one (K, N) and M; one row per kernel and mode."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    from repro_torch.kernels import unsigned_matmul as um
+    xq, sx = out["quantize_act"]
+    pp, pn, gamma = packed["planes_pos"], packed["planes_neg"], \
+        packed["gamma"]
+    ppk, pnk, w_q = w["ppk"], w["pnk"], w["w_q"]
+    p, k, n = pp.shape
+    m = x.shape[0]
+    operands = ops.act_operands(x, packed, PATH_BITS)
+    # the library yardstick of the products: cuBLAS's int8 product of the
+    # same integers where torch._int_mm's shape rules allow it (M > 16),
+    # else fp32 torch.matmul on the dequantized weight
+    if m > 16:
+        if not torch.equal(torch._int_mm(xq, w_q),
+                           ref.int_matmul(xq, w_q)):
+            raise AssertionError("torch._int_mm differs from the integers")
+        lib_name = "torch._int_mm (int8 codes x int8 w_q)"
+        lib = time_ms(lambda: torch._int_mm(xq, w_q), 10)
+    else:
+        w_deq = w_q.float() * gamma[None, :]
+        lib_name = "fp32 torch.matmul on the dequantized weight"
+        lib = time_ms(lambda: torch.matmul(x, w_deq), 10)
+        del w_deq
+    out_b = 4 * (m * n + n + m)          # y, gamma, s_x
+    products = 2 * m * k * n
+    cases = [
+        ("quantize_act", None,
+         lambda: ops.quantize_act(x, bits=PATH_BITS),
+         lambda: ref.quantize_act_ref(x, PATH_BITS),
+         (4 * m * k + m * k + 4 * m, 4 * m * k, FP32_OPS_PER_S), None, None),
+        ("pann_matmul_act", "fused",
+         lambda: pm.pann_matmul_act(*operands, mode="fused"),
+         lambda: pm.pann_matmul_act_plain(*operands, "fused"),
+         (4 * m * k + 2 * p * k * n + 4 * n + out_b + 16, products,
+          INT8_OPS_PER_S), lib, lib_name),
+        ("pann_matmul_act", "planes",
+         lambda: pm.pann_matmul_act(*operands, mode="planes"),
+         lambda: pm.pann_matmul_act_plain(*operands, "planes"),
+         (4 * m * k + 2 * p * k * n + 4 * n + out_b + 16, products,
+          INT8_OPS_PER_S), lib, lib_name)]
+    for mode in pm.MODES:
+        cases.append((
+            "pann_matmul", mode,
+            lambda mode=mode: pm.pann_matmul(xq, pp, pn, sx, gamma,
+                                             mode=mode),
+            lambda mode=mode: pm.pann_matmul_plain(xq, pp, pn, sx, gamma,
+                                                   mode=mode),
+            (m * k + 2 * p * k * n + out_b, products, INT8_OPS_PER_S), lib,
+            lib_name))
+    cases += [
+        ("pann_matmul_packed", None,
+         lambda: pk.pann_matmul_packed(xq, ppk, pnk, sx, gamma),
+         lambda: pk.pann_matmul_packed_plain(xq, ppk, pnk, sx, gamma),
+         (m * k + 2 * p * (k // 8) * n + out_b, products, INT8_OPS_PER_S),
+         lib, lib_name),
+        ("unsigned_matmul", None,
+         lambda: um.unsigned_matmul(xq, w_q, sx, gamma),
+         lambda: um.unsigned_matmul_plain(xq, w_q, sx, gamma),
+         (m * k + k * n + out_b, products, INT8_OPS_PER_S), lib, lib_name)]
+    rows = []
+    for kernel, mode, fn, plain, (nbytes, ops_n, rate), lib_ms, lname \
+            in cases:
+        b_ms, b_by = bound_ms(nbytes, ops_n, rate)
+        rows.append({"kernel": kernel, "mode": mode, "M": m, "K": k, "N": n,
+                     "P": p, "modules": names, "per_pass": per_pass,
+                     "ms": time_ms(fn, 10),
+                     "plain_ms": time_ms(plain, PLAIN_ITERS),
+                     "library_ms": lib_ms, "library": lname,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def _pack(gen, k: int, n: int, r: float) -> tuple:
+    """N(0, 0.02) weights packed by the kernel API, and the packed planes
+    and int8 codes the codes kernels take."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    packed = ops.pann_pack_weights(w, r)
+    del w
+    pp, pn = packed["planes_pos"], packed["planes_neg"]
+    wts = {"w_q": pm.rebuild_weight(pp, pn).to(torch.int8)}
+    if k % 8 == 0:
+        wts.update(ppk=pk.pack_planes(pp), pnk=pk.pack_planes(pn))
+    return packed, wts
+
+
+def _pass(x, packed, wts) -> dict:
+    """The unfused path on rows x: quantize_act, then the four codes
+    products (the packed one only where K % 8 == 0), and the prologue
+    kernel through ops.pann_matmul."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    pp, pn, gamma = packed["planes_pos"], packed["planes_neg"], \
+        packed["gamma"]
+    xq, sx = ops.quantize_act(x, bits=PATH_BITS)
+    out = {"quantize_act": (xq, sx)}
+    for mode in pm.MODES:
+        out[f"pann_matmul/{mode}"] = pm.pann_matmul(xq, pp, pn, sx, gamma,
+                                                    mode=mode)
+    if x.shape[1] % 8 == 0:
+        out["pann_matmul_packed"] = pk.pann_matmul_packed(
+            xq, wts["ppk"], wts["pnk"], sx, gamma)
+    out["unsigned_matmul"] = ops.unsigned_matmul(xq, wts["w_q"], sx, gamma)
+    for mode in pm.MODES:
+        out[f"pann_matmul_act/{mode}"] = ops.pann_matmul(x, packed,
+                                                         PATH_BITS, mode=mode)
+    return out
+
+
+# ragged shapes the pass does not reach: the decode kernels' 8-row tile, the
+# tile kernels' row tail below 64 and a K that is no multiple of 32 (130 is
+# not a multiple of 8, so the packed kernel is left out there)
+RAGGED = ((1, 4096, 1024), (8, 4096, 1024), (13, 4096, 1024),
+          (100, 4096, 1024), (8, 130, 72), (13, 130, 72), (100, 130, 72))
+
+
+def ragged_parity(gen, r: float, err: dict) -> None:
+    """Every kernel of the pass against its plain version at RAGGED shapes
+    (these launches are not the path's and are not counted)."""
+    weights: dict = {}
+    for m, k, n in RAGGED:
+        if (k, n) not in weights:
+            weights[(k, n)] = _pack(gen, k, n, r)
+        packed, wts = weights[(k, n)]
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        out = _pass(x, packed, wts)
+        torch.cuda.synchronize()
+        _check_unfused(x, packed, wts, out, err)
+
+
+def unfused_path(gen) -> dict:
+    """Phase 6: one pass of the unfused path over a layer's projections and
+    the lm_head at each M, weights N(0, 0.02) packed at the serve ladder's
+    top-rung R, activations N(0, 1). The launch counters are set to 0 just
+    before each projection's pass and read just after it."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.serve_engine import build_ladder
+    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    r_top = max(op.r for op in build_ladder(LADDER, d=float(cfg.d_model)))
+    projections = _projections(cfg)
+    launches = dict.fromkeys(_counts(), 0)
+    err: dict = {}
+    rows, planes, timed = [], {}, set()
+    t0 = time.perf_counter()
+    for name, k, n in projections:
+        packed, wts = _pack(gen, k, n, r_top)
+        planes[name] = packed["n_planes"]
+        print(f"[unfused] {name} K={k} N={n}: P={packed['n_planes']} planes "
+              f"at R={r_top:.4f}", flush=True)
+        first = (k, n) not in timed
+        timed.add((k, n))
+        for m in UNFUSED_M:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            _reset_counts()
+            out = _pass(x, packed, wts)
+            torch.cuda.synchronize()
+            for kernel, count in _counts().items():
+                launches[kernel] += count
+            _check_unfused(x, packed, wts, out, err)
+            if first:
+                same = [p for p, kk, nn in projections if (kk, nn) == (k, n)]
+                rows += _time_unfused(x, packed, wts, out, ",".join(same),
+                                      len(same))
+            del x, out
+        del packed, wts
+        torch.cuda.empty_cache()
+    want = dict.fromkeys(launches, 0)
+    per_m = len(projections) * len(UNFUSED_M)
+    want.update({"quantize_act": per_m, "pann_matmul": 2 * per_m,
+                 "pann_matmul_packed": per_m, "unsigned_matmul": per_m,
+                 "pann_matmul_act": 2 * per_m})
+    if launches != want:
+        raise AssertionError(f"unfused launch counts {launches} != {want}")
+    ragged_parity(gen, r_top, err)
+    return {"config": "llama3-8b full-width projections (7 of a layer and "
+                      "the lm_head), random N(0, 0.02) weights packed at "
+                      "the top rung R, N(0, 1) activations, seed 0",
+            "r_top": r_top, "M": list(UNFUSED_M), "act_bits": PATH_BITS,
+            "planes": planes, "launches": launches,
+            "ragged_shapes_checked": [list(s) for s in RAGGED],
+            "max_abs_err": err,
+            "seconds": time.perf_counter() - t0, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+
+def _kernel_entry(name, source, replaces, rows, launches, count_key,
+                  max_abs_err, times_are):
+    """One kernel of the ``kernels`` line: its times summed over the
+    launches of one step (phases 3-5) or one pass (phase 6) at the rows'
+    shapes, each row weighted by its launch count ``count_key``."""
     def total(key):
-        return float(sum(r[key] * r[per_step_key] for r in rows))
+        return float(sum(r[key] * r[count_key] for r in rows))
     by = {r["bound_by"] for r in rows}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": float(max(r["max_abs_err"] for r in rows)),
+            "max_abs_err": float(max_abs_err),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "library_ms": total("library_ms"),
+            "library_ms": (None if any(r["library_ms"] is None for r in rows)
+                           else total("library_ms")),
             "parity": "bit-identical to the plain version",
-            "tolerance": tolerance,
-            "times_are": "one full-width decode step's launches, cold L2",
-            "shapes": rows}
+            "tolerance": "bit-identical (0)",
+            "times_are": times_are, "shapes": rows}
 
 
 def main() -> int:
@@ -594,40 +888,75 @@ def main() -> int:
     agree = backends_agree()
     print("[backends] " + json.dumps(agree), flush=True)
 
+    # phase 6: the unfused path through the kernel API
+    unfused = unfused_path(gen)
+    print(f"[unfused] all bit-identical to their plain versions "
+          f"({unfused['seconds']:.1f} s); launches {unfused['launches']}; "
+          f"max |err| {unfused['max_abs_err']}", flush=True)
+    for r in unfused["rows"]:
+        print("[unfused] " + json.dumps(r), flush=True)
+
+    step = "one full-width decode step's launches, cold L2"
     kernels = [
         _kernel_entry("pann_matmul_act", "src/repro_torch/csrc/pann_matmul.cu",
                       "src/repro/kernels/pann_matmul.py:329",
                       mm_rows["pann_matmul_act"],
                       agree["launches"]["fused"]["pann_matmul_act"],
-                      "per_step", "bit-identical (0)"),
+                      "per_step",
+                      max(max(r["max_abs_err"]
+                              for r in mm_rows["pann_matmul_act"]),
+                          unfused["max_abs_err"]["pann_matmul_act"]), step),
         _kernel_entry("pann_matmul_packed_act",
                       "src/repro_torch/csrc/pann_matmul_packed.cu",
                       "src/repro/kernels/pann_matmul_packed.py:255",
                       mm_rows["pann_matmul_packed_act"],
                       serve["launches"]["pann_matmul_packed_act"],
-                      "per_step", "bit-identical (0)"),
+                      "per_step", max(r["max_abs_err"] for r in
+                                      mm_rows["pann_matmul_packed_act"]),
+                      step),
         _kernel_entry("decode_attention",
                       "src/repro_torch/csrc/pann_attention.cu",
                       "src/repro/kernels/pann_attention.py:188",
                       [r for r in att_rows if r["S"] == PROMPT + GEN],
                       serve["launches"]["decode_attention"],
-                      "per_step", "bit-identical (0)"),
+                      "per_step", max(r["max_abs_err"] for r in att_rows),
+                      step),
     ]
+    kernels[0]["launches_unfused"] = unfused["launches"]["pann_matmul_act"]
+    kernels[0]["unfused_shapes"] = [r for r in unfused["rows"]
+                                    if r["kernel"] == "pann_matmul_act"]
     kernels[2]["shapes"] = att_rows
-    kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in att_rows)
+    one_pass = ("one pass of the unfused path (7 projections and the "
+                "lm_head at M = 4 and 512), cold L2")
+    for name, source, replaces in (
+            ("pann_matmul", "src/repro_torch/csrc/pann_matmul.cu",
+             "src/repro/kernels/pann_matmul.py:113"),
+            ("pann_matmul_packed",
+             "src/repro_torch/csrc/pann_matmul_packed.cu",
+             "src/repro/kernels/pann_matmul_packed.py:99"),
+            ("unsigned_matmul", "src/repro_torch/csrc/unsigned_matmul.cu",
+             "src/repro/kernels/unsigned_matmul.py:61"),
+            ("quantize_act", "src/repro_torch/csrc/quantize_act.cu",
+             "src/repro/kernels/quantize_act.py:63")):
+        kernels.append(_kernel_entry(
+            name, source, replaces,
+            [r for r in unfused["rows"] if r["kernel"] == name],
+            unfused["launches"][name], "per_pass",
+            unfused["max_abs_err"][name], one_pass))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "nvcc": nvcc, "driver": driver,
               "build_s": build.build_seconds, "kernels": kernels,
-              "serve": serve, "backends": agree}
+              "serve": serve, "backends": agree, "unfused": unfused}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
-                                   if k != "shapes"} for e in kernels]}))
+                                   if k not in ("shapes", "unfused_shapes")}
+                                  for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,39 +1,52 @@
-"""Section 5: PANN weight quantization (Eq. 12) and the bit-plane view of
-the integer codes — the serving subset of ``repro.core.pann``.
+"""Section 5: PANN weight quantization (Eq. 12), the bit-plane view of the
+integer codes and the deployment forward through the planes — the
+deployment subset of ``repro.core.pann`` (the QAT branch is not ported).
 
 Weights are quantized with step gamma_w = ||w||_1 / (R d), and the
 non-negative halves of the unsigned split are stored as binary planes,
-w_q = sum_k 2^k B_k. A rung of the serving ladder is a view that drops the
-low ``shift`` planes of the one max-R store (``masked_codes``).
+w_q = sum_k 2^k B_k, so w_q^T x = sum_k 2^k (B_k^T x): every plane product
+is an addition network (Eq. 10). A rung of the serving ladder is a view
+that drops the low ``shift`` planes of the one max-R store
+(``masked_codes``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import quant
+from repro_torch.core.unsigned import unsigned_split
+
 Tensor = torch.Tensor
 
 
-def pann_gamma(w: Tensor, r: float, dim: int = 0, eps: float = 1e-12
-               ) -> Tensor:
-    """gamma_w = ||w||_1 / (R d) over the fan-in dimension ``dim``
-    (keepdim). The fp32 sum runs in torch's order, not XLA's, so gamma may
-    differ from the JAX package's in the last bits."""
-    d = w.shape[dim]
-    l1 = torch.sum(torch.abs(w), dim=dim, keepdim=True)
+def pann_gamma(w: Tensor, r: float, dim=0, eps: float = 1e-12) -> Tensor:
+    """gamma_w = ||w||_1 / (R d) over the fan-in dimension(s) ``dim``
+    (keepdim; None: per tensor). The fp32 sum runs in torch's order, not
+    XLA's, so gamma may differ from the JAX package's in the last bits."""
+    dims = quant._reduce_dims(w, dim)
+    d = math.prod(w.shape[a] for a in dims)
+    l1 = torch.sum(torch.abs(w), dim=dims, keepdim=True)
     # a tensor divisor keeps the division IEEE on CUDA, where torch turns
     # division by a Python scalar into a multiply by its reciprocal
     return torch.clamp(l1, min=eps) / l1.new_full((), r * d)
 
 
-def pann_quantize(w: Tensor, r: float, dim: int = 0
-                  ) -> Tuple[Tensor, Tensor]:
+def pann_quantize(w: Tensor, r: float, dim=0) -> Tuple[Tensor, Tensor]:
     """Eq. (12): Q(w) = round(w / gamma_w). Returns (float-typed signed
     integer codes, gamma)."""
     gamma = pann_gamma(w, r, dim)
     return torch.round(w / gamma), gamma
+
+
+def additions_per_element(w_q: Tensor, dim=None) -> Tensor:
+    """||w_q||_1 / d — the realized addition factor (should be ~R)."""
+    dims = quant._reduce_dims(w_q, dim)
+    d = math.prod(w_q.shape[a] for a in dims)
+    return torch.sum(torch.abs(w_q), dim=dims) / w_q.new_full((), float(d))
 
 
 def weight_storage_bits(w_q: Tensor) -> int:
@@ -80,3 +93,57 @@ def view_shift(r_max: float, r: float, max_shift: int = 6) -> int:
 def snapped_r(r_max: float, shift: int) -> float:
     """The budget a ``shift``-plane view actually realizes: r_max / 2^s."""
     return float(r_max) / float(1 << int(shift))
+
+
+def bitplane_matmul(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                    out_dtype=torch.float32) -> Tensor:
+    """y = x @ (W+ - W-) with W+- given as binary planes: per plane an
+    addition-only pass, combined with powers of two — the multiplier-free
+    dataflow of Eq. (10) with the Sec.-4 split of Eq. (5)-(6)."""
+    n_planes = planes_pos.shape[0]
+    weights = (2.0 ** torch.arange(n_planes, device=x.device)).to(out_dtype)
+    y = torch.zeros(x.shape[:-1] + (planes_pos.shape[-1],), dtype=out_dtype,
+                    device=x.device)
+    for k in range(n_planes):
+        pp = planes_pos[k].to(out_dtype)
+        pn = planes_neg[k].to(out_dtype)
+        y = y + weights[k] * (x @ pp - x @ pn)
+    return y
+
+
+@dataclasses.dataclass(frozen=True)
+class PannWeights:
+    """Deployment artifact: quantized signed codes and their step."""
+    w_q: Tensor         # signed integer codes (float-typed)
+    gamma: Tensor       # quantization step(s)
+    r: float            # budget used
+
+
+def pann_prepare(w: Tensor, r: float, dim=None) -> PannWeights:
+    w_q, gamma = pann_quantize(w, r, dim)
+    return PannWeights(w_q=w_q, gamma=gamma, r=r)
+
+
+def pann_matmul_reference(x: Tensor, pw: PannWeights, act_bits: int,
+                          act_signed: bool = False,
+                          act_scale: Optional[Tensor] = None) -> Tensor:
+    """Integer-exact PANN product: quantize the activations (RUQ), multiply
+    by the quantized weights (the result of Eq. 11), rescale."""
+    x_q, s_x = quant.ruq(x, act_bits, act_signed, scale=act_scale)
+    y_int = x_q @ pw.w_q
+    return y_int * s_x * pw.gamma.reshape(-1)
+
+
+def pann_bitplane_linear(x: Tensor, pw: PannWeights, act_bits: int,
+                         bias: Optional[Tensor] = None) -> Tensor:
+    """Deployment forward through bit-planes — numerically identical to
+    ``pann_matmul_reference`` (integer-exact), multiplier-free dataflow."""
+    x_q, s_x = quant.ruq(x, act_bits, signed=False)
+    pos, neg = unsigned_split(pw.w_q)
+    n_planes = weight_storage_bits(pw.w_q)
+    y_int = bitplane_matmul(x_q, bitplane_decompose(pos, n_planes),
+                            bitplane_decompose(neg, n_planes))
+    y = y_int * s_x * pw.gamma.reshape(-1)
+    if bias is not None:
+        y = y + bias
+    return y

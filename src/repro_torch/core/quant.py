@@ -1,19 +1,84 @@
-"""The serving subset of the affine activation quantizer (port of
-``repro.core.quant``): calibration bounds, (s, z) scalars, level counts and
-the encode map.
+"""The deployment subset of the quantizers (port of ``repro.core.quant``):
+RUQ, the regular uniform quantizer (absmax scale, integer codes), and the
+affine activation quantizer of the serving path (calibration bounds, (s, z)
+scalars, level counts and the encode map).
 
-Every op here is a single correctly rounded fp32 operation (min, max,
+Every op here is a single correctly rounded fp32 operation (max, min,
 subtract, divide, round half to even, clamp), so the port and the JAX
 package give the same bits on the same inputs. ``torch.round`` rounds half
-to even like ``jnp.round``; ``floor(x + 0.5)`` would not.
+to even like ``jnp.round``; ``floor(x + 0.5)`` would not. Divisors are
+device tensors: on CUDA torch turns division by a Python scalar into a
+multiply by its reciprocal.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class QRange:
+    """Integer code range [qmin, qmax]."""
+    qmin: int
+    qmax: int
+
+    @property
+    def n_levels(self) -> int:
+        return self.qmax - self.qmin + 1
+
+
+def qrange(bits: int, signed: bool, half_range: bool = False) -> QRange:
+    """Code range of a ``bits``-wide quantizer; ``half_range`` is the
+    paper's App. A.4 convention for unsigned values on signed hardware,
+    [0, 2^(b-1))."""
+    if signed:
+        return QRange(-(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+    if half_range:
+        return QRange(0, (1 << (bits - 1)) - 1)
+    return QRange(0, (1 << bits) - 1)
+
+
+def _reduce_dims(x: Tensor, dim) -> tuple:
+    """The dims a per-tensor (None) or per-``dim`` reduction runs over."""
+    if dim is None:
+        return tuple(range(x.ndim))
+    if isinstance(dim, int):
+        dim = (dim,)
+    return tuple(d % x.ndim for d in dim)
+
+
+def ruq_scale(x: Tensor, bits: int, signed: bool, dim=None,
+              half_range: bool = False, eps: float = 1e-12) -> Tensor:
+    """Per-tensor (``dim=None``) or per-``dim`` absmax scale (keepdim):
+    ``max(amax, eps) / qmax``, amax of |x| (signed) or of relu(x)."""
+    qr = qrange(bits, signed, half_range)
+    dims = _reduce_dims(x, dim)
+    a = torch.abs(x) if signed else torch.clamp(x, min=0.0)
+    amax = torch.amax(a, dim=dims, keepdim=True)
+    return torch.clamp(amax, min=eps) / amax.new_full((), float(qr.qmax))
+
+
+def quantize(x: Tensor, scale: Tensor, qr: QRange) -> Tensor:
+    """Reals to integer codes (round half to even, clip), float-typed."""
+    return torch.clamp(torch.round(x / scale), qr.qmin, qr.qmax)
+
+
+def dequantize(q: Tensor, scale: Tensor) -> Tensor:
+    return q * scale
+
+
+def ruq(x: Tensor, bits: int, signed: bool, dim=None,
+        scale: Optional[Tensor] = None, half_range: bool = False
+        ) -> Tuple[Tensor, Tensor]:
+    """Quantize to integer codes, returning (float-typed codes, scale)."""
+    qr = qrange(bits, signed, half_range)
+    if scale is None:
+        scale = ruq_scale(x, bits, signed, dim, half_range)
+    return quantize(x, scale, qr), scale
 
 
 def act_range_bounds(x: Tensor, lo: Optional[Tensor] = None,

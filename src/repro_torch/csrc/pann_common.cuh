@@ -1,14 +1,25 @@
-// Shared pieces of the two PANN serving matmul kernels
-// (pann_matmul.cu, pann_matmul_packed.cu): the in-kernel affine encode and
-// the split-K epilogue.
+// Shared pieces of the integer matmul kernels (pann_matmul.cu,
+// pann_matmul_packed.cu, unsigned_matmul.cu): the row sources (fp32
+// activations encoded in the kernel, or int8 codes loaded as they are), the
+// decode batch's code panel, the 64 x 128 output tile of the larger-M
+// kernels, and the split-K epilogue.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace pann {
 
-constexpr int kThreads = 128;   // threads per block of the main kernels
+constexpr int kThreads = 128;   // threads per block of the decode kernels
 constexpr int kCols = 4;        // output columns per thread (one 32-bit load)
+constexpr int kDecodeRows = 8;  // M above this takes the tile kernels
+
+// Tile kernels: a block computes kTileM x kTileN outputs, stepping K by
+// kTileK; each of its threads owns an 8 x 4 sub-tile. At M = 512 a weight
+// tile in shared memory serves 64 rows, where the decode kernels (4 or 8
+// rows a block) would read every plane 64 times.
+constexpr int kTileM = 64, kTileN = 128, kTileK = 32;
+constexpr int kTileWords = kTileN / kCols;                 // 32
+constexpr int kTileThreads = (kTileM / 8) * kTileWords;    // 256
 
 // q = clip(rint(x / s) + z, 0, n): op for op repro.core.quant.affine_encode.
 // IEEE division (no --use_fast_math) and rintf (round half to even).
@@ -18,19 +29,49 @@ __device__ __forceinline__ int8_t encode(float x, float s, float z, float n) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-// Encode rows [m0, m0 + MT) x columns [k0, k0 + kc) of x (M, K) into the
-// block's shared code panel codes[MT][kchunk]; rows past M encode to 0.
-template <int MT>
-__device__ __forceinline__ void encode_panel(const float* __restrict__ x,
-                                             int8_t* codes, int M, int K,
-                                             int m0, int k0, int kc,
-                                             int kchunk, float s, float z,
-                                             float n) {
+__device__ __forceinline__ int live_shift(const float* qp, int P) {
+  int shift = static_cast<int>(rintf(qp[3]));
+  return shift < 0 ? 0 : (shift > P ? P : shift);
+}
+
+// Row sources: a kernel reads the activation code q[m, k] through reader(),
+// made once per block on the device, and its first live plane from shift().
+struct FloatRows {  // fp32 x, encoded in the kernel; qp = [s, z, n, shift]
+  const float* x;
+  const float* qp;
+  int K;
+  struct Reader {
+    const float* x;
+    int K;
+    float s, z, n;
+    __device__ int8_t operator()(int m, int k) const {
+      return encode(x[(size_t)m * K + k], s, z, n);
+    }
+  };
+  __device__ Reader reader() const { return {x, K, qp[0], qp[1], qp[2]}; }
+  __device__ int shift(int P) const { return live_shift(qp, P); }
+};
+
+struct CodeRows {  // int8 codes x_q; every plane is live
+  const int8_t* xq;
+  int K;
+  __device__ CodeRows reader() const { return *this; }
+  __device__ int8_t operator()(int m, int k) const {
+    return xq[(size_t)m * K + k];
+  }
+  __device__ int shift(int) const { return 0; }
+};
+
+// Decode kernels: rows [m0, m0 + MT) x columns [k0, k0 + kc) of the codes
+// into the block's shared panel codes[MT][kchunk]; rows past M are 0.
+template <int MT, class Rd>
+__device__ __forceinline__ void load_panel(const Rd& rd, int8_t* codes, int M,
+                                           int m0, int k0, int kc,
+                                           int kchunk) {
   for (int i = threadIdx.x; i < MT * kc; i += blockDim.x) {
     int mm = i / kc, kk = i - mm * kc;
     int m = m0 + mm;
-    codes[mm * kchunk + kk] =
-        m < M ? encode(x[(size_t)m * K + k0 + kk], s, z, n) : int8_t(0);
+    codes[mm * kchunk + kk] = m < M ? rd(m, k0 + kk) : int8_t(0);
   }
 }
 
@@ -50,10 +91,132 @@ __device__ __forceinline__ void store_partial(int* __restrict__ partial,
   }
 }
 
-// y = ((sum_k partial - zcol) * s) * gamma, in the reference's association.
-// The split sums are integers, so their order cannot change the result.
+// Tile kernels: the block's kTileM x kTileK codes at rows m0.., columns
+// kb.. into shared memory as int32, so that one 16-byte load gives a thread
+// 4 k of a row. Rows past M and columns past kend are 0, so weights read
+// there (rows of the next split) add nothing.
+template <class Rd>
+__device__ __forceinline__ void load_code_tile(const Rd& rd,
+                                               int (*codes)[kTileK], int M,
+                                               int m0, int kb, int kend) {
+  for (int i = threadIdx.x; i < kTileM * kTileK; i += blockDim.x) {
+    int mm = i / kTileK, kk = i - mm * kTileK;
+    int m = m0 + mm, k = kb + kk;
+    codes[mm][kk] = (m < M && k < kend) ? static_cast<int>(rd(m, k)) : 0;
+  }
+}
+
+// Fill the kTileK x kTileN weight tile(s) at rows kb.., columns n_blk.. in
+// shared memory. ``get(k, n0, a, b)`` gives the weights of rows k..k+7 and
+// columns n0..n0+3 (b only when kTwo); it is called for k < K and n0 < N
+// only, and the rest of the tile is 0.
+template <bool kTwo, class Get>
+__device__ __forceinline__ void fill_tile(int4 (*wa)[kTileWords],
+                                          int4 (*wb)[kTileWords], int kb,
+                                          int n_blk, int K, int N, Get get) {
+  for (int i = threadIdx.x; i < (kTileK / 8) * kTileWords; i += blockDim.x) {
+    const int g = i / kTileWords, c4 = i - g * kTileWords;
+    const int k = kb + 8 * g, n0 = n_blk + c4 * kCols;
+    int a[8][kCols] = {}, b[8][kCols] = {};
+    if (k < K && n0 < N) get(k, n0, a, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      wa[8 * g + j][c4] = make_int4(a[j][0], a[j][1], a[j][2], a[j][3]);
+      if constexpr (kTwo)
+        wb[8 * g + j][c4] = make_int4(b[j][0], b[j][1], b[j][2], b[j][3]);
+    }
+  }
+}
+
+// acc[i][c] += sum_kk codes[r0 + i][kk] * w[kk][cw].c over one K step. A
+// warp shares r0 (its code loads are broadcasts) and reads 32 adjacent
+// int4 weight words.
+__device__ __forceinline__ void tile_mac(int (*codes)[kTileK],
+                                         int4 (*w)[kTileWords], int r0,
+                                         int cw, int (&acc)[8][kCols]) {
+#pragma unroll 2
+  for (int kk = 0; kk < kTileK; kk += 4) {
+    int4 q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      q[i] = *reinterpret_cast<int4*>(&codes[r0 + i][kk]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int4 wv = w[kk + j][cw];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qv = j == 0 ? q[i].x : j == 1 ? q[i].y : j == 2 ? q[i].z
+                                                                  : q[i].w;
+        acc[i][0] += qv * wv.x;
+        acc[i][1] += qv * wv.y;
+        acc[i][2] += qv * wv.z;
+        acc[i][3] += qv * wv.w;
+      }
+    }
+  }
+}
+
+// The bit-plane product on a 64 x 128 tile, for M > kDecodeRows. W gives
+// the planes: W::P, W::rebuild8 (w = sum_{p >= shift} 2^p (pos_p - neg_p)
+// of 8 rows x 4 columns) and, for kPlanes, W::bits8 (the 0/1 pos and neg
+// bits of one plane). 'fused' rebuilds the weight tile once and does one
+// product; 'planes' does the literal Eq.-10 dataflow, per live plane p
+// acc += 2^p (x @ pos_p) - 2^p (x @ neg_p). Both are exact in int32.
+template <class Src, class W, bool kPlanes>
+__global__ void __launch_bounds__(kTileThreads)
+    pann_tile_kernel(Src src, W wts, int* __restrict__ partial, int M, int K,
+                     int N, int kchunk) {
+  __shared__ __align__(16) int codes[kTileM][kTileK];
+  __shared__ int4 wa[kTileK][kTileWords];
+  __shared__ int4 wb[kPlanes ? kTileK : 1][kTileWords];
+  const auto rd = src.reader();
+  const int shift = src.shift(wts.P);
+  const int m0 = blockIdx.z * kTileM, n_blk = blockIdx.x * kTileN;
+  const int k0 = blockIdx.y * kchunk, kend = min(k0 + kchunk, K);
+  const int r0 = (threadIdx.x / kTileWords) * 8;
+  const int cw = threadIdx.x % kTileWords;
+  int acc[8][kCols] = {};
+  for (int kb = k0; kb < kend; kb += kTileK) {
+    load_code_tile(rd, codes, M, m0, kb, kend);
+    if constexpr (kPlanes) {
+      for (int p = shift; p < wts.P; ++p) {
+        fill_tile<true>(wa, wb, kb, n_blk, K, N,
+                        [&](int k, int n0, int (&a)[8][kCols],
+                            int (&b)[8][kCols]) { wts.bits8(p, k, n0, a, b); });
+        __syncthreads();
+        int ap[8][kCols] = {}, an[8][kCols] = {};
+        tile_mac(codes, wa, r0, cw, ap);
+        tile_mac(codes, wb, r0, cw, an);
+        const int bit = 1 << p;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            acc[i][c] += ap[i][c] * bit - an[i][c] * bit;
+        __syncthreads();
+      }
+    } else {
+      fill_tile<false>(wa, wb, kb, n_blk, K, N,
+                       [&](int k, int n0, int (&a)[8][kCols],
+                           int (&)[8][kCols]) { wts.rebuild8(k, n0, shift, a); });
+      __syncthreads();
+      tile_mac(codes, wa, r0, cw, acc);
+      __syncthreads();
+    }
+  }
+  if (n_blk + cw * kCols < N)
+    store_partial<8>(partial, acc, M, N, m0 + r0, n_blk + cw * kCols,
+                     blockIdx.y);
+}
+
+// y = ((sum_k partial - sum_k partial_neg - zcol) * s[m * s_stride]) * gamma
+// in the reference's association; partial_neg and zcol may be null, and
+// s_stride is 0 for a per-tensor scale (B1/B2's qparams[0]) and 1 for
+// per-row scales. The split sums are integers, so their order cannot change
+// the result.
 __global__ void epilogue_kernel(const int* __restrict__ partial,
-                                const float* __restrict__ qp,
+                                const int* __restrict__ partial_neg,
+                                const float* __restrict__ s, int s_stride,
                                 const float* __restrict__ gamma,
                                 const int* __restrict__ zcol,
                                 float* __restrict__ y, int M, int N,
@@ -62,26 +225,29 @@ __global__ void epilogue_kernel(const int* __restrict__ partial,
   size_t mn = (size_t)M * N;
   if (idx >= mn) return;
   int n = static_cast<int>(idx % N);
+  int m = static_cast<int>(idx / N);
   int acc = 0;
   for (int k = 0; k < ksplit; ++k) acc += partial[(size_t)k * mn + idx];
-  y[idx] = __fmul_rn(__fmul_rn(static_cast<float>(acc - zcol[n]), qp[0]),
+  if (partial_neg != nullptr) {
+    int neg = 0;
+    for (int k = 0; k < ksplit; ++k) neg += partial_neg[(size_t)k * mn + idx];
+    acc -= neg;  // the one Eq.-6 subtraction
+  }
+  if (zcol != nullptr) acc -= zcol[n];
+  y[idx] = __fmul_rn(__fmul_rn(static_cast<float>(acc), s[m * s_stride]),
                      gamma[n]);
 }
 
-inline int launch_epilogue(const int* partial, const float* qp,
-                           const float* gamma, const int* zcol, float* y,
-                           int M, int N, int ksplit, cudaStream_t stream) {
+inline int launch_epilogue(const int* partial, const int* partial_neg,
+                           const float* s, int s_stride, const float* gamma,
+                           const int* zcol, float* y, int M, int N,
+                           int ksplit, cudaStream_t stream) {
   size_t mn = (size_t)M * N;
   int threads = 256;
   unsigned blocks = static_cast<unsigned>((mn + threads - 1) / threads);
-  epilogue_kernel<<<blocks, threads, 0, stream>>>(partial, qp, gamma, zcol, y,
-                                                  M, N, ksplit);
+  epilogue_kernel<<<blocks, threads, 0, stream>>>(
+      partial, partial_neg, s, s_stride, gamma, zcol, y, M, N, ksplit);
   return static_cast<int>(cudaGetLastError());
-}
-
-__device__ __forceinline__ int live_shift(const float* qp, int P) {
-  int shift = static_cast<int>(rintf(qp[3]));
-  return shift < 0 ? 0 : (shift > P ? P : shift);
 }
 
 }  // namespace pann

@@ -20,9 +20,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pann_matmul", "pann_matmul_packed", "pann_attention")
+SOURCES = ("pann_matmul", "pann_matmul_packed", "pann_attention",
+           "quantize_act", "unsigned_matmul")
 
 # IEEE division and rintf are kept (no --use_fast_math); products whose
 # rounding matters use __fmul_rn in the sources, so fma contraction cannot
@@ -107,6 +110,16 @@ def entry(name: str, symbol: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = I
     return fn
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer for a C entry point; None is a null."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``t``'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check(err: int, what: str) -> None:

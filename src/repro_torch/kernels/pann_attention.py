@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.pann_matmul import ptr, stream_of
 
 Tensor = torch.Tensor
 
@@ -91,11 +90,11 @@ def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
     qp = torch.stack([q_z.to(torch.float32).reshape(()),
                       q_scale.to(torch.float32).reshape(()), *pact])
     out = torch.empty((b, kh, g, hd), dtype=torch.float32, device=qq.device)
-    err = _launcher()(ptr(qq), ptr(qp), ptr(pos), ptr(k_planes), ptr(k_s),
-                      ptr(k_z), ptr(v_planes), ptr(v_s), ptr(v_z), ptr(out),
-                      b, n_planes, s, kh, g, hd,
+    ptrs = [build.ptr(t) for t in (qq, qp, pos, k_planes, k_s, k_z,
+                                   v_planes, v_s, v_z, out)]
+    err = _launcher()(*ptrs, b, n_planes, s, kh, g, hd,
                       -1 if window is None else int(window), float(softcap),
-                      stream_of(qq))
+                      build.stream_of(qq))
     build.check(err, "decode_attention")
     global launches
     launches += 1

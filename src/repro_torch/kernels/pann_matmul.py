@@ -1,90 +1,145 @@
-"""PANN bit-plane serving matmul with the fused activation-quant prologue
-(port of ``repro.kernels.pann_matmul.pann_matmul_act``, backend 'fused').
+"""PANN bit-plane matmuls on unpacked planes (port of
+``repro.kernels.pann_matmul``):
+
+``pann_matmul_act`` — the fused activation-quant prologue (backend 'fused'):
 
     y[m, n] = ((q(x) @ W)[m, n] - zcol[n]) * s * gamma[n]
     q(x)    = clip(round(x / s) + z, 0, n_lvl)
     W       = sum_{p >= shift} 2^p (pos_p - neg_p)
 
-``pann_matmul_act`` launches the CUDA kernel (``csrc/pann_matmul.cu``) on
-CUDA tensors and runs ``pann_matmul_act_plain`` on CPU tensors. The plain
-version is what the kernel is held against on the card.
+``pann_matmul`` — the same product on int8 codes quantized beforehand
+(``quantize_act``), with per-row scales and every plane live:
+
+    y[m, n] = ((x_q @ W)[m, n] - zcol[n]) * s_x[m] * gamma[n]
+
+Both take ``mode`` 'fused' (W rebuilt, one product) or 'planes' (the literal
+Eq.-10 dataflow, per live plane p: acc += 2^p (q @ pos_p) - 2^p (q @ neg_p));
+the sums are exact integers, so the modes agree bit for bit. Each launches
+its CUDA kernel (``csrc/pann_matmul.cu``) on CUDA tensors and runs its
+``*_plain`` version on CPU tensors. The plain version is what the kernel is
+held against on the card.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import int_matmul
 
 Tensor = torch.Tensor
 
-launches = 0     # kernel launches since the caller last reset it
+launches = 0                # pann_matmul_act launches since the last reset
+pann_matmul_launches = 0    # pann_matmul launches since the last reset
 
-# split-K sizing: enough blocks for two waves on the H100's 132 SMs, with the
-# encoded panel (rows x kchunk int8 codes) well inside 48 KB of shared memory
+MODES = ("fused", "planes")
+
+# split-K sizing: enough blocks for two waves on the H100's 132 SMs. Up to
+# DECODE_ROWS rows a block covers 4 or 8 rows x 512 columns with its encoded
+# panel (rows x kchunk int8 codes) well inside 48 KB of shared memory; above
+# it a tile kernel block covers 64 rows x 128 columns and steps K by 32.
 _TARGET_BLOCKS = 2 * 132
-_COLS_PER_BLOCK = 128 * 4
+DECODE_ROWS = 8
 _MAX_KCHUNK = 4096
 
 
 def split_k(m: int, k: int, n: int) -> tuple[int, int]:
-    """(ksplit, kchunk) of the launch: kchunk is a multiple of 8 and
-    ksplit * kchunk >= k > (ksplit - 1) * kchunk."""
-    tiles = -(-n // _COLS_PER_BLOCK) * -(-m // (4 if m <= 4 else 8))
+    """(ksplit, kchunk) of the launch: ksplit * kchunk >= k > (ksplit - 1)
+    * kchunk, kchunk a multiple of 8 (of 32 for the tile kernels)."""
+    if m <= DECODE_ROWS:
+        rows, cols, align, cap = (4 if m <= 4 else 8), 512, 8, _MAX_KCHUNK
+    else:
+        rows, cols, align, cap = 64, 128, 32, None
+    tiles = -(-n // cols) * -(-m // rows)
     ksplit = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // 64)))
-    kchunk = min(-(-(-(-k // ksplit)) // 8) * 8, _MAX_KCHUNK)
+    kchunk = -(-(-(-k // ksplit)) // align) * align
+    if cap is not None:
+        kchunk = min(kchunk, cap)
     return -(-k // kchunk), kchunk
 
 
-def rebuild_weight(planes_pos: Tensor, planes_neg: Tensor, shift
+def rebuild_weight(planes_pos: Tensor, planes_neg: Tensor, shift=None
                    ) -> Tensor:
     """(K, N) int32 W = sum_{p >= shift} 2^p (pos_p - neg_p); ``shift`` is
-    a 0-dim tensor, read on the device."""
-    p = planes_pos.shape[0]
-    dev = planes_pos.device
-    sh = torch.round(shift).to(torch.int32)
-    ks = torch.arange(p, dtype=torch.int32, device=dev)
-    weights = torch.where(ks >= sh, 1 << ks, torch.zeros_like(ks))
-    w = torch.zeros(planes_pos.shape[1:], dtype=torch.int32, device=dev)
-    for i in range(p):
+    a 0-dim tensor, read on the device (None: every plane)."""
+    weights = _plane_weights(planes_pos.shape[0], shift, planes_pos.device)
+    w = torch.zeros(planes_pos.shape[1:], dtype=torch.int32,
+                    device=planes_pos.device)
+    for i in range(planes_pos.shape[0]):
         w += weights[i] * (planes_pos[i].to(torch.int32)
                            - planes_neg[i].to(torch.int32))
     return w
 
 
+def _plane_weights(p: int, shift, device) -> Tensor:
+    """(P,) int32 2^p for live planes p >= shift, 0 for dead ones."""
+    ks = torch.arange(p, dtype=torch.int32, device=device)
+    if shift is None:
+        return 1 << ks
+    sh = torch.round(shift).to(torch.int32)
+    return torch.where(ks >= sh, 1 << ks, torch.zeros_like(ks))
+
+
+def int_product(q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                shift=None, mode: str = "fused") -> Tensor:
+    """The exact int32 (M, N) product of codes q (M, K) with the planes'
+    weight: 'fused' rebuilds W and multiplies once; 'planes' multiplies
+    each live plane, pos and neg apart, and adds 2^p times the difference."""
+    if not check_mode(mode):
+        return int_matmul(q, rebuild_weight(planes_pos, planes_neg, shift))
+    weights = _plane_weights(planes_pos.shape[0], shift, q.device)
+    acc = torch.zeros((q.shape[0], planes_pos.shape[2]), dtype=torch.int32,
+                      device=q.device)
+    for i in range(planes_pos.shape[0]):
+        acc += (weights[i] * int_matmul(q, planes_pos[i])
+                - weights[i] * int_matmul(q, planes_neg[i]))
+    return acc
+
+
+def epilogue(acc: Tensor, s: Tensor, gamma: Tensor, zcol=None) -> Tensor:
+    """((acc - zcol) * s) * gamma in fp32 — the kernels' finalize; ``s`` is
+    0-dim (per tensor) or (M, 1) (per row), ``zcol`` may be None."""
+    if zcol is not None:
+        acc = acc - zcol
+    return acc.to(torch.float32) * s * gamma
+
+
 def matmul_epilogue(q: Tensor, w: Tensor, s: Tensor, gamma: Tensor,
                     zcol: Tensor) -> Tensor:
-    """Exact integer q @ w (fp64: every partial sum is an integer below
-    2^53), then ((acc - zcol) * s) * gamma in fp32 — the kernels' finalize."""
-    acc = torch.matmul(q.double(), w.double()).to(torch.int32)
-    return (acc - zcol).to(torch.float32) * s * gamma
+    """Exact integer q @ w, then ((acc - zcol) * s) * gamma in fp32."""
+    return epilogue(int_matmul(q, w), s, gamma, zcol)
 
 
 def pann_matmul_act_plain(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
-                          qparams: Tensor, gamma: Tensor, zcol: Tensor
-                          ) -> Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+                          qparams: Tensor, gamma: Tensor, zcol: Tensor,
+                          mode: str = "fused") -> Tensor:
+    """Plain PyTorch version of the prologue kernel, on any device."""
     s, z, n_lvl, shift = qparams.unbind()
     q = quant.affine_encode(x, s, z, n_lvl)
-    w = rebuild_weight(planes_pos, planes_neg, shift)
-    return matmul_epilogue(q, w, s, gamma, zcol)
+    return epilogue(int_product(q, planes_pos, planes_neg, shift, mode), s,
+                    gamma, zcol)
 
 
-def check_args(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
-               qparams: Tensor, gamma: Tensor, zcol: Tensor) -> None:
-    """Device, dtype, shape and contiguity checks shared by both matmul
-    wrappers; ``k_rows`` is the planes' row count for this x."""
+def pann_matmul_plain(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                      s_x: Tensor, gamma: Tensor, zcol=None, *,
+                      mode: str = "fused") -> Tensor:
+    """Plain PyTorch version of the codes kernel, on any device."""
+    return epilogue(int_product(x_q, planes_pos, planes_neg, None, mode),
+                    s_x, gamma, zcol)
+
+
+def check_operands(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
+                   gamma: Tensor, zcol) -> None:
+    """Device, shape and contiguity checks shared by the matmul wrappers;
+    ``k_rows`` is the planes' row count for this x, ``zcol`` may be None."""
     dev = x.device
-    tensors = (x, *planes, qparams, gamma, zcol)
+    tensors = [x, *planes, gamma] + ([] if zcol is None else [zcol])
     if any(t.device != dev for t in tensors):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
-    if x.dtype != torch.float32 or x.ndim != 2:
-        raise ValueError(f"x must be (M, K) float32, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.ndim != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
     pos, neg = planes
     if pos.dtype != plane_dtype or neg.dtype != plane_dtype \
             or pos.shape != neg.shape or pos.ndim != 3:
@@ -97,49 +152,109 @@ def check_args(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
         raise ValueError(f"plane count {p} outside [1, 7]")
     if n % 4:
         raise ValueError(f"N = {n} must be a multiple of 4")
-    if qparams.dtype != torch.float32 or qparams.shape != (4,):
-        raise ValueError("qparams must be a (4,) float32 [s, z, n, shift]")
     if gamma.dtype != torch.float32 or gamma.shape != (n,):
         raise ValueError(f"gamma must be ({n},) float32")
-    if zcol.dtype != torch.int32 or zcol.shape != (n,):
+    if zcol is not None and (zcol.dtype != torch.int32
+                             or zcol.shape != (n,)):
         raise ValueError(f"zcol must be ({n},) int32")
 
 
-def ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def check_args(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
+               qparams: Tensor, gamma: Tensor, zcol: Tensor) -> None:
+    """Checks of the prologue kernels (fp32 x, per-tensor qparams)."""
+    check_operands(x, planes, plane_dtype, k_rows, gamma, zcol)
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if qparams.device != x.device or not qparams.is_contiguous() \
+            or qparams.dtype != torch.float32 or qparams.shape != (4,):
+        raise ValueError("qparams must be a (4,) float32 [s, z, n, shift]")
 
 
-def stream_of(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def check_codes_args(x_q: Tensor, planes: tuple, plane_dtype, k_rows: int,
+                     s_x: Tensor, gamma: Tensor, zcol) -> None:
+    """Checks of the codes kernels (int8 x_q, per-row s_x)."""
+    check_operands(x_q, planes, plane_dtype, k_rows, gamma, zcol)
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"x_q must be int8 codes, got {x_q.dtype}")
+    if s_x.device != x_q.device or not s_x.is_contiguous() \
+            or s_x.dtype != torch.float32 or s_x.shape != (x_q.shape[0], 1):
+        raise ValueError(f"s_x must be ({x_q.shape[0]}, 1) float32")
 
 
-def _launcher():
+def check_mode(mode: str) -> int:
+    """The C entry's ``planes`` flag of a mode name."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return int(mode == "planes")
+
+
+def _act_launcher():
     return build.entry("pann_matmul", "pann_matmul_act_launch",
-                       (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+                       (build.P,) * 8 + (build.I,) * 7 + (build.P,))
+
+
+def _codes_launcher():
+    return build.entry("pann_matmul", "pann_matmul_launch",
+                       (build.P,) * 8 + (build.I,) * 7 + (build.P,))
+
+
+def launch_product(launcher, what: str, x: Tensor, planes: tuple,
+                   scale: Tensor, gamma: Tensor, zcol, *extra) -> Tensor:
+    """Allocate y and the split-K partials and call one C entry point of
+    the bit-plane matmuls; raises on a CUDA error."""
+    m, k = x.shape
+    p, _, n = planes[0].shape
+    ksplit, kchunk = split_k(m, k, n)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
+    ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,
+                                   partial)]
+    err = launcher(*ptrs, m, k, n, p, ksplit, kchunk, *extra,
+                   build.stream_of(x))
+    build.check(err, what)
+    return y
 
 
 def pann_matmul_act(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
-                    qparams: Tensor, gamma: Tensor, zcol: Tensor) -> Tensor:
+                    qparams: Tensor, gamma: Tensor, zcol: Tensor,
+                    mode: str = "fused") -> Tensor:
     """x (M, K) f32; planes_pos/neg (P, K, N) int8 in {0, 1}; qparams (4,)
     f32 [s, z, n_lvl, plane_shift] on the same device; gamma (N,) f32;
     zcol (N,) int32 -> (M, N) f32. CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return pann_matmul_act_plain(x, planes_pos, planes_neg, qparams,
-                                     gamma, zcol)
+                                     gamma, zcol, mode)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    m, k = x.shape
-    check_args(x, (planes_pos, planes_neg), torch.int8, k, qparams, gamma,
-               zcol)
-    p, _, n = planes_pos.shape
-    ksplit, kchunk = split_k(m, k, n)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
-    err = _launcher()(ptr(x), ptr(planes_pos), ptr(planes_neg), ptr(qparams),
-                      ptr(gamma), ptr(zcol), ptr(y), ptr(partial), m, k, n,
-                      p, ksplit, kchunk, stream_of(x))
-    build.check(err, "pann_matmul_act")
+    planes = check_mode(mode)
+    check_args(x, (planes_pos, planes_neg), torch.int8, x.shape[1], qparams,
+               gamma, zcol)
+    y = launch_product(_act_launcher(), "pann_matmul_act", x,
+                       (planes_pos, planes_neg), qparams, gamma, zcol,
+                       planes)
     global launches
     launches += 1
+    return y
+
+
+def pann_matmul(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                s_x: Tensor, gamma: Tensor, zcol=None, *,
+                mode: str = "fused") -> Tensor:
+    """x_q (M, K) int8 codes >= 0; planes_pos/neg (P, K, N) int8 in {0, 1};
+    s_x (M, 1) f32 per-row scales; gamma (N,) f32; zcol (N,) int32 or None
+    -> (M, N) f32. CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if x_q.device.type == "cpu":
+        return pann_matmul_plain(x_q, planes_pos, planes_neg, s_x, gamma,
+                                 zcol, mode=mode)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_q.device}")
+    planes = check_mode(mode)
+    check_codes_args(x_q, (planes_pos, planes_neg), torch.int8, x_q.shape[1],
+                     s_x, gamma, zcol)
+    y = launch_product(_codes_launcher(), "pann_matmul", x_q,
+                       (planes_pos, planes_neg), s_x, gamma, zcol, planes)
+    global pann_matmul_launches
+    pann_matmul_launches += 1
     return y

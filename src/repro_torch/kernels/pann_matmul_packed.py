@@ -1,11 +1,12 @@
-"""PANN bit-plane serving matmul on PACKED planes with the fused
-activation-quant prologue (port of ``repro.kernels.pann_matmul_packed``:
-``pann_matmul_packed_act``, backend 'packed', and the plane codec).
+"""PANN bit-plane matmuls on PACKED planes (port of
+``repro.kernels.pann_matmul_packed``: ``pann_matmul_packed_act``, backend
+'packed'; ``pann_matmul_packed``, the product on int8 codes with per-row
+scales; and the plane codec).
 
 Layout: packed[p, k8, n] holds bit (k8*8 + j) of plane p in bit j — 2*P/8
-bytes per weight for both signs. ``pann_matmul_packed_act`` launches the
-CUDA kernel (``csrc/pann_matmul_packed.cu``) on CUDA tensors and runs
-``pann_matmul_packed_act_plain`` on CPU tensors.
+bytes per weight for both signs. Each matmul launches its CUDA kernel
+(``csrc/pann_matmul_packed.cu``) on CUDA tensors and runs its ``*_plain``
+version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import (check_args, matmul_epilogue,
-                                             ptr, rebuild_weight, split_k,
-                                             stream_of)
+from repro_torch.kernels.pann_matmul import (check_args, check_codes_args,
+                                             epilogue, int_product,
+                                             launch_product)
 
 Tensor = torch.Tensor
 
-launches = 0     # kernel launches since the caller last reset it
+launches = 0                       # pann_matmul_packed_act launches
+pann_matmul_packed_launches = 0    # pann_matmul_packed launches
 
 
 def pack_planes(planes: Tensor) -> Tensor:
@@ -52,18 +54,38 @@ def unpack_planes(packed: Tensor, k: int) -> Tensor:
 def pann_matmul_packed_act_plain(x: Tensor, packed_pos: Tensor,
                                  packed_neg: Tensor, qparams: Tensor,
                                  gamma: Tensor, zcol: Tensor) -> Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the prologue kernel, on any device."""
     s, z, n_lvl, shift = qparams.unbind()
     k = x.shape[1]
     q = quant.affine_encode(x, s, z, n_lvl)
-    w = rebuild_weight(unpack_planes(packed_pos, k),
-                       unpack_planes(packed_neg, k), shift)
-    return matmul_epilogue(q, w, s, gamma, zcol)
+    acc = int_product(q, unpack_planes(packed_pos, k),
+                      unpack_planes(packed_neg, k), shift)
+    return epilogue(acc, s, gamma, zcol)
 
 
-def _launcher():
+def pann_matmul_packed_plain(x_q: Tensor, packed_pos: Tensor,
+                             packed_neg: Tensor, s_x: Tensor, gamma: Tensor,
+                             zcol=None) -> Tensor:
+    """Plain PyTorch version of the codes kernel, on any device."""
+    k = x_q.shape[1]
+    acc = int_product(x_q, unpack_planes(packed_pos, k),
+                      unpack_planes(packed_neg, k))
+    return epilogue(acc, s_x, gamma, zcol)
+
+
+def _act_launcher():
     return build.entry("pann_matmul_packed", "pann_matmul_packed_act_launch",
                        (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+
+
+def _codes_launcher():
+    return build.entry("pann_matmul_packed", "pann_matmul_packed_launch",
+                       (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+
+
+def _check_k(k: int) -> None:
+    if k % 8:
+        raise ValueError(f"K = {k} must be a multiple of 8")
 
 
 def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
@@ -78,19 +100,32 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
                                             qparams, gamma, zcol)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    m, k = x.shape
-    if k % 8:
-        raise ValueError(f"K = {k} must be a multiple of 8")
-    check_args(x, (packed_pos, packed_neg), torch.uint8, k // 8, qparams,
-               gamma, zcol)
-    p, _, n = packed_pos.shape
-    ksplit, kchunk = split_k(m, k, n)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
-    err = _launcher()(ptr(x), ptr(packed_pos), ptr(packed_neg), ptr(qparams),
-                      ptr(gamma), ptr(zcol), ptr(y), ptr(partial), m, k, n,
-                      p, ksplit, kchunk, stream_of(x))
-    build.check(err, "pann_matmul_packed_act")
+    _check_k(x.shape[1])
+    check_args(x, (packed_pos, packed_neg), torch.uint8, x.shape[1] // 8,
+               qparams, gamma, zcol)
+    y = launch_product(_act_launcher(), "pann_matmul_packed_act", x,
+                       (packed_pos, packed_neg), qparams, gamma, zcol)
     global launches
     launches += 1
+    return y
+
+
+def pann_matmul_packed(x_q: Tensor, packed_pos: Tensor, packed_neg: Tensor,
+                       s_x: Tensor, gamma: Tensor, zcol=None) -> Tensor:
+    """x_q (M, K) int8 codes >= 0 with K % 8 == 0; packed_pos/neg (P, K/8,
+    N) uint8; s_x (M, 1) f32; gamma (N,) f32; zcol (N,) int32 or None ->
+    (M, N) f32. CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if x_q.device.type == "cpu":
+        return pann_matmul_packed_plain(x_q, packed_pos, packed_neg, s_x,
+                                        gamma, zcol)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_q.device}")
+    _check_k(x_q.shape[1])
+    check_codes_args(x_q, (packed_pos, packed_neg), torch.uint8,
+                     x_q.shape[1] // 8, s_x, gamma, zcol)
+    y = launch_product(_codes_launcher(), "pann_matmul_packed", x_q,
+                       (packed_pos, packed_neg), s_x, gamma, zcol)
+    global pann_matmul_packed_launches
+    pann_matmul_packed_launches += 1
     return y

@@ -1,17 +1,60 @@
-"""The packed bit-plane KV-cache codec and the decode-attention oracle
-(port of ``repro.kernels.ref``'s cache half).
+"""Oracles of the kernels (port of ``repro.kernels.ref``): the matmul and
+quantizer oracles, the packed bit-plane KV-cache codec and the
+decode-attention oracle.
 
-``decode_attention_ref`` is also the plain PyTorch version of the CUDA
-decode-attention kernel (``kernels/pann_attention``): it runs on CPU
-tensors, and on the card it is what the kernel is held against. Integer
-passes run in fp64 (torch has no int32 matmul on CUDA); every partial sum
-is an integer below 2^53, so they are exact.
+``quantize_act_ref`` and ``decode_attention_ref`` are also the plain PyTorch
+versions of their CUDA kernels (``kernels/quantize_act``,
+``kernels/pann_attention``): they run on CPU tensors, and on the card they
+are what the kernels are held against. Integer passes run in fp64 (torch
+has no int32 matmul on CUDA); every partial sum is an integer below 2^53,
+so they are exact.
 """
 from __future__ import annotations
 
 import torch
 
 Tensor = torch.Tensor
+
+
+def int_matmul(a: Tensor, b: Tensor) -> Tensor:
+    """Exact integer a @ b (fp64, every partial sum below 2^53) -> int32."""
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def pann_matmul_ref(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                    s_x: Tensor, gamma: Tensor) -> Tensor:
+    """Oracle of the bit-plane matmuls on codes: rebuild the signed integer
+    weights from the planes, integer matmul, (y * s_x) * gamma in fp32."""
+    # one plane at a time: a (P, K, N) int32 transient would not fit at the
+    # lm_head's width
+    w_q = torch.zeros(planes_pos.shape[1:], dtype=torch.int32,
+                      device=planes_pos.device)
+    for p in range(planes_pos.shape[0]):
+        w_q += (1 << p) * (planes_pos[p].to(torch.int32)
+                           - planes_neg[p].to(torch.int32))
+    y = int_matmul(x_q, w_q)
+    return y.to(torch.float32) * s_x * gamma.reshape(1, -1)
+
+
+def quantize_act_ref(x: Tensor, bits: int = 8) -> tuple[Tensor, Tensor]:
+    """Oracle of ``quantize_act``: per-row half-range unsigned codes (int8)
+    and scales (M, 1) fp32, ``scale = max(amax(relu x), 1e-12) / qmax`` as
+    an IEEE division (a device-tensor divisor: on CUDA torch turns division
+    by a Python scalar into a multiply by its reciprocal)."""
+    qmax = (1 << (bits - 1)) - 1
+    xp = torch.clamp(x.to(torch.float32), min=0.0)
+    amax = torch.amax(xp, dim=1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / xp.new_full((), float(qmax))
+    q = torch.clamp(torch.round(xp / scale), 0, qmax).to(torch.int8)
+    return q, scale
+
+
+def unsigned_matmul_ref(x_q: Tensor, w_q: Tensor, s_x: Tensor, s_w: Tensor
+                        ) -> Tensor:
+    """Oracle of ``unsigned_matmul``: plain signed integer matmul, then
+    (y * s_x) * s_w in fp32."""
+    y = int_matmul(x_q, w_q)
+    return y.to(torch.float32) * s_x * s_w.reshape(1, -1)
 
 # The cache layout pins this many bit-planes whatever the rung's cache bits
 # are (unsigned affine codes are clipped to n <= 127 = 2^7 - 1).
