@@ -31,7 +31,12 @@ Phases (any failure raises and the script exits non-zero):
               products against each other and ``ref.pann_matmul_ref``, and
               quantize_act against ``ref.quantize_act_ref`` at 2, 4, 6 and 8
               bits and on bf16; checks the launch counts of the pass, then
-              repeats the checks (uncounted) at ragged M and K.
+              repeats the checks (uncounted) at ragged M, K and N, on
+              extreme operands (7 planes of +-127 weights, codes of 127,
+              K = 14336) and, for B1 above 8 rows, at plane_shift 0-7.
+
+The build phase also counts the tensor-core instructions (wgmma's GMMA,
+mma.sync's IMMA) in the SASS of the pann_matmul library and fails on none.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last line
 is ``{"ok": true, "device": {...}}``. A longer report is written to
@@ -102,6 +107,20 @@ def bound_ms(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_sass(name: str = "pann_matmul") -> dict:
+    """Tensor-core instructions in the SASS of the built ``csrc/<name>.cu``
+    library (``cuobjdump`` from the toolkit beside nvcc): GMMA (wgmma) and
+    IMMA (mma.sync) lines. Raises if there are none."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    lines = sh([str(tool), "-sass", str(build.library_path(name))]
+               ).splitlines()
+    counts = {op: sum(op in ln for ln in lines) for op in ("GMMA", "IMMA")}
+    if not any(counts.values()):
+        raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
+    return counts
 
 
 def sh(cmd: list[str]) -> str:
@@ -648,6 +667,10 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
         del w_deq
     out_b = 4 * (m * n + n + m)          # y, gamma, s_x
     products = 2 * m * k * n
+    # 'planes' multiplies each live plane, pos and neg apart: 2 P_live
+    # products (every plane is live for B4; B1 here at plane_shift 0)
+    live_b1 = p - int(operands[3][3].item())
+    planes_b4, planes_b1 = 2 * p * products, 2 * live_b1 * products
     cases = [
         ("quantize_act", None,
          lambda: ops.quantize_act(x, bits=PATH_BITS),
@@ -661,7 +684,7 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
         ("pann_matmul_act", "planes",
          lambda: pm.pann_matmul_act(*operands, mode="planes"),
          lambda: pm.pann_matmul_act_plain(*operands, "planes"),
-         (4 * m * k + 2 * p * k * n + 4 * n + out_b + 16, products,
+         (4 * m * k + 2 * p * k * n + 4 * n + out_b + 16, planes_b1,
           INT8_OPS_PER_S), lib, lib_name)]
     for mode in pm.MODES:
         cases.append((
@@ -670,8 +693,9 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
                                              mode=mode),
             lambda mode=mode: pm.pann_matmul_plain(xq, pp, pn, sx, gamma,
                                                    mode=mode),
-            (m * k + 2 * p * k * n + out_b, products, INT8_OPS_PER_S), lib,
-            lib_name))
+            (m * k + 2 * p * k * n + out_b,
+             planes_b4 if mode == "planes" else products, INT8_OPS_PER_S),
+            lib, lib_name))
     cases += [
         ("pann_matmul_packed", None,
          lambda: pk.pann_matmul_packed(xq, ppk, pnk, sx, gamma),
@@ -735,11 +759,16 @@ def _pass(x, packed, wts) -> dict:
     return out
 
 
-# ragged shapes the pass does not reach: the decode kernels' 8-row tile, the
-# tile kernels' row tail below 64 and a K that is no multiple of 32 (130 is
-# not a multiple of 8, so the packed kernel is left out there)
-RAGGED = ((1, 4096, 1024), (8, 4096, 1024), (13, 4096, 1024),
-          (100, 4096, 1024), (8, 130, 72), (13, 130, 72), (100, 130, 72))
+# ragged shapes the pass does not reach: the decode kernels' 8-row tile;
+# the edges of the tile kernels' 64-row (B5, B6) and 128-row (B1, B4) tiles;
+# a K that is no multiple of 32 or 16 and an N that is no multiple of 16 or
+# 128 (B1/B4 load those without TMA); 130 and 4100 are not multiples of 8,
+# so the packed kernel is left out there
+RAGGED = ((1, 4096, 1024), (8, 4096, 1024), (9, 4096, 1024),
+          (13, 4096, 1024), (64, 4096, 1024), (100, 4096, 1024),
+          (127, 4096, 1024), (129, 4096, 1024), (200, 4096, 1024),
+          (8, 130, 72), (13, 130, 72), (100, 130, 72), (129, 130, 72),
+          (13, 4100, 136), (129, 4100, 136))
 
 
 def ragged_parity(gen, r: float, err: dict) -> None:
@@ -754,6 +783,83 @@ def ragged_parity(gen, r: float, err: dict) -> None:
         out = _pass(x, packed, wts)
         torch.cuda.synchronize()
         _check_unfused(x, packed, wts, out, err)
+
+
+EXTREME = (512, 14336, 1024)   # M, K, N: the deepest K of the path
+TILE_SHIFT_SHAPES = ((512, 4096, 1024), (129, 4096, 1024))
+
+
+def extremes_parity(gen, err: dict) -> None:
+    """P = 7 planes of weights +-127 (random signs) and codes of 127 at
+    K = 14336: the largest products the int32 sums and the s8 operands
+    meet. B4 (both modes), B5 and B6 against their plain versions and
+    ref.pann_matmul_ref; B1 (both modes) with x = 127, s = 1, z = 0, so
+    every code is 127 (uncounted launches)."""
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import unsigned_matmul as um
+    m, k, n = EXTREME
+    sign = torch.randint(0, 2, (k, n), generator=gen, device="cuda",
+                         dtype=torch.int32) * 2 - 1
+    w = 127 * sign
+    pos = torch.stack([((w.clamp(min=0) >> p) & 1).to(torch.int8)
+                       for p in range(7)])
+    neg = torch.stack([(((-w).clamp(min=0) >> p) & 1).to(torch.int8)
+                       for p in range(7)])
+    xq = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    sx = torch.rand((m, 1), generator=gen, device="cuda") + 0.5
+    gamma = torch.rand((n,), generator=gen, device="cuda") * 1e-6
+    oracle = ref.pann_matmul_ref(xq, pos, neg, sx, gamma)
+    for mode in pm.MODES:
+        y = pm.pann_matmul(xq, pos, neg, sx, gamma, mode=mode)
+        _agree("pann_matmul", y, pm.pann_matmul_plain(
+            xq, pos, neg, sx, gamma, mode=mode), err)
+        if not torch.equal(y, oracle):
+            raise AssertionError(f"extremes: pann_matmul/{mode} differs "
+                                 f"from ref.pann_matmul_ref")
+    ppk, pnk = pk.pack_planes(pos), pk.pack_planes(neg)
+    y = pk.pann_matmul_packed(xq, ppk, pnk, sx, gamma)
+    _agree("pann_matmul_packed", y, pk.pann_matmul_packed_plain(
+        xq, ppk, pnk, sx, gamma), err)
+    w_q = w.to(torch.int8)
+    y6 = um.unsigned_matmul(xq, w_q, sx, gamma)
+    _agree("unsigned_matmul", y6, um.unsigned_matmul_plain(xq, w_q, sx,
+                                                           gamma), err)
+    if not (torch.equal(y, oracle) and torch.equal(y6, oracle)):
+        raise AssertionError("extremes: B5/B6 differ from the oracle")
+    x = torch.full((m, k), 127.0, device="cuda")
+    qp = torch.tensor([1.0, 0.0, 127.0, 0.0], device="cuda")
+    zcol = torch.zeros((n,), dtype=torch.int32, device="cuda")
+    for mode in pm.MODES:
+        _agree("pann_matmul_act",
+               pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol, mode),
+               pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol, mode),
+               err)
+    torch.cuda.synchronize()
+
+
+def tile_shift_parity(gen, err: dict) -> list:
+    """B1's tile regime (M > 8) at plane_shift 0-7 in both modes, 7 planes
+    of weights in [-127, 127] (shift 7 leaves no plane live)."""
+    from repro_torch.kernels import pann_matmul as pm
+    checked = []
+    for m, k, n in TILE_SHIFT_SHAPES:
+        x, pos, neg, _, _, s, z, n127, gamma, zcol = _matmul_operands(
+            gen, m, k, n)
+        for shift in range(8):
+            qp = torch.stack([s, z, n127, torch.full((), float(shift),
+                                                     device="cuda")])
+            for mode in pm.MODES:
+                _agree("pann_matmul_act",
+                       pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol,
+                                          mode),
+                       pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol,
+                                                mode), err)
+        checked.append([m, k, n])
+        del x, pos, neg
+    torch.cuda.synchronize()
+    return checked
 
 
 def unfused_path(gen) -> dict:
@@ -801,12 +907,16 @@ def unfused_path(gen) -> dict:
     if launches != want:
         raise AssertionError(f"unfused launch counts {launches} != {want}")
     ragged_parity(gen, r_top, err)
+    extremes_parity(gen, err)
+    shifts = tile_shift_parity(gen, err)
     return {"config": "llama3-8b full-width projections (7 of a layer and "
                       "the lm_head), random N(0, 0.02) weights packed at "
                       "the top rung R, N(0, 1) activations, seed 0",
             "r_top": r_top, "M": list(UNFUSED_M), "act_bits": PATH_BITS,
             "planes": planes, "launches": launches,
             "ragged_shapes_checked": [list(s) for s in RAGGED],
+            "extremes_checked": list(EXTREME),
+            "tile_shift_shapes_checked": shifts,
             "max_abs_err": err,
             "seconds": time.perf_counter() - t0, "rows": rows}
 
@@ -861,6 +971,10 @@ def main() -> int:
     for name, log in build.build_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {regs}", flush=True)
+    sass = tensor_core_sass("pann_matmul")
+    print(f"[sass] pann_matmul: {sass['GMMA']} GMMA (wgmma) and "
+          f"{sass['IMMA']} IMMA (mma.sync) tensor-core instructions",
+          flush=True)
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -948,7 +1062,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was never launched on its path")
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "nvcc": nvcc, "driver": driver,
-              "build_s": build.build_seconds, "kernels": kernels,
+              "build_s": build.build_seconds, "sass_pann_matmul": sass,
+              "kernels": kernels,
               "serve": serve, "backends": agree, "unfused": unfused}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,8 +1,10 @@
 // Shared pieces of the integer matmul kernels (pann_matmul.cu,
 // pann_matmul_packed.cu, unsigned_matmul.cu): the row sources (fp32
 // activations encoded in the kernel, or int8 codes loaded as they are), the
-// decode batch's code panel, the 64 x 128 output tile of the larger-M
-// kernels, and the split-K epilogue.
+// decode batch's code panel, the 64 x 128 CUDA-core output tile of the
+// packed and unsigned kernels above kDecodeRows rows, and the split-K
+// epilogue. Above kDecodeRows rows the unpacked-plane kernels (B1, B4) run
+// on the int8 tensor cores instead (pann_tc.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -13,8 +15,9 @@ constexpr int kThreads = 128;   // threads per block of the decode kernels
 constexpr int kCols = 4;        // output columns per thread (one 32-bit load)
 constexpr int kDecodeRows = 8;  // M above this takes the tile kernels
 
-// Tile kernels: a block computes kTileM x kTileN outputs, stepping K by
-// kTileK; each of its threads owns an 8 x 4 sub-tile. At M = 512 a weight
+// CUDA-core tile kernels (B5 pann_matmul_packed, B6 unsigned_matmul): a
+// block computes kTileM x kTileN outputs, stepping K by kTileK; each of its
+// threads owns an 8 x 4 sub-tile, one int32 multiply-add per weight and row. At M = 512 a weight
 // tile in shared memory serves 64 rows, where the decode kernels (4 or 8
 // rows a block) would read every plane 64 times.
 constexpr int kTileM = 64, kTileN = 128, kTileK = 32;
@@ -156,19 +159,16 @@ __device__ __forceinline__ void tile_mac(int (*codes)[kTileK],
   }
 }
 
-// The bit-plane product on a 64 x 128 tile, for M > kDecodeRows. W gives
-// the planes: W::P, W::rebuild8 (w = sum_{p >= shift} 2^p (pos_p - neg_p)
-// of 8 rows x 4 columns) and, for kPlanes, W::bits8 (the 0/1 pos and neg
-// bits of one plane). 'fused' rebuilds the weight tile once and does one
-// product; 'planes' does the literal Eq.-10 dataflow, per live plane p
-// acc += 2^p (x @ pos_p) - 2^p (x @ neg_p). Both are exact in int32.
-template <class Src, class W, bool kPlanes>
+// The bit-plane product on a 64 x 128 tile, for M > kDecodeRows (B5): W
+// gives W::P and W::rebuild8 (w = sum_{p >= shift} 2^p (pos_p - neg_p) of 8
+// rows x 4 columns); the weight tile is rebuilt once and multiplied once,
+// exact in int32.
+template <class Src, class W>
 __global__ void __launch_bounds__(kTileThreads)
     pann_tile_kernel(Src src, W wts, int* __restrict__ partial, int M, int K,
                      int N, int kchunk) {
   __shared__ __align__(16) int codes[kTileM][kTileK];
   __shared__ int4 wa[kTileK][kTileWords];
-  __shared__ int4 wb[kPlanes ? kTileK : 1][kTileWords];
   const auto rd = src.reader();
   const int shift = src.shift(wts.P);
   const int m0 = blockIdx.z * kTileM, n_blk = blockIdx.x * kTileN;
@@ -178,31 +178,12 @@ __global__ void __launch_bounds__(kTileThreads)
   int acc[8][kCols] = {};
   for (int kb = k0; kb < kend; kb += kTileK) {
     load_code_tile(rd, codes, M, m0, kb, kend);
-    if constexpr (kPlanes) {
-      for (int p = shift; p < wts.P; ++p) {
-        fill_tile<true>(wa, wb, kb, n_blk, K, N,
-                        [&](int k, int n0, int (&a)[8][kCols],
-                            int (&b)[8][kCols]) { wts.bits8(p, k, n0, a, b); });
-        __syncthreads();
-        int ap[8][kCols] = {}, an[8][kCols] = {};
-        tile_mac(codes, wa, r0, cw, ap);
-        tile_mac(codes, wb, r0, cw, an);
-        const int bit = 1 << p;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            acc[i][c] += ap[i][c] * bit - an[i][c] * bit;
-        __syncthreads();
-      }
-    } else {
-      fill_tile<false>(wa, wb, kb, n_blk, K, N,
-                       [&](int k, int n0, int (&a)[8][kCols],
-                           int (&)[8][kCols]) { wts.rebuild8(k, n0, shift, a); });
-      __syncthreads();
-      tile_mac(codes, wa, r0, cw, acc);
-      __syncthreads();
-    }
+    fill_tile<false>(wa, wa, kb, n_blk, K, N,
+                     [&](int k, int n0, int (&a)[8][kCols],
+                         int (&)[8][kCols]) { wts.rebuild8(k, n0, shift, a); });
+    __syncthreads();
+    tile_mac(codes, wa, r0, cw, acc);
+    __syncthreads();
   }
   if (n_blk + cw * kCols < N)
     store_partial<8>(partial, acc, M, N, m0 + r0, n_blk + cw * kCols,

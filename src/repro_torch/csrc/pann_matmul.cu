@@ -30,12 +30,19 @@
 // second small kernel adds them (integer addition, so the order cannot
 // change the result) and applies the fp32 epilogue in the reference's
 // association with __fmul_rn. The row panel lives in shared memory, as the
-// TPU kernel keeps it in VMEM. Above 8 rows (a prefill chunk) the decode
-// kernels would read every plane once per 8 rows; the tile kernel
-// (pann_common.cuh) rebuilds a 32 x 128 weight tile in shared memory once
-// for 64 rows instead, and is then bound by its CUDA-core integer MACs.
-// Tensor cores (int8 mma/wgmma) and TMA pipelining are later work.
+// TPU kernel keeps it in VMEM.
+//
+// Above 8 rows (a prefill chunk) the product runs on the int8 tensor cores,
+// as the TPU kernel runs it on the MXU: pann_tc.cuh's warp-specialised
+// 128 x 128 tile kernel (wgmma.m64n128k32.s32.s8.s8). A copy warp streams
+// the codes and the live planes with TMA; two worker warpgroups rebuild the
+// weight SIMD-within-a-register, write it K-major into shared memory and
+// run the products. At M = 512 'fused' is bound by its 2P plane bytes per
+// weight (the row tiles of a column panel run together, so a plane byte
+// comes from device memory once per panel) and 'planes' by its 2 P_live
+// tensor-core products per K step.
 #include "pann_common.cuh"
+#include "pann_tc.cuh"
 
 namespace {
 
@@ -71,22 +78,6 @@ struct Planes {  // (P, K, N) int8 in {0, 1}
     const char4 v = *reinterpret_cast<const char4*>(neg + p * plane() + off);
     a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
     b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
-  }
-
-  // rows k..k+7 (those below K) of the tile kernels
-  __device__ __forceinline__ void rebuild8(int k, int n0, int shift,
-                                           int (&w)[8][kCols]) const {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (k + j < K) rebuild((size_t)(k + j) * N + n0, shift, w[j]);
-  }
-
-  __device__ __forceinline__ void bits8(int p, int k, int n0,
-                                        int (&a)[8][kCols],
-                                        int (&b)[8][kCols]) const {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (k + j < K) bits(p, (size_t)(k + j) * N + n0, a[j], b[j]);
   }
 };
 
@@ -157,14 +148,10 @@ int launch_product(Src src, Planes wts, int* partial, int M, int K, int N,
     else
       decode_kernel<8, Src, kPlanes><<<grid, pann::kThreads, 8 * kchunk, st>>>(
           src, wts, partial, M, K, N, kchunk);
-  } else {
-    dim3 grid((N + pann::kTileN - 1) / pann::kTileN, ksplit,
-              (M + pann::kTileM - 1) / pann::kTileM);
-    pann::pann_tile_kernel<Src, Planes, kPlanes>
-        <<<grid, pann::kTileThreads, 0, st>>>(src, wts, partial, M, K, N,
-                                              kchunk);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return pann::tc::launch<Src, Planes, kPlanes>(src, wts, partial, M, K, N,
+                                                ksplit, kchunk, st);
 }
 
 template <class Src>
@@ -180,7 +167,7 @@ int launch_mode(Src src, Planes wts, int* partial, int M, int K, int N,
 
 // The wrappers (repro_torch/kernels/pann_matmul.py) check shapes, dtypes,
 // contiguity and N % 4 == 0, and allocate y (M, N) and partial (ksplit, M,
-// N); kchunk is a multiple of 8 (of 32 above 8 rows). ``planes`` selects
+// N); kchunk is a multiple of 8 (of 64 above 8 rows). ``planes`` selects
 // the mode. Each returns cudaGetLastError() after its launches.
 extern "C" int pann_matmul_act_launch(const float* x, const int8_t* pos,
                                       const int8_t* neg, const float* qp,

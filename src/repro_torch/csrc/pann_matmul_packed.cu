@@ -104,7 +104,7 @@ int launch_product(Src src, PackedPlanes wts, int* partial, int M, int K,
   } else {
     dim3 grid((N + pann::kTileN - 1) / pann::kTileN, ksplit,
               (M + pann::kTileM - 1) / pann::kTileM);
-    pann::pann_tile_kernel<Src, PackedPlanes, false>
+    pann::pann_tile_kernel<Src, PackedPlanes>
         <<<grid, pann::kTileThreads, 0, st>>>(src, wts, partial, M, K, N,
                                               kchunk);
   }

@@ -57,6 +57,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def library_path(name: str) -> Path:
+    """The built library of ``csrc/<name>.cu`` for the current sources."""
+    return _target(name)
+
+
 def build_all() -> dict:
     """Compile every missing library in parallel and load all of them.
     Returns {name: ctypes.CDLL}. Raises with nvcc's output on failure."""

@@ -36,20 +36,27 @@ MODES = ("fused", "planes")
 
 # split-K sizing: enough blocks for two waves on the H100's 132 SMs. Up to
 # DECODE_ROWS rows a block covers 4 or 8 rows x 512 columns with its encoded
-# panel (rows x kchunk int8 codes) well inside 48 KB of shared memory; above
-# it a tile kernel block covers 64 rows x 128 columns and steps K by 32.
+# panel (rows x kchunk int8 codes) well inside 48 KB of shared memory. Above
+# it a block covers a tile of (rows, columns) and steps K by a multiple of
+# the K alignment: TC_TILE for this module's tensor-core kernel
+# (csrc/pann_tc.cuh: 128 x 128 outputs, K steps of 64 and 32), CORE_TILE
+# for the CUDA-core tile kernels of pann_matmul_packed and unsigned_matmul.
 _TARGET_BLOCKS = 2 * 132
 DECODE_ROWS = 8
 _MAX_KCHUNK = 4096
+TC_TILE = (128, 128, 64)
+CORE_TILE = (64, 128, 32)
 
 
-def split_k(m: int, k: int, n: int) -> tuple[int, int]:
+def split_k(m: int, k: int, n: int, tile: tuple = TC_TILE
+            ) -> tuple[int, int]:
     """(ksplit, kchunk) of the launch: ksplit * kchunk >= k > (ksplit - 1)
-    * kchunk, kchunk a multiple of 8 (of 32 for the tile kernels)."""
+    * kchunk, kchunk a multiple of 8 (above DECODE_ROWS rows, of the K
+    alignment of ``tile`` = (rows, columns, K alignment))."""
     if m <= DECODE_ROWS:
         rows, cols, align, cap = (4 if m <= 4 else 8), 512, 8, _MAX_KCHUNK
     else:
-        rows, cols, align, cap = 64, 128, 32, None
+        (rows, cols, align), cap = tile, None
     tiles = -(-n // cols) * -(-m // rows)
     ksplit = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // 64)))
     kchunk = -(-(-(-k // ksplit)) // align) * align
@@ -199,12 +206,14 @@ def _codes_launcher():
 
 
 def launch_product(launcher, what: str, x: Tensor, planes: tuple,
-                   scale: Tensor, gamma: Tensor, zcol, *extra) -> Tensor:
+                   scale: Tensor, gamma: Tensor, zcol, *extra,
+                   tile: tuple = TC_TILE) -> Tensor:
     """Allocate y and the split-K partials and call one C entry point of
-    the bit-plane matmuls; raises on a CUDA error."""
+    the bit-plane matmuls (``tile``: its kernel's, see ``split_k``); raises
+    on a CUDA error."""
     m, k = x.shape
     p, _, n = planes[0].shape
-    ksplit, kchunk = split_k(m, k, n)
+    ksplit, kchunk = split_k(m, k, n, tile)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
     ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,

@@ -15,9 +15,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import (check_args, check_codes_args,
-                                             epilogue, int_product,
-                                             launch_product)
+from repro_torch.kernels.pann_matmul import (CORE_TILE, check_args,
+                                             check_codes_args, epilogue,
+                                             int_product, launch_product)
 
 Tensor = torch.Tensor
 
@@ -104,7 +104,8 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
     check_args(x, (packed_pos, packed_neg), torch.uint8, x.shape[1] // 8,
                qparams, gamma, zcol)
     y = launch_product(_act_launcher(), "pann_matmul_packed_act", x,
-                       (packed_pos, packed_neg), qparams, gamma, zcol)
+                       (packed_pos, packed_neg), qparams, gamma, zcol,
+                       tile=CORE_TILE)
     global launches
     launches += 1
     return y
@@ -125,7 +126,8 @@ def pann_matmul_packed(x_q: Tensor, packed_pos: Tensor, packed_neg: Tensor,
     check_codes_args(x_q, (packed_pos, packed_neg), torch.uint8,
                      x_q.shape[1] // 8, s_x, gamma, zcol)
     y = launch_product(_codes_launcher(), "pann_matmul_packed", x_q,
-                       (packed_pos, packed_neg), s_x, gamma, zcol)
+                       (packed_pos, packed_neg), s_x, gamma, zcol,
+                       tile=CORE_TILE)
     global pann_matmul_packed_launches
     pann_matmul_packed_launches += 1
     return y

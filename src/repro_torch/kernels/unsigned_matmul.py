@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import split_k
+from repro_torch.kernels.pann_matmul import CORE_TILE, split_k
 from repro_torch.kernels.ref import int_matmul
 
 Tensor = torch.Tensor
@@ -70,7 +70,7 @@ def unsigned_matmul(x_q: Tensor, w_q: Tensor, s_x: Tensor, s_w: Tensor
     _check(x_q, w_q, s_x, s_w)
     m, k = x_q.shape
     n = w_q.shape[1]
-    ksplit, kchunk = split_k(m, k, n)
+    ksplit, kchunk = split_k(m, k, n, CORE_TILE)
     y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     # the W+ sums of every split, then the W- sums
     partial = torch.empty((2, ksplit, m, n), dtype=torch.int32,
