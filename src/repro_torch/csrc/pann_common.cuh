@@ -1,10 +1,13 @@
 // Shared pieces of the integer matmul kernels (pann_matmul.cu,
 // pann_matmul_packed.cu, unsigned_matmul.cu): the row sources (fp32
 // activations encoded in the kernel, or int8 codes loaded as they are), the
-// decode batch's code panel, the 64 x 128 CUDA-core output tile of the
-// packed and unsigned kernels above kDecodeRows rows, and the split-K
-// epilogue. Above kDecodeRows rows the unpacked-plane kernels (B1, B4) run
-// on the int8 tensor cores instead (pann_tc.cuh).
+// decode batch's code panel, the streaming decode blocks of the bit-plane
+// matmuls (M <= kDecodeRows: plane loads that skip L1, byte arithmetic, and
+// the split-K sum and epilogue folded into the same launch), the 64 x 128
+// CUDA-core output tile of the packed and unsigned kernels above
+// kDecodeRows rows, and the split-K epilogue kernel of the launches that
+// keep two kernels. Above kDecodeRows rows the unpacked-plane kernels (B1,
+// B4) run on the int8 tensor cores instead (pann_tc.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,8 +68,9 @@ struct CodeRows {  // int8 codes x_q; every plane is live
   __device__ int shift(int) const { return 0; }
 };
 
-// Decode kernels: rows [m0, m0 + MT) x columns [k0, k0 + kc) of the codes
-// into the block's shared panel codes[MT][kchunk]; rows past M are 0.
+// unsigned_matmul.cu's decode kernel: rows [m0, m0 + MT) x columns [k0, k0 +
+// kc) of the codes into the block's shared panel codes[MT][kchunk]; rows
+// past M are 0.
 template <int MT, class Rd>
 __device__ __forceinline__ void load_panel(const Rd& rd, int8_t* codes, int M,
                                            int m0, int k0, int kc,
@@ -76,6 +80,144 @@ __device__ __forceinline__ void load_panel(const Rd& rd, int8_t* codes, int M,
     int m = m0 + mm;
     codes[mm * kchunk + kk] = m < M ? rd(m, k0 + kk) : int8_t(0);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Streaming decode blocks of the bit-plane matmuls (B1/B4 in pann_matmul.cu,
+// B2/B5 in pann_matmul_packed.cu) at M <= kDecodeRows.
+//
+// A block is kStreamWarps warps over kStreamCols adjacent columns: lane l
+// owns columns n_blk + 4l .. + 3, so each warp load of a plane row is one
+// coalesced 128-byte request. The warps of a block take the K steps of the
+// block's chunk in turn (warp w: steps w, w + 8, ...), so all eight stream
+// planes at once; their sums meet in shared memory at the end.
+constexpr int kStreamWarps = 8;
+constexpr int kStreamThreads = 32 * kStreamWarps;
+constexpr int kStreamCols = 32 * kCols;
+constexpr int kMaxPlanes = 7;
+
+// A 32-bit load of plane bytes that are read once: through the read-only
+// path, not kept in L1.
+__device__ __forceinline__ uint32_t ld_stream(const void* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// a - b per byte, modulo 256, for bytes a, b in [0, 127]: adding 128 to
+// each byte of a first keeps every byte difference in [1, 255], so no
+// borrow crosses a byte; the xor takes the 128 off again. The result is the
+// int8 two's complement of a - b in each byte.
+__device__ __forceinline__ uint32_t sub_bytes(uint32_t a, uint32_t b) {
+  return ((a | 0x80808080u) - b) ^ 0x80808080u;
+}
+
+// 4 rows x 4 columns of bytes (a_i = row i) -> 4 columns x 4 rows (c_j =
+// column j, byte i = row i).
+__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3,
+                                           uint32_t* c) {
+  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);
+  const uint32_t t1 = __byte_perm(a0, a1, 0x7362);
+  const uint32_t t2 = __byte_perm(a2, a3, 0x5140);
+  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Rows [m0, m0 + MT) x columns [k0, k0 + kw) of the codes into the block's
+// shared panel codes[MT][kchunk] (kw <= kchunk); rows past M and columns
+// past kc are 0, so a K step that runs past the chunk adds nothing.
+template <int MT, class Rd>
+__device__ __forceinline__ void load_stream_panel(const Rd& rd, int8_t* codes,
+                                                  int M, int m0, int k0,
+                                                  int kc, int kw,
+                                                  int kchunk) {
+  for (int i = threadIdx.x; i < MT * kw; i += blockDim.x) {
+    const int mm = i / kw, kk = i - mm * kw;
+    const int m = m0 + mm;
+    codes[mm * kchunk + kk] = (m < M && kk < kc) ? rd(m, k0 + kk) : int8_t(0);
+  }
+}
+
+// The end of a decode block, in the same launch as its product. acc is an
+// M x N int32 buffer and tickets one int per column tile, both 0 between
+// calls (the wrapper allocates them zeroed, once per device and stream).
+// With ksplit > 1 every block adds its sums into acc (integer atomics: the
+// order cannot change the sum), then takes a ticket; the block that draws
+// the last one reads the sums back with atomicExch(.., 0), which leaves acc
+// 0 again, resets the ticket and writes y. y = ((sum - zcol) * s) * gamma
+// with __fmul_rn, in the reference's association; zcol may be null, and
+// s_stride is 0 for a per-tensor scale and 1 for per-row scales.
+struct Finish {
+  int* acc;
+  int* tickets;
+  const float* s;
+  int s_stride;
+  const float* gamma;
+  const int* zcol;
+  float* y;
+  int ksplit;
+
+  __device__ float value(int sum, int m, int n) const {
+    if (zcol != nullptr) sum -= zcol[n];
+    return __fmul_rn(__fmul_rn(static_cast<float>(sum), s[m * s_stride]),
+                     gamma[n]);
+  }
+};
+
+// red: the block's MT x kStreamCols shared sums, 0 on entry; a lane's sums
+// acc[m][c] are column n_blk + 4 lane + c. Every thread adds its sums, then
+// the block finishes as Finish says. Call from every thread of the block.
+template <int MT>
+__device__ __forceinline__ void finish_block(const Finish& f, int* red,
+                                             const int (&acc)[MT][kCols],
+                                             int M, int N, int m0,
+                                             int n_blk) {
+  constexpr int kBN = kStreamCols;
+  const int n = kCols * (threadIdx.x % 32);
+  if (n_blk + n < N) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        atomicAdd(&red[m * kBN + n + c], acc[m][c]);
+  }
+  __syncthreads();
+  const int rows = min(MT, M - m0);
+  const int cols = min(kBN, N - n_blk);
+  if (f.ksplit == 1) {
+    for (int i = threadIdx.x; i < rows * kBN; i += blockDim.x) {
+      const int m = i / kBN, c = i - m * kBN;
+      if (c < cols)
+        f.y[(size_t)(m0 + m) * N + n_blk + c] =
+            f.value(red[i], m0 + m, n_blk + c);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * kBN; i += blockDim.x) {
+    const int m = i / kBN, c = i - m * kBN;
+    if (c < cols) atomicAdd(&f.acc[(size_t)(m0 + m) * N + n_blk + c], red[i]);
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    last = atomicAdd(&f.tickets[tile], 1) == f.ksplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < rows * kBN; i += blockDim.x) {
+    const int m = i / kBN, c = i - m * kBN;
+    if (c < cols) {
+      const size_t at = (size_t)(m0 + m) * N + n_blk + c;
+      f.y[at] = f.value(atomicExch(&f.acc[at], 0), m0 + m, n_blk + c);
+    }
+  }
+  if (threadIdx.x == 0) f.tickets[tile] = 0;
 }
 
 // Store a thread's MT x 4 int32 partial sums for split ky.

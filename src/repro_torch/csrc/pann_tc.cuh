@@ -152,21 +152,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// 4 rows x 4 columns of bytes (a_i = row i) -> 4 columns x 4 rows (c_j =
-// column j, byte i = row i).
-__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,
-                                           uint32_t a2, uint32_t a3,
-                                           uint32_t* c) {
-  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);
-  const uint32_t t1 = __byte_perm(a0, a1, 0x7362);
-  const uint32_t t2 = __byte_perm(a2, a3, 0x5140);
-  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 // mbarriers of the ring: one full and one empty per slot.
 __device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),

@@ -21,6 +21,8 @@ held against on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import quant
@@ -34,18 +36,30 @@ pann_matmul_launches = 0    # pann_matmul launches since the last reset
 
 MODES = ("fused", "planes")
 
-# split-K sizing: enough blocks for two waves on the H100's 132 SMs. Up to
-# DECODE_ROWS rows a block covers 4 or 8 rows x 512 columns with its encoded
-# panel (rows x kchunk int8 codes) well inside 48 KB of shared memory. Above
-# it a block covers a tile of (rows, columns) and steps K by a multiple of
-# the K alignment: TC_TILE for this module's tensor-core kernel
-# (csrc/pann_tc.cuh: 128 x 128 outputs, K steps of 64 and 32), CORE_TILE
-# for the CUDA-core tile kernels of pann_matmul_packed and unsigned_matmul.
+# split-K sizing of the tile kernels: enough blocks for two waves on the
+# H100's 132 SMs. Above DECODE_ROWS rows a block covers a tile of (rows,
+# columns) and steps K by a multiple of the K alignment: TC_TILE for this
+# module's tensor-core kernel (csrc/pann_tc.cuh: 128 x 128 outputs, K steps
+# of 64 and 32), CORE_TILE for the CUDA-core tile kernels of
+# pann_matmul_packed and unsigned_matmul. Up to DECODE_ROWS rows
+# unsigned_matmul's decode kernel covers 4 or 8 rows x 512 columns.
 _TARGET_BLOCKS = 2 * 132
 DECODE_ROWS = 8
 _MAX_KCHUNK = 4096
 TC_TILE = (128, 128, 64)
 CORE_TILE = (64, 128, 32)
+
+# The streaming decode kernels of the bit-plane matmuls (M <= DECODE_ROWS,
+# csrc/pann_common.cuh): a block is DECODE_WARPS warps over DECODE_COLS
+# columns, the warps taking K steps of ``step`` rows in turn (4 for the
+# unpacked planes, 8 for the packed ones). Blocks a SM by rows of the row
+# tile (4 or 8), as the kernels' __launch_bounds__ promise.
+DECODE_COLS = 128
+DECODE_WARPS = 8
+STEP_PLANES, STEP_PACKED = 4, 8
+BLOCKS_PLANES = {4: 2, 8: 2}
+BLOCKS_PACKED = {4: 3, 8: 2}
+_DECODE_MIN_STEPS = 2       # K steps per warp, at least
 
 
 def split_k(m: int, k: int, n: int, tile: tuple = TC_TILE
@@ -62,6 +76,22 @@ def split_k(m: int, k: int, n: int, tile: tuple = TC_TILE
     kchunk = -(-(-(-k // ksplit)) // align) * align
     if cap is not None:
         kchunk = min(kchunk, cap)
+    return -(-k // kchunk), kchunk
+
+
+def decode_split(k: int, n: int, step: int, slots: int) -> tuple[int, int]:
+    """(ksplit, kchunk) of a streaming decode launch on a card with
+    ``slots`` resident blocks (SMs times blocks a SM): as many K splits as
+    fill the slots once with the column tiles (never more blocks than
+    slots, so no tail wave; one split where the column tiles alone fill
+    them), each warp at least _DECODE_MIN_STEPS steps; kchunk a multiple of
+    DECODE_WARPS * step (every warp the same number of steps) and at most
+    _MAX_KCHUNK (the code panel in shared memory)."""
+    align = DECODE_WARPS * step
+    tiles = -(-n // DECODE_COLS)
+    want = max(1, slots // tiles)
+    kchunk = max(-(-k // want), _DECODE_MIN_STEPS * align)
+    kchunk = min(-(-kchunk // align) * align, _MAX_KCHUNK)
     return -(-k // kchunk), kchunk
 
 
@@ -197,27 +227,64 @@ def check_mode(mode: str) -> int:
 
 def _act_launcher():
     return build.entry("pann_matmul", "pann_matmul_act_launch",
-                       (build.P,) * 8 + (build.I,) * 7 + (build.P,))
+                       (build.P,) * 10 + (build.I,) * 7 + (build.P,))
 
 
 def _codes_launcher():
     return build.entry("pann_matmul", "pann_matmul_launch",
-                       (build.P,) * 8 + (build.I,) * 7 + (build.P,))
+                       (build.P,) * 10 + (build.I,) * 7 + (build.P,))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> (acc, tickets) of the decode kernels, int32 and
+# zero between launches: a kernel leaves them as it found them. One pair per
+# stream, so launches on two streams never share one.
+_decode_scratch: dict = {}
+
+
+def decode_scratch(x: Tensor, n_acc: int, n_tickets: int) -> tuple:
+    """The zeroed (acc, tickets) buffers of the decode kernels on x's
+    device and current stream, grown to at least n_acc and n_tickets."""
+    stream = torch.cuda.current_stream(x.device)
+    key = (x.device.index, stream.cuda_stream)
+    acc, tickets = _decode_scratch.get(key, (None, None))
+    if acc is None or acc.numel() < n_acc or tickets.numel() < n_tickets:
+        n_acc = max(n_acc, 0 if acc is None else acc.numel())
+        n_tickets = max(n_tickets, 0 if tickets is None else tickets.numel())
+        acc = torch.zeros(n_acc, dtype=torch.int32, device=x.device)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=x.device)
+        _decode_scratch[key] = (acc, tickets)
+    return acc, tickets
 
 
 def launch_product(launcher, what: str, x: Tensor, planes: tuple,
                    scale: Tensor, gamma: Tensor, zcol, *extra,
-                   tile: tuple = TC_TILE) -> Tensor:
-    """Allocate y and the split-K partials and call one C entry point of
-    the bit-plane matmuls (``tile``: its kernel's, see ``split_k``); raises
-    on a CUDA error."""
+                   tile: tuple = TC_TILE, step: int = STEP_PLANES,
+                   blocks: dict = BLOCKS_PLANES) -> Tensor:
+    """Allocate y and the split-K scratch and call one C entry point of the
+    bit-plane matmuls: up to DECODE_ROWS rows the streaming decode kernel
+    (K steps of ``step`` rows, ``blocks`` a SM by row tile, see
+    ``decode_split``; one launch), above it the tile kernel (``tile``, see
+    ``split_k``) and the epilogue kernel; raises on a CUDA error."""
     m, k = x.shape
     p, _, n = planes[0].shape
-    ksplit, kchunk = split_k(m, k, n, tile)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
+    if m <= DECODE_ROWS:
+        slots = _sm_count(x.device.index) * blocks[4 if m <= 4 else 8]
+        ksplit, kchunk = decode_split(k, n, step, slots)
+        partial = None
+        acc, tickets = decode_scratch(x, m * n, -(-n // DECODE_COLS))
+    else:
+        ksplit, kchunk = split_k(m, k, n, tile)
+        partial = torch.empty((ksplit, m, n), dtype=torch.int32,
+                              device=x.device)
+        acc = tickets = None
     ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,
-                                   partial)]
+                                   partial, acc, tickets)]
     err = launcher(*ptrs, m, k, n, p, ksplit, kchunk, *extra,
                    build.stream_of(x))
     build.check(err, what)

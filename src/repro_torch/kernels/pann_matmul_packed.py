@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import (CORE_TILE, check_args,
+from repro_torch.kernels.pann_matmul import (BLOCKS_PACKED, CORE_TILE,
+                                             STEP_PACKED, check_args,
                                              check_codes_args, epilogue,
                                              int_product, launch_product)
 
@@ -75,12 +76,12 @@ def pann_matmul_packed_plain(x_q: Tensor, packed_pos: Tensor,
 
 def _act_launcher():
     return build.entry("pann_matmul_packed", "pann_matmul_packed_act_launch",
-                       (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+                       (build.P,) * 10 + (build.I,) * 6 + (build.P,))
 
 
 def _codes_launcher():
     return build.entry("pann_matmul_packed", "pann_matmul_packed_launch",
-                       (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+                       (build.P,) * 10 + (build.I,) * 6 + (build.P,))
 
 
 def _check_k(k: int) -> None:
@@ -105,7 +106,8 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
                qparams, gamma, zcol)
     y = launch_product(_act_launcher(), "pann_matmul_packed_act", x,
                        (packed_pos, packed_neg), qparams, gamma, zcol,
-                       tile=CORE_TILE)
+                       tile=CORE_TILE, step=STEP_PACKED,
+                       blocks=BLOCKS_PACKED)
     global launches
     launches += 1
     return y
@@ -127,7 +129,8 @@ def pann_matmul_packed(x_q: Tensor, packed_pos: Tensor, packed_neg: Tensor,
                      x_q.shape[1] // 8, s_x, gamma, zcol)
     y = launch_product(_codes_launcher(), "pann_matmul_packed", x_q,
                        (packed_pos, packed_neg), s_x, gamma, zcol,
-                       tile=CORE_TILE)
+                       tile=CORE_TILE, step=STEP_PACKED,
+                       blocks=BLOCKS_PACKED)
     global pann_matmul_packed_launches
     pann_matmul_packed_launches += 1
     return y

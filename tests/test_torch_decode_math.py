@@ -1,0 +1,531 @@
+"""The integer arithmetic of the streaming decode kernels that B1
+``pann_matmul_act`` / B4 ``pann_matmul`` (unpacked planes,
+``src/repro_torch/csrc/pann_matmul.cu``) and B2 ``pann_matmul_packed_act`` /
+B5 ``pann_matmul_packed`` (packed planes, ``csrc/pann_matmul_packed.cu``)
+run at M <= 8, emulated in numpy step for step as the kernels do it, on the
+CPU (the kernels themselves run only on the card):
+
+- B2's rebuild: the 32-bit plane words (byte c = column c, bit j = row j),
+  the 8 x 8 bit transpose in each byte lane by three swap stages, the
+  per-byte pos - neg without borrow read as int8 (``sub_bytes``), the
+  ``__byte_perm`` 4 x 4 transpose to K-major words and ``__dp4a`` lanes in
+  K order;
+- B1's SIMD rebuild (sum of pos_p << p per word, ``sub_bytes``, the byte
+  transpose) in 'fused' mode, and 'planes' mode's one product per live
+  plane and sign on the pre-scaled plane bytes, the negative side through
+  the negated codes (``neg_bytes``);
+- the grid: ``decode_split``, the warps' K steps, the zero-padded ragged
+  last step, and the one-launch split-K finish (integer atomics into a
+  buffer, tickets, the last block's read-and-zero and epilogue) in every
+  order of the blocks' arrival, which leaves the buffers zero;
+- every K row covered exactly once at every shape the card checks and at
+  M = 1..8.
+
+All of it is held against ``kernels.pann_matmul.rebuild_weight`` /
+``int_product``, the plain versions and the JAX package's oracle
+``repro.kernels.ref.pann_matmul_ref``, for P = 1..7, every plane_shift,
+|w| = 127, codes of +-127 and ragged K. Tolerance: bit-identical (0).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro.kernels import ref as rref
+from repro_torch.kernels import pann_matmul as tpm
+from repro_torch.kernels import pann_matmul_packed as tpk
+
+H = np.uint32(0x80808080)
+SMS = 132                      # the H100's SM count, as the wrapper reads it
+MAX_PLANES = 7
+
+
+# ---------------------------------------------------------------------------
+# the kernels' word operations
+# ---------------------------------------------------------------------------
+
+def u32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.uint32)
+
+
+def byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm(x, y, sel) on uint32 arrays (selector nibbles
+    0-7: byte i of the result is byte sel_i of y:x)."""
+    src = np.stack([(x >> np.uint32(8 * i)) & np.uint32(0xFF)
+                    for i in range(4)]
+                   + [(y >> np.uint32(8 * i)) & np.uint32(0xFF)
+                      for i in range(4)])
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
+    return out
+
+
+def transpose4(a0, a1, a2, a3):
+    """pann::transpose4: 4 rows of 4 bytes -> 4 columns (byte i = row i)."""
+    t0, t1 = byte_perm(a0, a1, 0x5140), byte_perm(a0, a1, 0x7362)
+    t2, t3 = byte_perm(a2, a3, 0x5140), byte_perm(a2, a3, 0x7362)
+    return [byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+            byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)]
+
+
+def sub_bytes(a, b):
+    """pann::sub_bytes: a - b per byte for bytes in [0, 127]."""
+    return ((u32(a) | H) - u32(b)) ^ H
+
+
+def neg_bytes(q):
+    """pann_matmul.cu's neg_bytes: 0 - q per byte, any int8 but -128."""
+    q = u32(q)
+    return (H - (q & ~H)) ^ (~q & H)
+
+
+def swap_bits(a, b, s: int, mask: int):
+    """One swap stage of the bit transpose (swap_bits<S, Mask>)."""
+    m, ms = np.uint32(mask), np.uint32((mask << s) & 0xFFFFFFFF)
+    s = np.uint32(s)
+    return (a & ~ms) | ((b << s) & ms), (b & ~m) | ((a >> s) & m)
+
+
+def transpose_bits(w: list) -> list:
+    """In each byte lane, bit j of w[p] -> bit p of w[j] (8 words)."""
+    w = list(w)
+    for p in range(4):
+        w[p], w[p + 4] = swap_bits(w[p], w[p + 4], 4, 0x0F0F0F0F)
+    for p in (0, 1, 4, 5):
+        w[p], w[p + 2] = swap_bits(w[p], w[p + 2], 2, 0x33333333)
+    for p in (0, 2, 4, 6):
+        w[p], w[p + 1] = swap_bits(w[p], w[p + 1], 1, 0x55555555)
+    return w
+
+
+def sbytes(w) -> np.ndarray:
+    """(..., 4) int64 signed bytes of uint32 words, byte i last."""
+    w = np.ascontiguousarray(u32(w)).astype("<u4")
+    return w.view(np.int8).reshape(*w.shape, 4).astype(np.int64)
+
+
+def dp4a(a, b, c):
+    """__dp4a(a, b, c), s8 x s8: c + sum_i a.byte_i * b.byte_i (int32)."""
+    out = c + (sbytes(a) * sbytes(b)).sum(-1)
+    assert np.abs(out).max(initial=0) < 2 ** 31
+    return out
+
+
+def words(rows: np.ndarray) -> np.ndarray:
+    """(..., N) uint8/int8 bytes -> (..., N/4) uint32 words, byte c of word
+    i = column 4i + c (a lane's little-endian 32-bit load)."""
+    return np.ascontiguousarray(rows).view(np.uint8).view("<u4") \
+        .astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# operands
+# ---------------------------------------------------------------------------
+
+def planes_of(codes: np.ndarray, n_planes: int):
+    """(P, K, N) int8 0/1 planes of signed weights |w| < 2^P."""
+    pos = np.stack([(np.maximum(codes, 0) >> p) & 1
+                    for p in range(n_planes)]).astype(np.int8)
+    neg = np.stack([(np.maximum(-codes, 0) >> p) & 1
+                    for p in range(n_planes)]).astype(np.int8)
+    return pos, neg
+
+
+def rand_weights(rng, n_planes: int, k: int, n: int) -> np.ndarray:
+    """Signed weights |w| < 2^P, the extremes +-(2^P - 1) forced into the
+    first row."""
+    top = (1 << n_planes) - 1
+    w = rng.integers(-top, top + 1, size=(k, n))
+    w[0, ::2], w[0, 1::2] = top, -top
+    return w
+
+
+def rand_codes(rng, m: int, k: int, signed: bool = False) -> np.ndarray:
+    """int8 codes in [0, 127] (the kernels' contract), or [-127, 127];
+    the extremes forced into the first columns."""
+    q = rng.integers(-127 if signed else 0, 128, size=(m, k))
+    q[:, 0] = 127
+    if signed:
+        q[:, 1] = -127
+    return q.astype(np.int8)
+
+
+def pack(planes: np.ndarray) -> np.ndarray:
+    return tpk.pack_planes(torch.from_numpy(planes)).numpy()
+
+
+def blocks_of(step: int) -> dict:
+    """Blocks a SM of the decode kernel with K steps of ``step`` rows."""
+    return tpm.BLOCKS_PACKED if step == tpm.STEP_PACKED else tpm.BLOCKS_PLANES
+
+
+def int_product(q, pos, neg, shift=None, mode="fused") -> np.ndarray:
+    sh = None if shift is None else torch.tensor(float(shift))
+    return tpm.int_product(torch.from_numpy(q), torch.from_numpy(pos),
+                           torch.from_numpy(neg), sh, mode).numpy()
+
+
+def jax_oracle(q, pos, neg) -> np.ndarray:
+    """The JAX package's oracle with s_x = gamma = 1: the integer sum as
+    fp32 (exact below 2^24)."""
+    m, n = q.shape[0], pos.shape[2]
+    return np.asarray(rref.pann_matmul_ref(
+        jnp.asarray(q), jnp.asarray(pos), jnp.asarray(neg),
+        jnp.ones((m, 1), jnp.float32), jnp.ones((n,), jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# one K step, as a lane computes it (vectorised over every lane's 4 columns)
+# ---------------------------------------------------------------------------
+
+def packed_step_words(ppk, npk, k8: int, lo: int):
+    """B2: the lane's Step8 (live plane words of 8 rows) -> the K-major
+    words lo[c], hi[c] (rows 0-3 and 4-7 of column c), as step_product
+    builds them."""
+    n_planes = ppk.shape[0]
+
+    def magnitudes(packed):
+        w = [words(packed[p, k8]) if lo <= p < n_planes
+             else u32(np.zeros(packed.shape[2] // 4)) for p in range(7)]
+        return transpose_bits(w + [u32(np.zeros_like(w[0]))])
+
+    wp, wn = magnitudes(ppk), magnitudes(npk)
+    d = [sub_bytes(wp[j], wn[j]) for j in range(8)]
+    return transpose4(*d[:4]), transpose4(*d[4:])
+
+
+def packed_step(ppk, npk, k8, lo, panel, acc):
+    """acc (MT, N/4, 4) += one B2 step; panel (MT, 8) int8 codes."""
+    low, high = packed_step_words(ppk, npk, k8, lo)
+    qw = words(panel)                     # (MT, 2): rows 0-3, rows 4-7
+    for m in range(acc.shape[0]):
+        for c in range(4):
+            acc[m, :, c] = dp4a(qw[m, 0], low[c], acc[m, :, c])
+            acc[m, :, c] = dp4a(qw[m, 1], high[c], acc[m, :, c])
+
+
+def planes_step(pos, neg, rows, lo, panel, acc, mode):
+    """acc (MT, N/4, 4) += one B1 step of 4 rows (row indices ``rows``,
+    -1 past kend: its words are 0); panel (MT, 4) int8 codes."""
+    n_planes, _, n = pos.shape
+    zero = u32(np.zeros(n // 4))
+
+    def word(planes, p, r):
+        live = lo <= p < n_planes and rows[r] >= 0
+        return words(planes[p, rows[r]]) if live else zero
+
+    qw = words(panel)[:, 0]               # (MT,)
+    if mode == "fused":
+        w = []
+        for r in range(4):
+            pw, nw = zero.copy(), zero.copy()
+            for p in range(MAX_PLANES):
+                pw = pw + (word(pos, p, r) << np.uint32(p))
+                nw = nw + (word(neg, p, r) << np.uint32(p))
+            w.append(sub_bytes(pw, nw))
+        col = transpose4(*w)
+        for m in range(acc.shape[0]):
+            for c in range(4):
+                acc[m, :, c] = dp4a(qw[m], col[c], acc[m, :, c])
+        return
+    for p in range(lo, n_planes):
+        cp = transpose4(*[word(pos, p, r) << np.uint32(p) for r in range(4)])
+        cn = transpose4(*[word(neg, p, r) << np.uint32(p) for r in range(4)])
+        for m in range(acc.shape[0]):
+            nq = neg_bytes(qw[m])
+            for c in range(4):
+                acc[m, :, c] = dp4a(qw[m], cp[c], acc[m, :, c])
+                acc[m, :, c] = dp4a(nq, cn[c], acc[m, :, c])
+
+
+# ---------------------------------------------------------------------------
+# a whole launch: blocks, warps, steps and the finish
+# ---------------------------------------------------------------------------
+
+def decode_launch(q, planes, lo: int, step: int, rng, mode="fused"):
+    """The int32 sums of a decode launch, block by block as the kernel runs
+    it; the blocks of a column tile arrive in a random order and finish
+    through the atomics buffer and the tickets (ksplit > 1) or directly
+    (ksplit == 1). Returns (sums (M, N), the blocks' K rows, buffers)."""
+    m, k = q.shape
+    pos, neg = planes
+    n = pos.shape[2]
+    mt = 4 if m <= 4 else 8
+    ksplit, kchunk = tpm.decode_split(k, n, step, SMS * blocks_of(step)[mt])
+    tiles = -(-n // tpm.DECODE_COLS)
+    acc_buf = np.zeros((m, n), np.int64)      # the wrapper's zeroed acc
+    tickets = np.zeros(tiles, np.int64)
+    out = np.full((m, n), np.iinfo(np.int64).min)
+    covered = np.zeros(k, np.int64)
+    for m0 in range(0, m, mt):
+        qt = np.zeros((mt, k), np.int8)
+        qt[:min(mt, m - m0)] = q[m0:m0 + mt]
+        for y in rng.permutation(ksplit):
+            k0 = y * kchunk
+            kc = min(kchunk, k - k0)
+            steps = -(-kc // step)
+            panel = np.zeros((mt, steps * step), np.int8)   # zero-padded
+            panel[:, :kc] = qt[:, k0:k0 + kc]
+            block = np.zeros((mt, n // 4, 4), np.int64)
+            for warp in range(tpm.DECODE_WARPS):
+                acc = np.zeros_like(block)
+                for s in range(warp, steps, tpm.DECODE_WARPS):
+                    cols = panel[:, step * s:step * s + step]
+                    if step == tpm.STEP_PACKED:
+                        packed_step(pos, neg, (k0 + 8 * s) // 8, lo, cols,
+                                    acc)
+                        rows = np.arange(k0 + 8 * s, k0 + 8 * s + 8)
+                    else:
+                        rows = np.arange(k0 + 4 * s, k0 + 4 * s + 4)
+                        rows[rows >= k0 + kc] = -1
+                        planes_step(pos, neg, rows, lo, cols, acc, mode)
+                    if m0 == 0:
+                        covered[rows[rows >= 0]] += 1
+                block += acc                   # the shared-memory sums
+            sums = block.reshape(mt, n)[:min(mt, m - m0)]
+            rows_out = slice(m0, m0 + sums.shape[0])
+            if ksplit == 1:
+                out[rows_out] = sums
+                continue
+            acc_buf[rows_out] += sums          # red.global.add
+            tickets += 1                       # every column tile's ticket
+            if tickets[0] == ksplit:           # the last block: read, zero
+                out[rows_out] = acc_buf[rows_out]
+                acc_buf[rows_out] = 0
+                tickets[:] = 0
+    assert np.abs(out).max() < 2 ** 31
+    return out, covered, (acc_buf, tickets)
+
+
+def packed_launch(q, pos, neg, lo, seed=0):
+    return decode_launch(q, (pack(pos), pack(neg)), lo, tpm.STEP_PACKED,
+                         np.random.default_rng(seed))
+
+
+def planes_launch(q, pos, neg, lo, mode, seed=0):
+    return decode_launch(q, (pos, neg), lo, tpm.STEP_PLANES,
+                         np.random.default_rng(seed), mode)
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+def test_sub_bytes_and_neg_bytes_every_byte():
+    a, b = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    # four different bytes per word: no borrow may cross a byte
+    wa = u32(a | (b << 8) | (a << 16) | ((127 - b) << 24))
+    wb = u32(b | (a << 8) | ((127 - a) << 16) | (b << 24))
+    got = sbytes(sub_bytes(wa, wb))
+    want = np.stack([a - b, b - a, a - (127 - a), (127 - b) - b], -1)
+    np.testing.assert_array_equal(got, want)
+    q = np.arange(-127, 128)
+    w = u32(q.astype(np.int8).view(np.uint8)) * np.uint32(0x01010101)
+    w ^= u32(np.roll(q, 7).astype(np.int8).view(np.uint8)) << np.uint32(8)
+    got = sbytes(neg_bytes(w))
+    want = -sbytes(w)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bit_transpose_is_a_transpose():
+    rng = np.random.default_rng(0)
+    w = [u32(rng.integers(0, 2 ** 32, 64)) for _ in range(8)]
+    t = transpose_bits(w)
+    bit = lambda x, i: (x >> np.uint32(i)) & np.uint32(1)   # noqa: E731
+    for p in range(8):
+        for c in range(4):
+            for j in range(8):
+                np.testing.assert_array_equal(bit(t[j], 8 * c + p),
+                                              bit(w[p], 8 * c + j))
+    np.testing.assert_array_equal(np.stack(transpose_bits(t)), np.stack(w))
+
+
+@pytest.mark.parametrize("n_planes,shift",
+                         [(p, s) for p in range(1, 8) for s in range(p + 1)])
+def test_packed_rebuild_matches_rebuild_weight(n_planes, shift):
+    """B2's words of one step (8 rows x 32 columns) read back as int8 are
+    rebuild_weight's W at plane_shift ``shift``."""
+    rng = np.random.default_rng(10 * n_planes + shift)
+    w = rand_weights(rng, n_planes, 8, 32)
+    pos, neg = planes_of(w, n_planes)
+    low, high = packed_step_words(pack(pos), pack(neg), 0, shift)
+    got = np.concatenate([np.stack([sbytes(x) for x in low], 0),
+                          np.stack([sbytes(x) for x in high], 0)], -1)
+    got = got.transpose(2, 1, 0).reshape(8, 32)   # (row, quad, c) -> (k, n)
+    want = tpm.rebuild_weight(torch.from_numpy(pos), torch.from_numpy(neg),
+                              torch.tensor(float(shift))).numpy()
+    np.testing.assert_array_equal(got, want)
+    if shift == 0:
+        np.testing.assert_array_equal(got, w)
+
+
+# (M, K, N) at which B2 is driven: 8 rows a step, K % 8 == 0
+PACKED_CASES = [(m, 96, 136) for m in (1, 3, 4, 5, 8)] + [(4, 1024, 40)]
+
+
+@pytest.mark.parametrize("m,k,n", PACKED_CASES)
+@pytest.mark.parametrize("n_planes,shift", [(7, 0), (7, 5), (6, 1), (3, 2),
+                                            (1, 0), (7, 7)])
+def test_packed_launch_matches_int_product_and_oracle(m, k, n, n_planes,
+                                                      shift):
+    rng = np.random.default_rng(m * 1000 + k + n_planes * 10 + shift)
+    pos, neg = planes_of(rand_weights(rng, n_planes, k, n), n_planes)
+    q = rand_codes(rng, m, k)
+    got, covered, (acc, tickets) = packed_launch(q, pos, neg, shift)
+    np.testing.assert_array_equal(got, int_product(q, pos, neg, shift))
+    assert (covered == 1).all() and not acc.any() and not tickets.any()
+    if shift == 0:
+        np.testing.assert_array_equal(got.astype(np.float32),
+                                      jax_oracle(q, pos, neg))
+
+
+# (M, K, N) at which B1/B4 are driven: 4 rows a step, ragged K included
+PLANES_CASES = ([(m, 96, 136) for m in (1, 3, 4, 5, 8)]
+                + [(4, 130, 72), (8, 130, 72), (1, 37, 8), (4, 1030, 16)])
+
+
+@pytest.mark.parametrize("mode", tpm.MODES)
+@pytest.mark.parametrize("m,k,n", PLANES_CASES)
+@pytest.mark.parametrize("n_planes,shift", [(7, 0), (7, 5), (6, 1), (3, 3),
+                                            (1, 0)])
+def test_planes_launch_matches_int_product_and_oracle(mode, m, k, n,
+                                                      n_planes, shift):
+    rng = np.random.default_rng(m * 1000 + k + n_planes * 10 + shift)
+    pos, neg = planes_of(rand_weights(rng, n_planes, k, n), n_planes)
+    q = rand_codes(rng, m, k)
+    got, covered, (acc, tickets) = planes_launch(q, pos, neg, shift, mode)
+    np.testing.assert_array_equal(got, int_product(q, pos, neg, shift, mode))
+    assert (covered == 1).all() and not acc.any() and not tickets.any()
+    if shift == 0:
+        np.testing.assert_array_equal(got.astype(np.float32),
+                                      jax_oracle(q, pos, neg))
+
+
+@pytest.mark.parametrize("kernel", ["packed", "fused", "planes"])
+def test_extremes_signed_codes(kernel):
+    """7 planes of +-127 weights against codes of +-127 (dp4a is s8 x s8;
+    'planes' negates the codes per byte) over K = 2048: the largest sums."""
+    rng = np.random.default_rng(5)
+    k, n = 2048, 16
+    w = 127 * (rng.integers(0, 2, size=(k, n)) * 2 - 1)
+    pos, neg = planes_of(w, 7)
+    q = np.where(rng.integers(0, 2, size=(4, k)) == 1, 127, -127
+                 ).astype(np.int8)
+    w[:, 0] = 127                        # row 0, column 0: 127^2 K
+    q[0] = 127
+    q[1] = -127 * np.sign(w[:, 1])       # row 1, column 1: -127^2 K
+    pos, neg = planes_of(w, 7)
+    if kernel == "packed":
+        got = packed_launch(q, pos, neg, 0)[0]
+    else:
+        got = planes_launch(q, pos, neg, 0, kernel)[0]
+    want = q.astype(np.int64) @ w
+    assert want[0, 0] == 127 * 127 * k and want[1, 1] == -127 * 127 * k
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, int_product(q, pos, neg))
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_epilogue_matches_plain_versions(m):
+    """y = ((sum - zcol) * s) * gamma from the emulated sums, in the
+    kernels' association (__fmul_rn), equals each plain version: B1/B2 with
+    the encode of fp32 x at plane_shift 1, B4/B5 with per-row scales."""
+    rng = np.random.default_rng(m)
+    k, n, n_planes = 96, 40, 6
+    pos, neg = planes_of(rand_weights(rng, n_planes, k, n), n_planes)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    gamma = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-3)
+    zcol = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, n)
+                            .astype(np.int32))
+    qp = torch.tensor([0.02, 40.0, 127.0, 1.0])
+    from repro_torch.core import quant
+    q = quant.affine_encode(x, qp[0], qp[1], qp[2]).to(torch.int8).numpy()
+
+    def y_of(sums, s):
+        acc = torch.from_numpy(sums.astype(np.int32)) - zcol
+        return torch.from_numpy(
+            (acc.numpy().astype(np.float32) * s) * gamma.numpy())
+
+    tp, tn = torch.from_numpy(pos), torch.from_numpy(neg)
+    for mode in tpm.MODES:
+        got = y_of(planes_launch(q, pos, neg, 1, mode)[0], np.float32(0.02))
+        want = tpm.pann_matmul_act_plain(x, tp, tn, qp, gamma, zcol, mode)
+        assert torch.equal(got, want)
+    got = y_of(packed_launch(q, pos, neg, 1)[0], np.float32(0.02))
+    want = tpk.pann_matmul_packed_act_plain(
+        x, torch.from_numpy(pack(pos)), torch.from_numpy(pack(neg)), qp,
+        gamma, zcol)
+    assert torch.equal(got, want)
+    sx = rng.random((m, 1)).astype(np.float32) + 0.5
+    for mode in tpm.MODES:
+        got = y_of(planes_launch(q, pos, neg, 0, mode)[0], sx)
+        want = tpm.pann_matmul_plain(torch.from_numpy(q), tp, tn,
+                                     torch.from_numpy(sx), gamma, zcol,
+                                     mode=mode)
+        assert torch.equal(got, want)
+    got = y_of(packed_launch(q, pos, neg, 0)[0], sx)
+    want = tpk.pann_matmul_packed_plain(
+        torch.from_numpy(q), torch.from_numpy(pack(pos)),
+        torch.from_numpy(pack(neg)), torch.from_numpy(sx), gamma, zcol)
+    assert torch.equal(got, want)
+
+
+# (K, N) where the card drives the decode kernels: phase 3 (the serve's
+# projections and lm_head), phase 6 and the ragged shapes of chip_smoke.py
+CARD_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+               (4096, 128256), (130, 72), (4100, 136), (14336, 1024)]
+
+
+@pytest.mark.parametrize("m", range(1, tpm.DECODE_ROWS + 1))
+@pytest.mark.parametrize("k,n,step", [
+    (k, n, step) for k, n in CARD_SHAPES
+    for step in (tpm.STEP_PLANES, tpm.STEP_PACKED)
+    if step == tpm.STEP_PLANES or k % 8 == 0])   # packed planes: K % 8 == 0
+def test_decode_split_covers_every_row_once(k, n, step, m):
+    """At M rows (a row tile of 4 or 8): every split non-empty, whole-warp
+    chunks, the code panel and the block's sums inside shared memory's
+    48 KB, no more blocks than the card's slots (unless one split already
+    overfills them), and the warps' steps cover every K row once."""
+    mt = 4 if m <= 4 else 8
+    slots = SMS * blocks_of(step)[mt]
+    ksplit, kchunk = tpm.decode_split(k, n, step, slots)
+    align = tpm.DECODE_WARPS * step
+    assert kchunk % align == 0 and kchunk <= 4096
+    assert mt * (4 * tpm.DECODE_COLS + kchunk) <= 48 * 1024
+    assert ksplit * kchunk >= k > (ksplit - 1) * kchunk
+    tiles = -(-n // tpm.DECODE_COLS)
+    assert ksplit == 1 or tiles * ksplit <= slots
+    seen = np.zeros(k, np.int64)
+    for y in range(ksplit):
+        k0 = y * kchunk
+        kc = min(kchunk, k - k0)
+        assert kc > 0
+        for warp in range(tpm.DECODE_WARPS):
+            for s in range(warp, -(-kc // step), tpm.DECODE_WARPS):
+                rows = np.arange(k0 + step * s, k0 + step * s + step)
+                seen[rows[rows < k0 + kc]] += 1
+    assert (seen == 1).all()
+
+
+@settings(deadline=None, max_examples=20, derandomize=True)
+@given(n_planes=st.integers(1, 7), m=st.integers(1, 8), data=st.data())
+def test_packed_and_planes_launch_property(n_planes, m, data):
+    shift = data.draw(st.integers(0, n_planes))
+    k8 = data.draw(st.integers(1, 24))
+    n = 4 * data.draw(st.integers(1, 40))
+    seed = data.draw(st.integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed)
+    pos, neg = planes_of(rand_weights(rng, n_planes, 8 * k8, n), n_planes)
+    q = rand_codes(rng, m, 8 * k8, signed=True)
+    want = int_product(q, pos, neg, shift)
+    np.testing.assert_array_equal(packed_launch(q, pos, neg, shift, seed)[0],
+                                  want)
+    for mode in tpm.MODES:
+        np.testing.assert_array_equal(
+            planes_launch(q[:, :8 * k8 - 3], pos[:, :8 * k8 - 3],
+                          neg[:, :8 * k8 - 3], shift, mode, seed)[0],
+            int_product(q[:, :8 * k8 - 3], pos[:, :8 * k8 - 3],
+                        neg[:, :8 * k8 - 3], shift, mode))
