@@ -18,7 +18,11 @@ Phases (any failure raises and the script exits non-zero):
               M = 4, one ``[decode]`` line per kernel and shape (ms, bound,
               achieved TB/s, share of the bound, library ms, and a
               torch.sum over the same plane bytes as a streaming
-              yardstick).
+              yardstick). B3 is checked at S = 48, 1000 and 4096, 1-7
+              live planes, the first, middle and last position and windows
+              (at 4096 ones that leave whole cluster blocks masked), and at
+              other group sizes and head dims; timed at 4 planes with the
+              cluster size it launched.
 4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
               vocab 128256, random weights from a seed) through the PANN
               ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
@@ -319,31 +323,62 @@ ATT_KEYS = ("qq", "q_z", "q_scale", "k_planes", "k_s", "k_z", "v_planes",
             "v_s", "v_z")
 
 
-def check_attention(gen) -> list:
+def _attention_cases(s: int) -> list:
+    """(pos, window) cases of one cache length: the last position, the
+    middle, a window of a quarter, the first position; at S = 4096 also
+    windows that leave whole cluster blocks masked."""
+    cases = [(s - 1, None), (s // 2, None), (s - 1, max(s // 4, 8)),
+             (0, None)]
+    if s >= 4096:
+        cases += [(s - 1, 64), (s // 2, 100)]
+    return cases
+
+
+def _check_attention(a, s, bits) -> float:
+    """Hold the kernel bit for bit against its plain version at every
+    (pos, window) case; the largest difference (0)."""
+    from repro_torch.kernels import pann_attention as pa
+    args = [a[key] for key in ATT_KEYS]
+    pact = torch.full((), float(bits), device="cuda")
+    err = 0.0
+    for pos, window in _attention_cases(s):
+        p = torch.full((), pos, dtype=torch.int32, device="cuda")
+        y = pa.decode_attention(*args, p, pact, pact, window=window)
+        ref_y = pa.decode_attention_plain(*args, p, window=window)
+        diff = (y - ref_y).abs().max().item()
+        err = max(err, diff)
+        if not torch.equal(y, ref_y):
+            shape = tuple(a["qq"].shape)
+            raise AssertionError(
+                f"decode_attention {shape} S={s} bits={bits} pos={pos} "
+                f"window={window}: max |diff| {diff} (must be 0)")
+    return err
+
+
+# (B, KH, G, hd, S, bits) checked beside the serve's shape: G = 8 at hd = 64,
+# and the other head dims the kernel takes
+ATT_OTHER_SHAPES = ((4, 4, 8, 64, 1000, (1, 4, 7)),
+                    (2, 2, 2, 256, 3000, (4, 7)),
+                    (2, 2, 8, 16, 700, (3,)), (2, 2, 3, 32, 300, (5,)))
+
+
+def check_attention(gen) -> tuple:
+    """Timed rows at the serve's shape (S = 48, a ragged 1000, 4096) and
+    the checks at other shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels import pann_attention as pa
     b, kh, g, hd = BATCH, 8, 4, 128
     out = []
-    for s in (48, 4096):
+    for s in (48, 1000, 4096):
         err = 0.0
         for bits in range(1, 8):
             a = _attention_operands(gen, b, kh, g, hd, s, bits, bits)
-            args = [a[key] for key in ATT_KEYS]
-            pact = torch.full((), float(bits), device="cuda")
-            for pos, window in ((s - 1, None), (s // 2, None),
-                                (s - 1, max(s // 4, 8))):
-                p = torch.full((), pos, dtype=torch.int32, device="cuda")
-                y = pa.decode_attention(*args, p, pact, pact, window=window)
-                ref_y = pa.decode_attention_plain(*args, p, window=window)
-                diff = (y - ref_y).abs().max().item()
-                err = max(err, diff)
-                if not torch.equal(y, ref_y):
-                    raise AssertionError(
-                        f"decode_attention S={s} bits={bits} pos={pos} "
-                        f"window={window}: max |diff| {diff} (must be 0)")
+            err = max(err, _check_attention(a, s, bits))
             if bits != CACHE_BITS:
                 continue
             # timings at the serve's cache bits, full cache, no window
+            args = [a[key] for key in ATT_KEYS]
+            pact = torch.full((), float(bits), device="cuda")
             p = torch.full((), s - 1, dtype=torch.int32, device="cuda")
             qf = torch.randn((b, kh * g, 1, hd), generator=gen,
                              device="cuda")
@@ -357,6 +392,7 @@ def check_attention(gen) -> list:
             row = {
                 "B": b, "KH": kh, "G": g, "hd": hd, "S": s,
                 "planes_live": bits, "per_step": 32,
+                "cluster": pa.cluster_of(a["qq"], a["k_planes"]),
                 "ms": time_ms(lambda: pa.decode_attention(
                     *args, p, pact, pact), 20),
                 "plain_ms": time_ms(lambda: pa.decode_attention_plain(
@@ -366,7 +402,21 @@ def check_attention(gen) -> list:
         # window checked at this S
         row["max_abs_err"] = err
         out.append(row)
-    return out
+    if next(r for r in out if r["S"] == 4096)["cluster"] < 2:
+        raise AssertionError("decode_attention: S = 4096 must launch in "
+                             "clusters of more than one block")
+    checks = []
+    for b2, kh2, g2, hd2, s, bit_set in ATT_OTHER_SHAPES:
+        err = 0.0
+        for bits in bit_set:
+            a = _attention_operands(gen, b2, kh2, g2, hd2, s, bits, bits)
+            err = max(err, _check_attention(a, s, bits))
+        checks.append({"B": b2, "KH": kh2, "G": g2, "hd": hd2, "S": s,
+                       "bits": list(bit_set), "cluster": pa.cluster_of(
+                           a["qq"], a["k_planes"]), "max_abs_err": err})
+        print(f"[kernels] decode_attention check {json.dumps(checks[-1])}",
+              flush=True)
+    return out, checks
 
 
 # ---------------------------------------------------------------------------
@@ -1097,7 +1147,7 @@ def main() -> int:
     gen.manual_seed(0)
     t0 = time.perf_counter()
     mm_rows, mm_err = check_matmuls(gen)
-    att_rows = check_attention(gen)
+    att_rows, att_checks = check_attention(gen)
     print(f"[kernels] all bit-identical to their plain versions "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, rows in list(mm_rows.items()) + [("decode_attention",
@@ -1146,13 +1196,15 @@ def main() -> int:
                       "src/repro/kernels/pann_attention.py:188",
                       [r for r in att_rows if r["S"] == PROMPT + GEN],
                       serve["launches"]["decode_attention"],
-                      "per_step", max(r["max_abs_err"] for r in att_rows),
+                      "per_step", max(r["max_abs_err"]
+                                      for r in att_rows + att_checks),
                       step),
     ]
     kernels[0]["launches_unfused"] = unfused["launches"]["pann_matmul_act"]
     kernels[0]["unfused_shapes"] = [r for r in unfused["rows"]
                                     if r["kernel"] == "pann_matmul_act"]
     kernels[2]["shapes"] = att_rows
+    kernels[2]["checks"] = att_checks
     one_pass = ("one pass of the unfused path (7 projections and the "
                 "lm_head at M = 4 and 512), cold L2")
     for name, source, replaces in (
@@ -1184,7 +1236,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
-                                   if k not in ("shapes", "unfused_shapes")}
+                                   if k not in ("shapes", "unfused_shapes",
+                                                "checks")}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

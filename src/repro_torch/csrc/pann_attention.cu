@@ -2,39 +2,95 @@
 // cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/pann_attention.py::decode_attention
-// (_decode_attention_kernel). One block per (batch, kv head), as the TPU
-// grid has one cell per (batch, kv head):
-//   * exact int32 QK^T on the unpacked K codes, both zero points corrected
-//     in the accumulator: (qq - z_q).(kq - z_k);
-//   * the fp32 epilogue of repro_torch/kernels/ref.py::decode_attention_ref
-//     — score scale, optional tanh softcap, causal/window mask, softmax —
-//     with every product rounded by __fmul_rn;
-//   * probabilities rescaled into the largest valid V scale and requantized
-//     at 2^14, then exact int32 PV with the V zero point subtracted.
+// (_decode_attention_kernel), which holds a (batch, kv head)'s K and V code
+// panels in VMEM and starts the V copies while QK^T runs.
 //
-// What bounds it on this card: bytes (each cached position is read once per
-// token, P_live/8 bytes per code) and, at decode batch sizes, launch and
-// latency. The TPU kernel holds two (S, hd) int32 code panels in VMEM
-// (2 MiB each at S = 4096); 227 KB of shared memory cannot. So K and V are
-// streamed from device memory position by position and unpacked in
-// registers, and only the (G, S) fp32 scores stay in shared memory (64 KB
-// at G = 4, S = 4096); the wrapper states the largest S it takes. Only the
-// live low planes (k_pact / v_pact, device scalars derived from the rung's
-// cache level counts) and only positions inside the causal/window mask are
-// read: masked positions score -1e30 and get probability 0 exactly, as in
-// the plain version. The softmax denominator is summed in fp64 and rounded
-// once to fp32; the plain version does the same, so the two agree although
-// they add in different orders.
+// What bounds it on this card: bytes (every live plane row of every cached
+// position, K and V, is read once per token: P_live/8 bytes a code) and,
+// at decode sizes, launch and memory latency. One launch per call:
+//   * grid (C, KH, B): the C blocks of a (batch, kv head) form one thread
+//     block cluster, and block `rank` takes the contiguous chunk of
+//     positions [rank * chunk, (rank + 1) * chunk). The wrapper picks C in
+//     1..8 from S and the card's occupancy (decode_attention_max_clusters)
+//     so that the B * KH clusters take as few waves as they can. Only
+//     positions inside the causal/window mask [s_lo, s_hi] are read; a
+//     block whose chunk is wholly masked still takes part in every cluster
+//     exchange with neutral values (max -1e30, sums 0).
+//   * The valid positions' v_s / v_z rows are copied into shared memory
+//     with cp.async at once; K rows go straight into registers (a 32-bit
+//     word of a plane row a lane); right after the first K rows are
+//     requested every live V plane row of the chunk is copied into shared
+//     memory with cp.async (16-byte rows at hd = 128), so V's bytes are in
+//     flight while QK^T runs: one DRAM round trip, not two. Dead high
+//     planes (p >= pact) are never loaded; at pact <= 4 the code is
+//     compiled for four planes.
+//   * Both products run on the int8 tensor cores (mma.sync m16n8k32, u8,
+//     exact int32 sums): the integer dot-product instructions (__dp4a,
+//     __dp2a) issue too slowly on this card to keep up with the bytes.
+//     QK^T: the 8 x 8 bit transpose of pann_common.cuh turns a lane's K
+//     words of the live planes into codes (word i, byte c = code of element
+//     8 (4k + c) + i), which are the B fragments of products whose A rows
+//     are the query codes in the same order, plus a row of ones whose
+//     product is `colsum`. Both zero points are corrected in int32.
+//   * The fp32 epilogue of repro_torch/kernels/ref.py::decode_attention_ref
+//     (score scale, optional tanh softcap, mask, softmax), every product
+//     rounded by __fmul_rn, IEEE divisions, rintf, expf. Each query head
+//     has kWarps / G warps. The cluster exchanges (the blocks' maxima, the
+//     fp64 partial sums of exp(sc - m), the largest valid V scale, the
+//     int32 zero-point corrections and PV partials) go through distributed
+//     shared memory, each reduced in a fixed order (lanes by a shuffle
+//     tree, warps, then ranks in rank order), so every block uses the same
+//     max, denominator and scale and every run gives the same bits. The
+//     denominator is summed in fp64 and rounded once to fp32; the plain
+//     version does the same, so the two agree although they add in
+//     different orders.
+//   * Probabilities are rescaled into the largest valid V scale and
+//     requantized at 2^14, kept as two bytes (low 7 bits, high bits). PV:
+//     a 4 x 4 byte transpose across lanes (two shuffles) puts four cached
+//     positions of one head-dim byte in a word, the bit transpose turns the
+//     planes into codes, and m16n8k32 products take the low bytes as A rows
+//     g and the high bytes as rows 8 + g. The warps' partials meet in
+//     shared memory through integer atomics (exact in any order); each
+//     rank writes a slice of the output from the sum of all ranks'.
+//
+// Shared memory per block: the chunk's V rows for P planes, its v_s / v_z
+// rows, (G, chunk) fp32 scores and two bytes of probability code; the
+// wrapper (repro_torch/kernels/pann_attention.py) states the largest S
+// this allows. The scalars q_z, q_scale, k_pact and v_pact are device
+// pointers read here (a null pact means every plane is live), so a call
+// launches nothing but this kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "pann_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGMax = 8;          // query heads per kv head
+constexpr int kCMax = 8;          // blocks per cluster
+constexpr int kHDMax = 256;
+constexpr int kPlanes = pann::kMaxPlanes;
 constexpr float kNegInf = -1e30f;
 constexpr float kProbScale = 16384.0f;
+// dynamic shared memory a block may take: the card's 227 KB less the
+// kernel's static arrays and a margin (the wrapper's DYN_SMEM_BYTES)
+constexpr size_t kDynSmemMax = 232448 - 12 * 1024;
+
+// The cluster barrier; a one-block cluster needs only the block's.
+__device__ __forceinline__ void cluster_barrier(const cg::cluster_group& cl,
+                                                int C) {
+  if (C == 1)
+    __syncthreads();
+  else
+    cl.sync();
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
@@ -49,241 +105,626 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// Block-wide reductions; every thread gets the result. The leading barrier
-// keeps a previous reduction's readers off the scratch slots.
-__device__ float block_max(float v, float* scratch) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, scratch[w]);
-  return r;
-}
-__device__ double block_sum(double v, double* scratch) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r += scratch[w];
-  return r;
-}
-__device__ int block_sum(int v, int* scratch) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r += scratch[w];
-  return r;
+// The value at `local`'s place in the shared memory of each of the C
+// blocks of the cluster, in rank order; the loads are issued together.
+template <class T>
+__device__ __forceinline__ void gather(const cg::cluster_group& cluster,
+                                       T* local, int C, T (&v)[kCMax]) {
+#pragma unroll
+  for (int r = 0; r < kCMax; ++r)
+    v[r] = r < C ? *cluster.map_shared_rank(local, r) : T(0);
 }
 
-// codes of 8 consecutive head-dim elements (byte j of a plane row) from the
-// live low planes: code[i] = sum_p bit_i(plane_p[j]) << p
-__device__ __forceinline__ void unpack8(const uint8_t* __restrict__ row,
-                                        size_t plane_stride, int pact,
-                                        int (&code)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) code[i] = 0;
-  for (int p = 0; p < pact; ++p) {
-    const unsigned v = row[p * plane_stride];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) code[i] |= ((v >> i) & 1u) << p;
+// a live-plane count from a device scalar: clamped to [1, P], rounded;
+// null means all P planes
+__device__ __forceinline__ int live_planes(const float* p, int P) {
+  if (p == nullptr) return P;
+  return static_cast<int>(
+      rintf(fminf(fmaxf(*p, 1.0f), static_cast<float>(P))));
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::);
+}
+// wait for all but the N newest groups of this thread's copies
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+struct Args {
+  const int* qq;
+  const float* qz;      // q zero point (truncated to int, as the plain version)
+  const float* qscale;  // s_q * hd^-0.5
+  const float* kpact;   // live K planes, or null
+  const float* vpact;   // live V planes, or null
+  const int* pos;
+  const uint8_t* kpl;
+  const float* ks;
+  const float* kz;
+  const uint8_t* vpl;
+  const float* vs;
+  const float* vz;
+  float* out;
+  int P, S, KH, G, chunk, chunk_pad, window;
+  float softcap;
+};
+
+// Layout of a plane row in shared memory and of a thread's K word: WPR
+// 32-bit words a row (hd = 16 pads its 2-byte rows to one word).
+template <int D8>
+struct Rows {
+  static constexpr int kWPR = D8 >= 4 ? D8 / 4 : 1;
+  static constexpr int kRS = 4 * kWPR;                // bytes a shared row
+  static constexpr int kCopy = D8 >= 16 ? 16 : D8;    // bytes a cp.async
+};
+
+// c += A * B, one m16n8k32 product of unsigned bytes with int32 sums (the
+// PTX fragment layouts: a0/a2 row lane/4, a1/a3 row lane/4 + 8, columns
+// 4 (lane % 4) and 16 + 4 (lane % 4); b0/b1 column lane/4, the same rows;
+// c0, c1 row lane/4 and c2, c3 row lane/4 + 8, columns 2 (lane % 4) + 0/1).
+__device__ __forceinline__ void mma_u8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A 32-bit word of a K plane row (a 16-bit row at hd = 16), through the
+// read-only path and not kept in L1.
+template <int D8>
+__device__ __forceinline__ uint32_t load_k(const uint8_t* src) {
+  if constexpr (D8 >= 4) {
+    return pann::ld_stream(src);
+  } else {
+    return __ldg(reinterpret_cast<const unsigned short*>(src));
   }
 }
 
 template <int D8>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const int* __restrict__ qq, const float* __restrict__ qp,
-    const int* __restrict__ pos_ptr, const uint8_t* __restrict__ kpl,
-    const float* __restrict__ ks, const float* __restrict__ kz,
-    const uint8_t* __restrict__ vpl, const float* __restrict__ vs,
-    const float* __restrict__ vz, float* __restrict__ out, int P, int S,
-    int KH, int G, int window, float softcap) {
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_attention_kernel(const Args a) {
   constexpr int HD = D8 * 8;
-  const int kh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* sc = smem;                                // [G][S] scores -> probs
-  int* pq = reinterpret_cast<int*>(smem);          // [G][S] requantized probs
-  int* qs = reinterpret_cast<int*>(smem + G * S);  // [G][HD] q codes
-  int* oacc = qs + G * HD;                         // [G][HD] PV accumulators
-  __shared__ float red_f[kWarps];
-  __shared__ double red_d[kWarps];
-  __shared__ int red_i[kWarps];
+  constexpr int WPR = Rows<D8>::kWPR;
+  constexpr int RS = Rows<D8>::kRS;
+  constexpr int kHalves = WPR > 4 ? WPR / 4 : 1;  // K words a lane and row
+  constexpr int kSteps = 4;  // QK^T steps of 8 rows a warp loads at once
+  cg::cluster_group cluster = cg::this_cluster();
+  // values the same in every lane of a warp are passed through a shuffle
+  // from lane 0, which tells ptxas so: loops that hold shuffles then need
+  // no per-lane convergence handling
+  const int C = __shfl_sync(~0u, static_cast<int>(cluster.num_blocks()), 0);
+  const int rank =
+      __shfl_sync(~0u, static_cast<int>(cluster.block_rank()), 0);
+  const int kh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = __shfl_sync(~0u, tid >> 5, 0);
+  const int G = a.G, P = a.P, S = a.S, cp = a.chunk_pad;
+  // warps per query head in the softmax passes: warp w takes head w / wpg
+  const int wpg = kWarps / G;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* vsm = smem;                                   // [P][cp][RS]
+  float* sc = reinterpret_cast<float*>(smem + (size_t)P * cp * RS);  // [G][cp]
+  float* vrow = sc + (size_t)G * cp;                     // [2][cp] v_s, v_z
+  // probability codes q = 128 hi + lo as bytes: [G][cp] lo, then [G][cp] hi
+  uint8_t* pql = reinterpret_cast<uint8_t*>(vrow + 2 * (size_t)cp);
+  uint8_t* pqh = pql + (size_t)G * cp;
+  __shared__ __align__(16) uint32_t qw[kGMax * kHDMax / 4];  // [G][WPR][8]
+  __shared__ int qpv[kGMax * kHDMax];  // [G][HD] query codes, then PV partials
+  int* qs = qpv;
+  int* pv = qpv;
   __shared__ int rowsum_q[kGMax];
-  __shared__ int corr[kGMax];
+  __shared__ float wm[kWarps];                 // per-warp partials
+  __shared__ double wpart[kWarps];
+  __shared__ float wv[kWarps];
+  __shared__ float xm[kGMax];                  // exchanged: block max
+  __shared__ double xpart[kGMax];              //   fp64 partial sums
+  __shared__ int xcorr[kGMax];                 //   zero-point corrections
+  __shared__ float xvmax;                      //   largest valid V scale
 
-  const int qz = static_cast<int>(qp[0]);
-  const float q_scale = qp[1];
-  const int k_pact = static_cast<int>(rintf(qp[2]));
-  const int v_pact = static_cast<int>(rintf(qp[3]));
-  const int pos = *pos_ptr;
-  const int s_lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int* qsrc = a.qq + ((size_t)(b * a.KH + kh) * G) * HD;
+  for (int i = tid; i < G * HD; i += kThreads) qs[i] = qsrc[i];
+  if (tid < kGMax) xcorr[tid] = 0;
+  const int qz = static_cast<int>(*a.qz);
+  const float q_scale = *a.qscale;
+  const int k_pact = __shfl_sync(~0u, live_planes(a.kpact, P), 0);
+  const int v_pact = __shfl_sync(~0u, live_planes(a.vpact, P), 0);
+  const int pos = __shfl_sync(~0u, *a.pos, 0);
+  const int s_lo = a.window > 0 ? max(0, pos - a.window + 1) : 0;
   const int s_hi = min(pos, S - 1);
-  const size_t plane_stride = (size_t)S * KH * D8;
-  const size_t row0 = (size_t)b * P * plane_stride + (size_t)kh * D8;
-  const size_t rowstride = (size_t)KH * D8;
+  const int c0 = rank * a.chunk;
+  const int len = max(0, min(a.chunk, S - c0));  // positions of this chunk
+  const int v0 = max(c0, s_lo), v1 = min(c0 + len, s_hi + 1);
+  const int nvalid = max(0, v1 - v0);            // of them inside the mask
+  const size_t plane_stride = (size_t)S * a.KH * D8;
+  const size_t rowstride = (size_t)a.KH * D8;
+  const size_t head0 = (size_t)b * P * plane_stride + (size_t)kh * D8;
 
-  const int* qsrc = qq + ((size_t)(b * KH + kh) * G) * HD;
-  for (int i = tid; i < G * HD; i += kThreads) {
-    qs[i] = qsrc[i];
-    oacc[i] = 0;
+  // the valid positions' v_s and v_z rows (one group) now; every live V
+  // plane row (a second group) once the first K rows are requested
+  for (int i = tid; i < 2 * nvalid; i += kThreads) {
+    const int row = i >= nvalid, s = i - row * nvalid;
+    cp_async(vrow + row * cp + (v0 - c0) + s,
+             (row ? a.vz : a.vs) + (size_t)b * S + v0 + s, 4);
+  }
+  cp_async_commit();
+  auto copy_v = [&]() {
+    constexpr int kCopy = Rows<D8>::kCopy;
+    constexpr int kPieces = D8 / kCopy > 0 ? D8 / kCopy : 1;
+    const int n = nvalid * kPieces;
+    for (int p = 0; p < v_pact; ++p) {
+      const uint8_t* src0 = a.vpl + head0 + p * plane_stride;
+      uint8_t* dst0 = vsm + ((size_t)p * cp + (v0 - c0)) * RS;
+      for (int i = tid; i < n; i += kThreads) {
+        const int s = i / kPieces, piece = i - s * kPieces;
+        const uint8_t* src = src0 + (size_t)(v0 + s) * rowstride + piece * 16;
+        uint8_t* dst = dst0 + s * RS + piece * 16;
+        if constexpr (D8 >= 4) {
+          cp_async(dst, src, kCopy);
+        } else {
+          *reinterpret_cast<unsigned short*>(dst) =
+              __ldg(reinterpret_cast<const unsigned short*>(src));
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the query codes in the order the bit transpose leaves the K codes:
+  // word (g, k, i), byte c = q[g][8 (4k + c) + i]; the row sums of the
+  // codes; -1e30 for the chunk's masked positions
+  auto prepare = [&]() {
+    __syncthreads();
+    for (int w = tid; w < G * WPR * 8; w += kThreads) {
+      const int g = w / (WPR * 8), k = (w / 8) % WPR, i = w % 8;
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = 4 * k + c;
+        if (j < D8)
+          word |= static_cast<uint32_t>(qs[g * HD + 8 * j + i] & 0xFF)
+                  << (8 * c);
+      }
+      qw[w] = word;
+    }
+    if (tid < G) {
+      int r = 0;
+      for (int h = 0; h < HD; ++h) r += qs[tid * HD + h];
+      rowsum_q[tid] = r;
+    }
+    for (int i = tid; i < G * len; i += kThreads) {
+      const int s = i % len;
+      if (c0 + s < v0 || c0 + s >= v1) sc[(i / len) * cp + s] = kNegInf;
+    }
+    __syncthreads();
+  };
+
+  // scores: exact int32 QK^T on the tensor cores, fp32 epilogue. A warp
+  // step is 8 positions: lane (n, kq) loads word kq (+ 4) of position n's
+  // live K rows, and the bit transpose makes the B fragments of
+  // m16n8k32 products whose A rows 0..G-1 are the query codes in the same
+  // order and row 8 is all ones (colsum). NP bounds the live planes at
+  // compile time (4 or 7), so at 4 the dead rows of the transpose fold.
+  {
+    const int n_l = lane >> 2, kq = lane & 3;
+    uint32_t qa[kHalves][4][2];
+    const uint32_t ones = n_l == 0 ? 0x01010101u : 0u;
+    auto qk_pass = [&](auto np) {
+      constexpr int NP = decltype(np)::value;
+      // the first round runs in every warp: its K rows are requested
+      // before the V copies are issued and before the query words are
+      // built, so their DRAM round trip overlaps both
+      for (int st0 = warp, first = 1; first || st0 * 8 < nvalid;
+           st0 += kWarps * kSteps) {
+        uint32_t w[kSteps][kHalves][NP];
+        float kss[kSteps][2];
+        int kzi[kSteps][2];
+#pragma unroll
+        for (int b2 = 0; b2 < kSteps; ++b2) {
+          const int sl = (st0 + b2 * kWarps) * 8 + n_l;  // this lane's row
+          const uint8_t* src = a.kpl + head0 + (size_t)(v0 + sl) * rowstride;
+#pragma unroll
+          for (int u = 0; u < kHalves; ++u) {
+            const int k = kq + 4 * u;
+            const bool ok = sl < nvalid && k < WPR;
+#pragma unroll
+            for (int p2 = 0; p2 < NP; ++p2)
+              w[b2][u][p2] = ok && p2 < k_pact
+                                 ? load_k<D8>(src + p2 * plane_stride + 4 * k)
+                                 : 0u;
+          }
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {  // this lane's scores' rows
+            const int so = (st0 + b2 * kWarps) * 8 + 2 * kq + e2;
+            const bool ok = so < nvalid;
+            kss[b2][e2] = ok ? a.ks[(size_t)b * S + v0 + so] : 0.0f;
+            kzi[b2][e2] =
+                ok ? static_cast<int>(rintf(a.kz[(size_t)b * S + v0 + so]))
+                   : 0;
+          }
+        }
+        if (first) {
+          first = 0;
+          copy_v();
+          prepare();
+#pragma unroll
+          for (int u = 0; u < kHalves; ++u)
+#pragma unroll
+            for (int m2 = 0; m2 < 4; ++m2)
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const int k = kq + 4 * u;
+                qa[u][m2][e2] = n_l < G && k < WPR
+                                    ? qw[(n_l * WPR + k) * 8 + 2 * m2 + e2]
+                                    : 0u;
+              }
+        }
+#pragma unroll
+        for (int b2 = 0; b2 < kSteps; ++b2) {
+          const int st = st0 + b2 * kWarps;
+          if (st * 8 >= nvalid) break;  // warp-uniform
+          int c[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int u = 0; u < kHalves; ++u) {
+            uint32_t code[8];
+#pragma unroll
+            for (int p2 = 0; p2 < 8; ++p2)
+              code[p2] = p2 < NP ? w[b2][u][p2] : 0u;
+            // word i, byte c = code of element 8 (4k + c) + i
+            pann::transpose_bits(code);
+#pragma unroll
+            for (int m2 = 0; m2 < 4; ++m2)
+              mma_u8(c, qa[u][m2][0], ones, qa[u][m2][1], ones, code[2 * m2],
+                     code[2 * m2 + 1]);
+          }
+          // c0, c1: dot of head n_l at rows 2kq, 2kq + 1; their colsums are
+          // row 8 of lane kq (its c2, c3)
+          const int cs[2] = {__shfl_sync(~0u, c[2], kq),
+                             __shfl_sync(~0u, c[3], kq)};
+          if (n_l < G) {
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const int so = st * 8 + 2 * kq + e2;
+              if (so < nvalid) {
+                const int i32 = c[e2] - qz * cs[e2] -
+                                kzi[b2][e2] * rowsum_q[n_l] +
+                                qz * kzi[b2][e2] * HD;
+                float v = __fmul_rn(
+                    __fmul_rn(static_cast<float>(i32), q_scale),
+                    kss[b2][e2]);
+                if (a.softcap > 0.0f)
+                  v = __fmul_rn(a.softcap, tanhf(v / a.softcap));
+                sc[n_l * cp + (v0 - c0 + so)] = v;
+              }
+            }
+          }
+        }
+      }
+    };
+    if (k_pact <= 4)
+      qk_pass(std::integral_constant<int, 4>{});
+    else
+      qk_pass(std::integral_constant<int, kPlanes>{});
+  }
+  for (int i = tid; i < G * HD; i += kThreads) pv[i] = 0;  // qs is read
+  cp_async_wait<1>();  // the v_s / v_z rows
+  __syncthreads();
+
+  // softmax: warp w takes head g = w / wpg, positions part + wpg * n of
+  // each 32. Exchange 1: the blocks' maxima, the largest valid V scale.
+  const int g_w = warp / wpg, part = warp - g_w * wpg;
+  const bool head_warp = g_w < G;
+  {
+    float m = kNegInf, vm = 0.0f;
+    if (head_warp)
+      for (int s = part * 32 + lane; s < len; s += 32 * wpg)
+        m = fmaxf(m, sc[g_w * cp + s]);
+    for (int s = v0 - c0 + tid; s < v1 - c0; s += kThreads)
+      vm = fmaxf(vm, vrow[s]);
+    m = warp_max(m);
+    vm = warp_max(vm);
+    if (lane == 0) {
+      wm[warp] = m;
+      wv[warp] = vm;
+    }
   }
   __syncthreads();
   if (tid < G) {
-    int r = 0;
-    for (int h = 0; h < HD; ++h) r += qs[tid * HD + h];
-    rowsum_q[tid] = r;
-  }
-  __syncthreads();
-
-  // scores: exact int32 QK^T, fp32 epilogue
-  for (int s = tid; s < S; s += kThreads) {
-    if (s < s_lo || s > s_hi) {
-      for (int g = 0; g < G; ++g) sc[g * S + s] = kNegInf;
-      continue;
-    }
-    int dot[kGMax];
-#pragma unroll
-    for (int g = 0; g < kGMax; ++g) dot[g] = 0;
-    int colsum = 0;
-    const uint8_t* row = kpl + row0 + (size_t)s * rowstride;
-#pragma unroll 2
-    for (int j = 0; j < D8; ++j) {
-      int code[8];
-      unpack8(row + j, plane_stride, k_pact, code);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        colsum += code[i];
-#pragma unroll
-        for (int g = 0; g < kGMax; ++g)
-          if (g < G) dot[g] += qs[g * HD + j * 8 + i] * code[i];
-      }
-    }
-    const int kzi = static_cast<int>(rintf(kz[(size_t)b * S + s]));
-    const float kss = ks[(size_t)b * S + s];
-    for (int g = 0; g < G; ++g) {
-      const int i32 = dot[g] - qz * colsum - kzi * rowsum_q[g] + qz * kzi * HD;
-      float v = __fmul_rn(__fmul_rn(static_cast<float>(i32), q_scale), kss);
-      if (softcap > 0.0f) v = __fmul_rn(softcap, tanhf(v / softcap));
-      sc[g * S + s] = v;
-    }
-  }
-  __syncthreads();
-
-  // softmax per query head; the denominator is summed in fp64
-  for (int g = 0; g < G; ++g) {
     float m = kNegInf;
-    for (int s = tid; s < S; s += kThreads) m = fmaxf(m, sc[g * S + s]);
-    m = block_max(m, red_f);
-    double part = 0.0;
-    for (int s = tid; s < S; s += kThreads) {
-      const float e = expf(sc[g * S + s] - m);
-      sc[g * S + s] = e;
-      part += static_cast<double>(e);
-    }
-    const double tot = block_sum(part, red_d);
-    const float denom = static_cast<float>(tot);
-    for (int s = tid; s < S; s += kThreads) sc[g * S + s] = sc[g * S + s] / denom;
+    for (int w = tid * wpg; w < (tid + 1) * wpg; ++w) m = fmaxf(m, wm[w]);
+    xm[tid] = m;
+  } else if (tid == kGMax) {
+    float vm = 0.0f;
+    for (int w = 0; w < kWarps; ++w) vm = fmaxf(vm, wv[w]);
+    xvmax = vm;
   }
+  cluster_barrier(cluster, C);
 
-  // requantize the probabilities in the largest valid V scale
+  // exchange 2: the fp64 partial sums of exp(sc - m), in warp order
+  {
+    double sum = 0.0;
+    if (head_warp) {
+      float ms[kCMax];
+      gather(cluster, &xm[g_w], C, ms);
+      float m = kNegInf;
+#pragma unroll
+      for (int r = 0; r < kCMax; ++r)
+        if (r < C) m = fmaxf(m, ms[r]);
+      for (int s = part * 32 + lane; s < len; s += 32 * wpg) {
+        const float e = expf(sc[g_w * cp + s] - m);
+        sc[g_w * cp + s] = e;
+        sum += static_cast<double>(e);
+      }
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) wpart[warp] = sum;
+  }
+  __syncthreads();
+  if (tid < G) {
+    double sum = 0.0;
+    for (int w = tid * wpg; w < (tid + 1) * wpg; ++w) sum += wpart[w];
+    xpart[tid] = sum;
+  }
+  cluster_barrier(cluster, C);
+
+  float vms[kCMax];
+  gather(cluster, &xvmax, C, vms);
   float vmax = 0.0f;
-  for (int s = s_lo + tid; s <= s_hi; s += kThreads)
-    vmax = fmaxf(vmax, vs[(size_t)b * S + s]);
-  const float sv_ref = fmaxf(block_max(vmax, red_f), 1e-12f);
-  for (int g = 0; g < G; ++g) {
+#pragma unroll
+  for (int r = 0; r < kCMax; ++r) vmax = fmaxf(vmax, vms[r]);
+  const float sv_ref = fmaxf(vmax, 1e-12f);
+
+  // requantize the probabilities in the largest valid V scale; codes
+  // <= 2^14 kept as two bytes (lo 7 bits, hi) for the u8 tensor-core PV,
+  // 0 outside the mask and past the chunk
+  {
     int c = 0;
-    for (int s = tid; s < S; s += kThreads) {
-      int q = 0;
-      if (s >= s_lo && s <= s_hi) {
-        const float ratio = vs[(size_t)b * S + s] / sv_ref;
-        q = static_cast<int>(
-            rintf(__fmul_rn(__fmul_rn(sc[g * S + s], ratio), kProbScale)));
-        c += q * static_cast<int>(rintf(vz[(size_t)b * S + s]));
-      }
-      pq[g * S + s] = q;  // same slot as the score it replaces
-    }
-    c = block_sum(c, red_i);
-    if (tid == 0) corr[g] = c;
-  }
-  __syncthreads();
-
-  // exact int32 PV: thread (lane, j) sums byte column j over its positions
-  const int j = tid % D8, lane = tid / D8, lanes = kThreads / D8;
-  int acc[kGMax][8];
+    if (head_warp) {
+      double parts[kCMax];
+      gather(cluster, &xpart[g_w], C, parts);
+      double tot = 0.0;
 #pragma unroll
-  for (int g = 0; g < kGMax; ++g)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[g][i] = 0;
-  for (int s = s_lo + lane; s <= s_hi; s += lanes) {
-    int code[8];
-    unpack8(vpl + row0 + (size_t)s * rowstride + j, plane_stride, v_pact,
-            code);
-#pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g < G) {
-        const int w = pq[g * S + s];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] += w * code[i];
+      for (int r = 0; r < kCMax; ++r)
+        if (r < C) tot += parts[r];
+      const float denom = static_cast<float>(tot);
+      for (int s = part * 32 + lane; s < cp; s += 32 * wpg) {
+        int q = 0;
+        if (c0 + s >= v0 && c0 + s < v1) {
+          const float ratio = vrow[s] / sv_ref;
+          const float pr = sc[g_w * cp + s] / denom;
+          q = static_cast<int>(
+              rintf(__fmul_rn(__fmul_rn(pr, ratio), kProbScale)));
+          c += q * static_cast<int>(rintf(vrow[cp + s]));
+        }
+        pql[g_w * cp + s] = static_cast<uint8_t>(q & 127);
+        pqh[g_w * cp + s] = static_cast<uint8_t>(q >> 7);
       }
     }
+    c = warp_sum(c);
+    if (head_warp && lane == 0) atomicAdd(&xcorr[g_w], c);
   }
-#pragma unroll
-  for (int g = 0; g < kGMax; ++g)
-    if (g < G)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) atomicAdd(&oacc[g * HD + j * 8 + i], acc[g][i]);
+  cp_async_wait<0>();  // the V planes
   __syncthreads();
 
+  // exact int32 PV on the tensor cores: m16n8k32 products with K = 32
+  // cached positions, A rows g = the low 7 bits of head g's probability
+  // codes and rows 8 + g their high bits, B = the codes of 8 head-dim
+  // bytes j at one bit i. Warp w takes byte octet w % n_oct (j0 = 8 oct)
+  // and every wpo-th 32-row step. Lane (4 k' + m', kq) reads word 2 oct +
+  // k' of rows 4 kq + m' and 16 + 4 kq + m'; a 4 x 4 byte transpose across
+  // the lanes m' (two shuffles) leaves it byte j0 + 4 k' + m' of rows
+  // 4 kq .. 4 kq + 3 (and 16 + ...), the B layout, and the bit transpose
+  // turns the planes into the codes of bit i in word i.
+  {
+    constexpr int n_oct = D8 > 8 ? D8 / 8 : 1;
+    constexpr int wpo = kWarps / n_oct;  // warps a byte octet
+    const int oct = warp % n_oct, part_w = warp / n_oct;
+    const int n_l = lane >> 2, kq = lane & 3, kp = n_l >> 2, mp = n_l & 3;
+    const int wd = 2 * oct + kp;         // the K word this lane reads
+    int acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e2 = 0; e2 < 4; ++e2) acc[i][e2] = 0;
+    const int lv0 = v0 - c0, lv1 = nvalid > 0 ? v1 - c0 : 0;
+    const bool has_rows = (lv0 / 32 + part_w) * 32 < lv1;
+    auto pv_pass = [&](auto np) {
+      constexpr int NP = decltype(np)::value;
+      // codes (word i) of byte j0 + n_l at rows r0 + 4 kq .. + 3
+      auto codes_at = [&](int r0, uint32_t (&code)[8]) {
+#pragma unroll
+        for (int p2 = 0; p2 < 8; ++p2) code[p2] = 0;
+#pragma unroll
+        for (int p2 = 0; p2 < NP; ++p2) {
+          const uint32_t x =
+              p2 < v_pact && wd < WPR
+                  ? *reinterpret_cast<const uint32_t*>(
+                        vsm + ((size_t)p2 * cp + r0 + 4 * kq + mp) * RS +
+                        4 * wd)
+                  : 0u;
+          uint32_t y = __shfl_xor_sync(~0u, x, 8);
+          const uint32_t z = (mp & 2) ? __byte_perm(y, x, 0x7632)
+                                      : __byte_perm(x, y, 0x5410);
+          y = __shfl_xor_sync(~0u, z, 4);
+          code[p2] = (mp & 1) ? __byte_perm(y, z, 0x7351)
+                              : __byte_perm(z, y, 0x6240);
+        }
+        pann::transpose_bits(code);
+      };
+      for (int r0 = (lv0 / 32 + part_w) * 32; r0 < lv1; r0 += 32 * wpo) {
+        uint32_t b0[8], b1[8];  // rows r0 + 4 kq .., r0 + 16 + 4 kq ..
+        codes_at(r0, b0);
+        codes_at(r0 + 16, b1);
+        uint32_t a4[4] = {0u, 0u, 0u, 0u};
+        if (n_l < G) {
+          const size_t o = (size_t)n_l * cp + r0 + 4 * kq;
+          a4[0] = *reinterpret_cast<const uint32_t*>(pql + o);
+          a4[1] = *reinterpret_cast<const uint32_t*>(pqh + o);
+          a4[2] = *reinterpret_cast<const uint32_t*>(pql + o + 16);
+          a4[3] = *reinterpret_cast<const uint32_t*>(pqh + o + 16);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          mma_u8(acc[i], a4[0], a4[1], a4[2], a4[3], b0[i], b1[i]);
+      }
+    };
+    if (v_pact <= 4)
+      pv_pass(std::integral_constant<int, 4>{});
+    else
+      pv_pass(std::integral_constant<int, kPlanes>{});
+    // lane holds head n_l, bytes j0 + 2 kq + e2 (e2 = 0, 1), bit i: low
+    // part in acc[i][e2], high part in acc[i][2 + e2]
+    if (has_rows && n_l < G) {
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int j = 8 * oct + 2 * kq + e2;
+        if (j < D8) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            atomicAdd(&pv[n_l * HD + 8 * j + i],
+                      acc[i][e2] + 128 * acc[i][2 + e2]);
+        }
+      }
+    }
+  }
+  cluster_barrier(cluster, C);
+
+  // each rank writes a slice of the output from every rank's partials
   const float scale = sv_ref / kProbScale;
-  float* dst = out + ((size_t)(b * KH + kh) * G) * HD;
-  for (int i = tid; i < G * HD; i += kThreads)
-    dst[i] = __fmul_rn(static_cast<float>(oacc[i] - corr[i / HD]), scale);
+  float* dst = a.out + ((size_t)(b * a.KH + kh) * G) * HD;
+  for (int i = rank * kThreads + tid; i < G * HD; i += C * kThreads) {
+    int sums[kCMax], corrs[kCMax], sum = 0, corr = 0;
+    gather(cluster, &pv[i], C, sums);
+    gather(cluster, &xcorr[i / HD], C, corrs);
+#pragma unroll
+    for (int r = 0; r < kCMax; ++r) {
+      sum += sums[r];
+      corr += corrs[r];
+    }
+    dst[i] = __fmul_rn(static_cast<float>(sum - corr), scale);
+  }
+  // no block leaves while another may read its partials
+  if (C > 1) cluster.sync();
 }
 
+// The launch of grid (C, KH, B) in clusters of C blocks; given `active`,
+// the number of such clusters the card holds at once instead.
 template <int D8>
-int launch(const int* qq, const float* qp, const int* pos, const uint8_t* kpl,
-           const float* ks, const float* kz, const uint8_t* vpl,
-           const float* vs, const float* vz, float* out, int B, int P, int S,
-           int KH, int G, int window, float softcap, size_t smem,
-           cudaStream_t stream) {
+int launch(const Args& a, int B, int C, cudaStream_t stream,
+           int* active = nullptr) {
+  constexpr int RS = Rows<D8>::kRS;
+  const size_t smem = (size_t)a.chunk_pad * (a.P * RS + 6 * a.G + 8);
+  if (smem > kDynSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       decode_attention_kernel<D8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(KH, B);
-  decode_attention_kernel<D8><<<grid, kThreads, smem, stream>>>(
-      qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, P, S, KH, G, window,
-      softcap);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, a.KH, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(
+        active, decode_attention_kernel<D8>, &cfg));
+  e = cudaLaunchKernelEx(&cfg, decode_attention_kernel<D8>, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch<D8> for HD = 8 * D8
+int dispatch(const Args& a, int B, int C, int HD, cudaStream_t st,
+             int* active) {
+  switch (HD / 8) {
+    case 2: return launch<2>(a, B, C, st, active);
+    case 4: return launch<4>(a, B, C, st, active);
+    case 8: return launch<8>(a, B, C, st, active);
+    case 16: return launch<16>(a, B, C, st, active);
+    case 32: return launch<32>(a, B, C, st, active);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Args make_args(int P, int S, int KH, int G, int C, int window,
+               float softcap) {
+  Args a{};
+  a.P = P;
+  a.S = S;
+  a.KH = KH;
+  a.G = G;
+  a.chunk = (S + C - 1) / C;
+  a.chunk_pad = (a.chunk + 31) / 32 * 32;
+  a.window = window;
+  a.softcap = softcap;
+  return a;
+}
+
+bool valid_shape(int P, int S, int G, int C) {
+  return C >= 1 && C <= kCMax && G >= 1 && G <= kGMax &&
+         P >= 1 && P <= kPlanes && S >= 1;
 }
 
 }  // namespace
 
-// qp = [q_z, q_scale, k_pact, v_pact] (device, f32), pos a device int32.
-// The wrapper (repro_torch/kernels/pann_attention.py) checks shapes,
-// dtypes, contiguity, hd in {16, 32, 64, 128, 256}, G <= 8 and the shared
-// memory bound on S, and clamps the pact counts to [1, P].
+// q_z, q_scale (f32 scalars), k_pact, v_pact (f32 scalars, or null = all
+// planes) and pos (int32) are device pointers. C is the cluster size (1, 2,
+// 4 or 8). The wrapper (repro_torch/kernels/pann_attention.py) checks
+// shapes, dtypes, contiguity, alignment, hd in {16, 32, 64, 128, 256},
+// G <= 8 and the shared-memory bound on S; a refused launch returns its
+// CUDA error and the wrapper raises.
 extern "C" int decode_attention_launch(
-    const int* qq, const float* qp, const int* pos, const uint8_t* kpl,
-    const float* ks, const float* kz, const uint8_t* vpl, const float* vs,
-    const float* vz, float* out, int B, int P, int S, int KH, int G, int HD,
+    const int* qq, const float* qz, const float* qscale, const float* kpact,
+    const float* vpact, const int* pos, const uint8_t* kpl, const float* ks,
+    const float* kz, const uint8_t* vpl, const float* vs, const float* vz,
+    float* out, int B, int P, int S, int KH, int G, int HD, int C,
     int window, float softcap, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * ((size_t)G * S + 2 * (size_t)G * HD);
-  switch (HD / 8) {
-    case 2: return launch<2>(qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, B, P,
-                             S, KH, G, window, softcap, smem, st);
-    case 4: return launch<4>(qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, B, P,
-                             S, KH, G, window, softcap, smem, st);
-    case 8: return launch<8>(qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, B, P,
-                             S, KH, G, window, softcap, smem, st);
-    case 16: return launch<16>(qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, B,
-                               P, S, KH, G, window, softcap, smem, st);
-    case 32: return launch<32>(qq, qp, pos, kpl, ks, kz, vpl, vs, vz, out, B,
-                               P, S, KH, G, window, softcap, smem, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid_shape(P, S, G, C)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(P, S, KH, G, C, window, softcap);
+  a.qq = qq;
+  a.qz = qz;
+  a.qscale = qscale;
+  a.kpact = kpact;
+  a.vpact = vpact;
+  a.pos = pos;
+  a.kpl = kpl;
+  a.ks = ks;
+  a.kz = kz;
+  a.vpl = vpl;
+  a.vs = vs;
+  a.vz = vz;
+  a.out = out;
+  return dispatch(a, B, C, HD, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of C blocks of this launch the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *active; the wrapper picks C so
+// that its B * KH clusters take as few waves as it can.
+extern "C" int decode_attention_max_clusters(int P, int S, int KH, int G,
+                                             int HD, int C, int* active) {
+  if (!valid_shape(P, S, G, C)) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(make_args(P, S, KH, G, C, -1, 0.0f), 1, C, HD, nullptr,
+                  active);
 }

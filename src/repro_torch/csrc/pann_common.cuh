@@ -112,6 +112,29 @@ __device__ __forceinline__ uint32_t sub_bytes(uint32_t a, uint32_t b) {
   return ((a | 0x80808080u) - b) ^ 0x80808080u;
 }
 
+// Exchange bit j of each byte of a with bit j + S of the same byte of b,
+// for the bits j that Mask selects (one swap stage of the bit transpose).
+template <int S, uint32_t Mask>
+__device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b) {
+  const uint32_t na = (a & ~(Mask << S)) | ((b << S) & (Mask << S));
+  const uint32_t nb = (b & ~Mask) | ((a >> S) & Mask);
+  a = na;
+  b = nb;
+}
+
+// In each byte lane, bit j of w[p] -> bit p of w[j] (w[7] enters as 0).
+__device__ __forceinline__ void transpose_bits(uint32_t (&w)[8]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) swap_bits<4, 0x0F0F0F0Fu>(w[p], w[p + 4]);
+#pragma unroll
+  for (int p = 0; p < 8; p += 4) {
+    swap_bits<2, 0x33333333u>(w[p], w[p + 2]);
+    swap_bits<2, 0x33333333u>(w[p + 1], w[p + 3]);
+  }
+#pragma unroll
+  for (int p = 0; p < 8; p += 2) swap_bits<1, 0x55555555u>(w[p], w[p + 1]);
+}
+
 // 4 rows x 4 columns of bytes (a_i = row i) -> 4 columns x 4 rows (c_j =
 // column j, byte i = row i).
 __device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,

@@ -5,10 +5,24 @@ KV cache (port of ``repro.kernels.pann_attention.decode_attention``).
 on CUDA tensors and runs the plain version on CPU tensors. The plain
 version is ``kernels.ref.decode_attention_ref`` — the module the JAX
 package keeps its oracles in — bound here as ``decode_attention_plain``.
+
+The kernel is one launch per call: the C blocks of each (batch, kv head)
+form a thread block cluster and split the S cached positions into C
+contiguous chunks (``cluster_size`` picks C in 1..8 from S and from how
+many such clusters the card holds at once). Each block copies its chunk's
+live V plane rows into shared memory asynchronously while it computes its
+chunk's scores from K read straight into registers, both products on the
+int8 tensor cores, and the blocks exchange their softmax maxima, fp64
+partial sums, largest V scale and int32 PV partials through distributed
+shared memory. ``q_z``, ``q_scale``, ``k_pact`` and ``v_pact`` reach the
+kernel as device pointers and are clamped and rounded there, so the
+wrapper launches no kernel of its own. Shared memory bounds S:
+``max_seq_len`` (12,032 at G = 4, hd = 128 and 7 cache planes).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,23 +35,90 @@ launches = 0     # kernel launches since the caller last reset it
 
 decode_attention_plain = _ref.decode_attention_ref
 
-# the kernel keeps the (G, S) fp32 scores and two (G, hd) int32 panels in
-# dynamic shared memory: 227 KB per block on the H100, less a margin for
-# the kernel's static reduction scratch
-SMEM_BYTES = 227 * 1024 - 1024
+# A block keeps its chunk's V rows for every cache plane (hd/8 bytes a row,
+# padded to 4), its v_s / v_z rows, its (G, chunk) fp32 scores and two bytes
+# of probability code in dynamic shared memory: the H100's 227 KB a block
+# less the kernel's static arrays and a margin. Chunks are padded to whole
+# 32-row groups.
+DYN_SMEM_BYTES = 232448 - 12 * 1024
+CLUSTERS = tuple(range(1, 9))
+MIN_CHUNK = 64          # positions a block is worth a cluster rank for
+ROW_PAD = 32
 MAX_GROUP = 8
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
-def max_seq_len(group: int, head_dim: int) -> int:
+def _chunk_pad(s: int, c: int) -> int:
+    chunk = -(-s // c)
+    return -(-chunk // ROW_PAD) * ROW_PAD
+
+
+def smem_bytes(s: int, c: int, group: int, head_dim: int,
+               n_planes: int = _ref.CACHE_PLANES) -> int:
+    """Dynamic shared memory of one block at cluster size ``c``."""
+    row = max(head_dim // 8, 4)
+    return _chunk_pad(s, c) * (n_planes * row + 6 * group + 8)
+
+
+def max_seq_len(group: int, head_dim: int,
+                n_planes: int = _ref.CACHE_PLANES) -> int:
     """Largest cache length S the kernel takes for G query heads per kv
-    head and head dim hd: 4*G*S + 8*G*hd bytes must fit SMEM_BYTES."""
-    return (SMEM_BYTES - 8 * group * head_dim) // (4 * group)
+    head, head dim hd and P cache planes: a chunk of S / 8 positions (the
+    largest cluster) must fit DYN_SMEM_BYTES."""
+    per_row = n_planes * max(head_dim // 8, 4) + 6 * group + 8
+    return CLUSTERS[-1] * (DYN_SMEM_BYTES // per_row // ROW_PAD * ROW_PAD)
+
+
+def cluster_size(s: int, heads: int, group: int, head_dim: int,
+                 n_planes: int, max_clusters) -> int:
+    """Blocks per (batch, kv head). Candidates: the smallest cluster whose
+    chunk fits shared memory, and the larger ones whose chunks keep
+    MIN_CHUNK positions. ``max_clusters(c)`` is how many clusters of c
+    blocks the card holds at once, so ``heads`` (= B * KH) clusters take
+    ceil(heads / max_clusters(c)) waves; the candidate with the shortest
+    waves x padded chunk wins, the largest on a tie. Raises above
+    ``max_seq_len`` or when the card can hold no candidate's cluster."""
+    fit = [c for c in CLUSTERS
+           if smem_bytes(s, c, group, head_dim, n_planes) <= DYN_SMEM_BYTES]
+    if not fit:
+        raise ValueError(f"cache length {s} exceeds the kernel's "
+                         f"{max_seq_len(group, head_dim, n_planes)} at "
+                         f"G={group}, hd={head_dim}, P={n_planes}")
+    held = {c: max_clusters(c) for c in fit
+            if c == fit[0] or -(-s // c) >= MIN_CHUNK}
+    held = {c: n for c, n in held.items() if n > 0}
+    if not held:
+        raise RuntimeError(f"decode_attention: the card holds no cluster of "
+                           f"{fit} blocks at S={s}, G={group}, hd={head_dim}")
+    return min(held, key=lambda c: (-(-heads // held[c]) * _chunk_pad(s, c),
+                                    -c))
+
+
+@functools.cache
+def _max_clusters(index: int, n_planes: int, s: int, kh: int, group: int,
+                  head_dim: int, c: int) -> int:
+    fn = build.entry("pann_attention", "decode_attention_max_clusters",
+                     (build.I,) * 6 + (build.P,))
+    active = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(fn(n_planes, s, kh, group, head_dim, c,
+                       ctypes.byref(active)), "decode_attention occupancy")
+    return active.value
+
+
+def cluster_of(qq: Tensor, k_planes: Tensor) -> int:
+    """The cluster size ``decode_attention`` launches for these operands
+    (CUDA tensors)."""
+    b, kh, g, hd = qq.shape
+    n_planes, s = k_planes.shape[1:3]
+    return cluster_size(
+        s, b * kh, g, hd, n_planes,
+        lambda c: _max_clusters(qq.device.index, n_planes, s, kh, g, hd, c))
 
 
 def _launcher():
     return build.entry("pann_attention", "decode_attention_launch",
-                       (build.P,) * 10 + (build.I,) * 7
+                       (build.P,) * 13 + (build.I,) * 8
                        + (ctypes.c_float, build.P))
 
 
@@ -51,7 +132,11 @@ def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
     ``k_pact``/``v_pact`` are 0-dim counts of LIVE low planes (None = all),
     device tensors so every cache rung runs the same launch. Skipped planes
     are all-zero by construction, so the plain version needs no count.
-    Returns (B, K, G, hd) fp32."""
+    On the card ``q_z``, ``q_scale`` and the counts must be 1-element
+    float32 tensors (the kernel reads them through their pointers), and
+    ``qq`` must hold codes in [0, 255] (the serving path's are in
+    [0, 127]): the kernel multiplies them as bytes. Returns (B, K, G, hd)
+    fp32."""
     if qq.device.type == "cpu":
         return decode_attention_plain(qq, q_z, q_scale, k_planes, k_s, k_z,
                                       v_planes, v_s, v_z, pos, window=window,
@@ -80,19 +165,19 @@ def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
     if hd not in HEAD_DIMS or g > MAX_GROUP:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS} or group {g} "
                          f"> {MAX_GROUP}")
-    if s > max_seq_len(g, hd):
-        raise ValueError(f"cache length {s} exceeds the kernel's "
-                         f"{max_seq_len(g, hd)} at G={g}, hd={hd}")
-    full = q_scale.new_full((), float(n_planes))
-    pact = [full if a is None else
-            torch.clamp(a.to(torch.float32).reshape(()), 1.0, float(n_planes))
-            for a in (k_pact, v_pact)]
-    qp = torch.stack([q_z.to(torch.float32).reshape(()),
-                      q_scale.to(torch.float32).reshape(()), *pact])
+    scalars = [t for t in (q_z, q_scale, k_pact, v_pact) if t is not None]
+    if any(t.device != qq.device or t.dtype != torch.float32
+           or t.numel() != 1 for t in scalars):
+        raise ValueError("q_z, q_scale, k_pact and v_pact must be 1-element "
+                         f"float32 tensors on {qq.device}")
+    if k_planes.data_ptr() % 16 or v_planes.data_ptr() % 16:
+        raise ValueError("cache planes must be 16-byte aligned")
+    c = cluster_of(qq, k_planes)
     out = torch.empty((b, kh, g, hd), dtype=torch.float32, device=qq.device)
-    ptrs = [build.ptr(t) for t in (qq, qp, pos, k_planes, k_s, k_z,
-                                   v_planes, v_s, v_z, out)]
-    err = _launcher()(*ptrs, b, n_planes, s, kh, g, hd,
+    ptrs = [build.ptr(t) for t in (qq, q_z, q_scale, k_pact, v_pact, pos,
+                                   k_planes, k_s, k_z, v_planes, v_s, v_z,
+                                   out)]
+    err = _launcher()(*ptrs, b, n_planes, s, kh, g, hd, c,
                       -1 if window is None else int(window), float(softcap),
                       build.stream_of(qq))
     build.check(err, "decode_attention")
