@@ -18,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
               M = 4, one ``[decode]`` line per kernel and shape (ms, bound,
               achieved TB/s, share of the bound, library ms, and a
               torch.sum over the same plane bytes as a streaming
-              yardstick). B3 is checked at S = 48, 1000 and 4096, 1-7
+              yardstick); B2 also above 8 rows (M = 9, 64, 512, the
+              tensor-core tile kernel) at plane_shift 0 and 5. B3 is
+              checked at S = 48, 1000 and 4096, 1-7
               live planes, the first, middle and last position and windows
               (at 4096 ones that leave whole cluster blocks masked), and at
               other group sizes and head dims; timed at 4 planes with the
@@ -39,17 +41,22 @@ Phases (any failure raises and the script exits non-zero):
               at M = 4 (the decode batch) and M = 512 (a prefill chunk):
               x -> quantize_act -> pann_matmul ('fused' and 'planes'),
               pann_matmul_packed and unsigned_matmul, and x -> pann_matmul
-              through the prologue kernel in both modes. Every kernel is
+              through the prologue kernel in both modes; beside the pass,
+              uncounted, B2 on the same operands with the planes packed
+              (checked and timed). Every kernel is
               held bit for bit against its plain version, the four codes
               products against each other and ``ref.pann_matmul_ref``, and
               quantize_act against ``ref.quantize_act_ref`` at 2, 4, 6 and 8
               bits and on bf16; checks the launch counts of the pass, then
               repeats the checks (uncounted) at ragged M, K and N, on
               extreme operands (7 planes of +-127 weights, codes of 127,
-              K = 14336) and, for B1 above 8 rows, at plane_shift 0-7.
+              K = 14336) and, for B1 and B2 above 8 rows, at plane_shift
+              0-7.
 
 The build phase also counts the tensor-core instructions (wgmma's GMMA,
-mma.sync's IMMA) in the SASS of the pann_matmul library and fails on none.
+mma.sync's IMMA) in the SASS of the pann_matmul, pann_matmul_packed and
+unsigned_matmul libraries, whose tile kernels run on wgmma, and fails on a
+library without a GMMA line.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last line
 is ``{"ok": true, "device": {...}}``. A longer report is written to
@@ -295,6 +302,39 @@ def check_matmuls(gen) -> tuple:
             del x, pos, neg, ppk, npk
         torch.cuda.empty_cache()
     return rows, err
+
+
+# B2's tile regime at the serve's widths: a few rows above the decode
+# kernels, a tile and a half, a prefill chunk
+PACKED_TILE_M = (9, 64, 512)
+
+
+def check_packed_tile_rows() -> tuple:
+    """B2 above 8 rows (the tensor-core tile kernel, mode kPacked) against
+    its plain version at the serve's projection and lm_head widths, M in
+    PACKED_TILE_M, plane_shift in EXTRA_SHIFTS (these launches are not the
+    path's). Operands from a generator of their own, so the later phases
+    see the operands they saw before. Returns (max |err|, checked)."""
+    from repro_torch.kernels import pann_matmul_packed as pk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    err: dict = {}
+    checked = []
+    for (k, n), _, _ in LAYER_SHAPES + [HEAD_SHAPE]:
+        x, _, _, ppk, npk, s, z, n127, gamma, zcol = _matmul_operands(
+            gen, max(PACKED_TILE_M), k, n)
+        for m in PACKED_TILE_M:
+            for shift in EXTRA_SHIFTS:
+                qp = torch.stack([s, z, n127, torch.full(
+                    (), float(shift), device="cuda")])
+                args = (x[:m], ppk, npk, qp, gamma, zcol)
+                _agree("pann_matmul_packed_act",
+                       pk.pann_matmul_packed_act(*args),
+                       pk.pann_matmul_packed_act_plain(*args), err)
+            checked.append([m, k, n])
+        del x, ppk, npk
+        torch.cuda.empty_cache()
+    return err.get("pann_matmul_packed_act", 0.0), checked
 
 
 def _attention_operands(gen, b, kh, g, hd, s, k_bits, v_bits):
@@ -798,6 +838,29 @@ def _check_unfused(x, packed, w, out, err: dict) -> None:
         raise AssertionError("pann_matmul_act modes disagree")
 
 
+def _packed_act_operands(x, packed, w) -> tuple:
+    """B2's operands beside B1's (``ops.act_operands``): the same x,
+    qparams, gamma and zcol, the planes packed along K (N % 4 == 0 at every
+    shape checked, so nothing is padded)."""
+    from repro_torch.kernels import ops
+    xf, _, _, qp, gamma, zcol = ops.act_operands(x, packed, PATH_BITS)
+    return xf, w["ppk"], w["pnk"], qp, gamma, zcol
+
+
+def _check_packed_act(x, packed, w, out, err: dict) -> None:
+    """B2 on the pass's operands against its plain version and B1's
+    output (the same function on unpacked planes); uncounted."""
+    from repro_torch.kernels import pann_matmul_packed as pk
+    args = _packed_act_operands(x, packed, w)
+    y = pk.pann_matmul_packed_act(*args)
+    _agree("pann_matmul_packed_act", y,
+           pk.pann_matmul_packed_act_plain(*args), err)
+    if not torch.equal(y[:, :out["pann_matmul_act/fused"].shape[1]],
+                       out["pann_matmul_act/fused"]):
+        raise AssertionError("pann_matmul_packed_act differs from "
+                             "pann_matmul_act on the same operands")
+
+
 def _time_unfused(x, packed, w, out, names, per_pass) -> list:
     """Kernel, plain and library times (cold L2) and the bound of every
     kernel of the pass at one (K, N) and M; one row per kernel and mode."""
@@ -812,6 +875,7 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
     p, k, n = pp.shape
     m = x.shape[0]
     operands = ops.act_operands(x, packed, PATH_BITS)
+    act_packed = _packed_act_operands(x, packed, w)
     # the library yardstick of the products: cuBLAS's int8 product of the
     # same integers where torch._int_mm's shape rules allow it (M > 16),
     # else fp32 torch.matmul on the dequantized weight
@@ -866,7 +930,13 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
         ("unsigned_matmul", None,
          lambda: um.unsigned_matmul(xq, w_q, sx, gamma),
          lambda: um.unsigned_matmul_plain(xq, w_q, sx, gamma),
-         (m * k + k * n + out_b, products, INT8_OPS_PER_S), lib, lib_name)]
+         (m * k + k * n + out_b, products, INT8_OPS_PER_S), lib, lib_name),
+        # B2 beside the pass (not one of its launches): B1 on packed planes
+        ("pann_matmul_packed_act", None,
+         lambda: pk.pann_matmul_packed_act(*act_packed),
+         lambda: pk.pann_matmul_packed_act_plain(*act_packed),
+         (4 * m * k + 2 * p * (k // 8) * n + 4 * n + out_b + 16, products,
+          INT8_OPS_PER_S), lib, lib_name)]
     rows = []
     for kernel, mode, fn, plain, (nbytes, ops_n, rate), lib_ms, lname \
             in cases:
@@ -949,6 +1019,8 @@ def ragged_parity(gen, r: float, err: dict) -> None:
         out = _pass(x, packed, wts)
         torch.cuda.synchronize()
         _check_unfused(x, packed, wts, out, err)
+        if k % 8 == 0:
+            _check_packed_act(x, packed, wts, out, err)
 
 
 EXTREME = (512, 14336, 1024)   # M, K, N: the deepest K of the path
@@ -959,8 +1031,8 @@ def extremes_parity(gen, err: dict) -> None:
     """P = 7 planes of weights +-127 (random signs) and codes of 127 at
     K = 14336: the largest products the int32 sums and the s8 operands
     meet. B4 (both modes), B5 and B6 against their plain versions and
-    ref.pann_matmul_ref; B1 (both modes) with x = 127, s = 1, z = 0, so
-    every code is 127 (uncounted launches)."""
+    ref.pann_matmul_ref; B1 (both modes) and B2 with x = 127, s = 1, z =
+    0, so every code is 127 (uncounted launches)."""
     from repro_torch.kernels import pann_matmul as pm
     from repro_torch.kernels import pann_matmul_packed as pk
     from repro_torch.kernels import ref
@@ -1002,16 +1074,20 @@ def extremes_parity(gen, err: dict) -> None:
                pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol, mode),
                pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol, mode),
                err)
+    _agree("pann_matmul_packed_act",
+           pk.pann_matmul_packed_act(x, ppk, pnk, qp, gamma, zcol),
+           pk.pann_matmul_packed_act_plain(x, ppk, pnk, qp, gamma, zcol), err)
     torch.cuda.synchronize()
 
 
 def tile_shift_parity(gen, err: dict) -> list:
-    """B1's tile regime (M > 8) at plane_shift 0-7 in both modes, 7 planes
-    of weights in [-127, 127] (shift 7 leaves no plane live)."""
+    """B1's (both modes) and B2's tile regime (M > 8) at plane_shift 0-7,
+    7 planes of weights in [-127, 127] (shift 7 leaves no plane live)."""
     from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
     checked = []
     for m, k, n in TILE_SHIFT_SHAPES:
-        x, pos, neg, _, _, s, z, n127, gamma, zcol = _matmul_operands(
+        x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = _matmul_operands(
             gen, m, k, n)
         for shift in range(8):
             qp = torch.stack([s, z, n127, torch.full((), float(shift),
@@ -1022,8 +1098,12 @@ def tile_shift_parity(gen, err: dict) -> list:
                                           mode),
                        pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol,
                                                 mode), err)
+            _agree("pann_matmul_packed_act",
+                   pk.pann_matmul_packed_act(x, ppk, npk, qp, gamma, zcol),
+                   pk.pann_matmul_packed_act_plain(x, ppk, npk, qp, gamma,
+                                                   zcol), err)
         checked.append([m, k, n])
-        del x, pos, neg
+        del x, pos, neg, ppk, npk
     torch.cuda.synchronize()
     return checked
 
@@ -1058,6 +1138,7 @@ def unfused_path(gen) -> dict:
             for kernel, count in _counts().items():
                 launches[kernel] += count
             _check_unfused(x, packed, wts, out, err)
+            _check_packed_act(x, packed, wts, out, err)
             if first:
                 same = [p for p, kk, nn in projections if (kk, nn) == (k, n)]
                 rows += _time_unfused(x, packed, wts, out, ",".join(same),
@@ -1137,16 +1218,23 @@ def main() -> int:
     for name, log in build.build_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {regs}", flush=True)
-    sass = tensor_core_sass("pann_matmul")
-    print(f"[sass] pann_matmul: {sass['GMMA']} GMMA (wgmma) and "
-          f"{sass['IMMA']} IMMA (mma.sync) tensor-core instructions",
-          flush=True)
+    sass = {}
+    for name in ("pann_matmul", "pann_matmul_packed", "unsigned_matmul"):
+        sass[name] = tensor_core_sass(name)
+        print(f"[sass] {name}: {sass[name]['GMMA']} GMMA (wgmma) and "
+              f"{sass[name]['IMMA']} IMMA (mma.sync) tensor-core "
+              "instructions", flush=True)
+        if not sass[name]["GMMA"]:   # its tile kernel runs on wgmma
+            raise AssertionError(f"{name}: no GMMA line in its SASS")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.perf_counter()
     mm_rows, mm_err = check_matmuls(gen)
+    packed_tile_err, packed_tile_checked = check_packed_tile_rows()
+    print(f"[kernels] pann_matmul_packed_act above 8 rows at "
+          f"{packed_tile_checked}: max |err| {packed_tile_err}", flush=True)
     att_rows, att_checks = check_attention(gen)
     print(f"[kernels] all bit-identical to their plain versions "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1190,7 +1278,10 @@ def main() -> int:
                       "src/repro/kernels/pann_matmul_packed.py:255",
                       mm_rows["pann_matmul_packed_act"],
                       serve["launches"]["pann_matmul_packed_act"],
-                      "per_step", mm_err["pann_matmul_packed_act"], step),
+                      "per_step",
+                      max(mm_err["pann_matmul_packed_act"], packed_tile_err,
+                          unfused["max_abs_err"]["pann_matmul_packed_act"]),
+                      step),
         _kernel_entry("decode_attention",
                       "src/repro_torch/csrc/pann_attention.cu",
                       "src/repro/kernels/pann_attention.py:188",
@@ -1203,6 +1294,9 @@ def main() -> int:
     kernels[0]["launches_unfused"] = unfused["launches"]["pann_matmul_act"]
     kernels[0]["unfused_shapes"] = [r for r in unfused["rows"]
                                     if r["kernel"] == "pann_matmul_act"]
+    kernels[1]["unfused_shapes"] = [r for r in unfused["rows"]
+                                    if r["kernel"] == "pann_matmul_packed_act"]
+    kernels[1]["tile_rows_checked"] = packed_tile_checked
     kernels[2]["shapes"] = att_rows
     kernels[2]["checks"] = att_checks
     one_pass = ("one pass of the unfused path (7 projections and the "
@@ -1228,7 +1322,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was never launched on its path")
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "nvcc": nvcc, "driver": driver,
-              "build_s": build.build_seconds, "sass_pann_matmul": sass,
+              "build_s": build.build_seconds, "sass": sass,
               "kernels": kernels,
               "serve": serve, "backends": agree, "unfused": unfused}
     out_dir = ROOT / "chiprun_out"

@@ -3,11 +3,10 @@
 // activations encoded in the kernel, or int8 codes loaded as they are), the
 // decode batch's code panel, the streaming decode blocks of the bit-plane
 // matmuls (M <= kDecodeRows: plane loads that skip L1, byte arithmetic, and
-// the split-K sum and epilogue folded into the same launch), the 64 x 128
-// CUDA-core output tile of the packed and unsigned kernels above
-// kDecodeRows rows, and the split-K epilogue kernel of the launches that
-// keep two kernels. Above kDecodeRows rows the unpacked-plane kernels (B1,
-// B4) run on the int8 tensor cores instead (pann_tc.cuh).
+// the split-K sum and epilogue folded into the same launch), and the
+// split-K epilogue kernel of the launches that keep two kernels. Above
+// kDecodeRows rows every matmul runs on the int8 tensor cores
+// (pann_tc.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -17,15 +16,6 @@ namespace pann {
 constexpr int kThreads = 128;   // threads per block of the decode kernels
 constexpr int kCols = 4;        // output columns per thread (one 32-bit load)
 constexpr int kDecodeRows = 8;  // M above this takes the tile kernels
-
-// CUDA-core tile kernels (B5 pann_matmul_packed, B6 unsigned_matmul): a
-// block computes kTileM x kTileN outputs, stepping K by kTileK; each of its
-// threads owns an 8 x 4 sub-tile, one int32 multiply-add per weight and row. At M = 512 a weight
-// tile in shared memory serves 64 rows, where the decode kernels (4 or 8
-// rows a block) would read every plane 64 times.
-constexpr int kTileM = 64, kTileN = 128, kTileK = 32;
-constexpr int kTileWords = kTileN / kCols;                 // 32
-constexpr int kTileThreads = (kTileM / 8) * kTileWords;    // 256
 
 // q = clip(rint(x / s) + z, 0, n): op for op repro.core.quant.affine_encode.
 // IEEE division (no --use_fast_math) and rintf (round half to even).
@@ -257,102 +247,6 @@ __device__ __forceinline__ void store_partial(int* __restrict__ partial,
           v;
     }
   }
-}
-
-// Tile kernels: the block's kTileM x kTileK codes at rows m0.., columns
-// kb.. into shared memory as int32, so that one 16-byte load gives a thread
-// 4 k of a row. Rows past M and columns past kend are 0, so weights read
-// there (rows of the next split) add nothing.
-template <class Rd>
-__device__ __forceinline__ void load_code_tile(const Rd& rd,
-                                               int (*codes)[kTileK], int M,
-                                               int m0, int kb, int kend) {
-  for (int i = threadIdx.x; i < kTileM * kTileK; i += blockDim.x) {
-    int mm = i / kTileK, kk = i - mm * kTileK;
-    int m = m0 + mm, k = kb + kk;
-    codes[mm][kk] = (m < M && k < kend) ? static_cast<int>(rd(m, k)) : 0;
-  }
-}
-
-// Fill the kTileK x kTileN weight tile(s) at rows kb.., columns n_blk.. in
-// shared memory. ``get(k, n0, a, b)`` gives the weights of rows k..k+7 and
-// columns n0..n0+3 (b only when kTwo); it is called for k < K and n0 < N
-// only, and the rest of the tile is 0.
-template <bool kTwo, class Get>
-__device__ __forceinline__ void fill_tile(int4 (*wa)[kTileWords],
-                                          int4 (*wb)[kTileWords], int kb,
-                                          int n_blk, int K, int N, Get get) {
-  for (int i = threadIdx.x; i < (kTileK / 8) * kTileWords; i += blockDim.x) {
-    const int g = i / kTileWords, c4 = i - g * kTileWords;
-    const int k = kb + 8 * g, n0 = n_blk + c4 * kCols;
-    int a[8][kCols] = {}, b[8][kCols] = {};
-    if (k < K && n0 < N) get(k, n0, a, b);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      wa[8 * g + j][c4] = make_int4(a[j][0], a[j][1], a[j][2], a[j][3]);
-      if constexpr (kTwo)
-        wb[8 * g + j][c4] = make_int4(b[j][0], b[j][1], b[j][2], b[j][3]);
-    }
-  }
-}
-
-// acc[i][c] += sum_kk codes[r0 + i][kk] * w[kk][cw].c over one K step. A
-// warp shares r0 (its code loads are broadcasts) and reads 32 adjacent
-// int4 weight words.
-__device__ __forceinline__ void tile_mac(int (*codes)[kTileK],
-                                         int4 (*w)[kTileWords], int r0,
-                                         int cw, int (&acc)[8][kCols]) {
-#pragma unroll 2
-  for (int kk = 0; kk < kTileK; kk += 4) {
-    int4 q[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      q[i] = *reinterpret_cast<int4*>(&codes[r0 + i][kk]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int4 wv = w[kk + j][cw];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int qv = j == 0 ? q[i].x : j == 1 ? q[i].y : j == 2 ? q[i].z
-                                                                  : q[i].w;
-        acc[i][0] += qv * wv.x;
-        acc[i][1] += qv * wv.y;
-        acc[i][2] += qv * wv.z;
-        acc[i][3] += qv * wv.w;
-      }
-    }
-  }
-}
-
-// The bit-plane product on a 64 x 128 tile, for M > kDecodeRows (B5): W
-// gives W::P and W::rebuild8 (w = sum_{p >= shift} 2^p (pos_p - neg_p) of 8
-// rows x 4 columns); the weight tile is rebuilt once and multiplied once,
-// exact in int32.
-template <class Src, class W>
-__global__ void __launch_bounds__(kTileThreads)
-    pann_tile_kernel(Src src, W wts, int* __restrict__ partial, int M, int K,
-                     int N, int kchunk) {
-  __shared__ __align__(16) int codes[kTileM][kTileK];
-  __shared__ int4 wa[kTileK][kTileWords];
-  const auto rd = src.reader();
-  const int shift = src.shift(wts.P);
-  const int m0 = blockIdx.z * kTileM, n_blk = blockIdx.x * kTileN;
-  const int k0 = blockIdx.y * kchunk, kend = min(k0 + kchunk, K);
-  const int r0 = (threadIdx.x / kTileWords) * 8;
-  const int cw = threadIdx.x % kTileWords;
-  int acc[8][kCols] = {};
-  for (int kb = k0; kb < kend; kb += kTileK) {
-    load_code_tile(rd, codes, M, m0, kb, kend);
-    fill_tile<false>(wa, wa, kb, n_blk, K, N,
-                     [&](int k, int n0, int (&a)[8][kCols],
-                         int (&)[8][kCols]) { wts.rebuild8(k, n0, shift, a); });
-    __syncthreads();
-    tile_mac(codes, wa, r0, cw, acc);
-    __syncthreads();
-  }
-  if (n_blk + cw * kCols < N)
-    store_partial<8>(partial, acc, M, N, m0 + r0, n_blk + cw * kCols,
-                     blockIdx.y);
 }
 
 // y = ((sum_k partial - sum_k partial_neg - zcol) * s[m * s_stride]) * gamma

@@ -198,8 +198,10 @@ int launch_product(Src src, Planes wts, pann::Finish fin, int* partial,
                                                      kchunk);
     return static_cast<int>(cudaGetLastError());
   }
-  int err = pann::tc::launch<Src, Planes, kPlanes>(src, wts, partial, M, K,
-                                                   N, ksplit, kchunk, st);
+  constexpr auto kMode = kPlanes ? pann::tc::Mode::kPlanes
+                                 : pann::tc::Mode::kFused;
+  int err = pann::tc::launch<Src, kMode>(src, wts, partial, M, K, N, ksplit,
+                                         kchunk, st);
   if (err != 0) return err;
   return pann::launch_epilogue(partial, nullptr, fin.s, fin.s_stride,
                                fin.gamma, fin.zcol, fin.y, M, N, ksplit, st);

@@ -38,10 +38,19 @@
 // [decode] lines put each shape beside a torch.sum over the same bytes
 // (stream_ms). The block's sums meet in shared memory; with K split across
 // blocks they meet in an int32 buffer through atomics and the last block
-// of a column tile applies the epilogue, so a matmul is one launch. Above
-// 8 rows the tile kernel of pann_common.cuh rebuilds each weight tile once
-// for 64 rows and the shared epilogue kernel follows.
+// of a column tile applies the epilogue, so a matmul is one launch.
+//
+// Above 8 rows (a prefill chunk) the product runs on the int8 tensor cores:
+// pann_tc.cuh's tile kernel in mode kPacked. A copy warp streams the codes
+// (or x) and, per live plane and sign, a TMA box of 8 packed rows x 128
+// columns (64 K rows, 1 KB) into a ring deep enough for many K steps; the
+// worker warpgroups rebuild the s8 weight tile with the same bit transpose,
+// sub_bytes and byte transposes as the decode kernel, store it K-major and
+// run one wgmma.m64n128k32.s32.s8.s8 product per 32 k, then the shared
+// epilogue kernel applies the scales. Its plane bytes are 2P/8 a weight,
+// against 2P for the unpacked planes.
 #include "pann_common.cuh"
+#include "pann_tc.cuh"
 
 namespace {
 
@@ -57,31 +66,6 @@ struct PackedPlanes {  // (P, K/8, N) uint8
   const uint8_t* pos;
   const uint8_t* neg;
   int K, N, P;
-
-  // w[j][c] = sum_{p >= shift} 2^p (pos_p - neg_p) at row k + j (k % 8 ==
-  // 0), column n0 + c
-  __device__ __forceinline__ void rebuild8(int k, int n0, int shift,
-                                           int (&w)[8][kCols]) const {
-    const size_t plane = (size_t)(K / 8) * N;
-    const size_t off = (size_t)(k / 8) * N + n0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) w[j][c] = 0;
-    for (int p = shift; p < P; ++p) {
-      // times 2^p, not << p: the difference may be negative
-      const int bit = 1 << p;
-      const uchar4 a = *reinterpret_cast<const uchar4*>(pos + p * plane + off);
-      const uchar4 b = *reinterpret_cast<const uchar4*>(neg + p * plane + off);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        w[j][0] += (((a.x >> j) & 1) - ((b.x >> j) & 1)) * bit;
-        w[j][1] += (((a.y >> j) & 1) - ((b.y >> j) & 1)) * bit;
-        w[j][2] += (((a.z >> j) & 1) - ((b.z >> j) & 1)) * bit;
-        w[j][3] += (((a.w >> j) & 1) - ((b.w >> j) & 1)) * bit;
-      }
-    }
-  }
 
   // The plane words of rows 8 k8 .. 8 k8 + 7 at columns n0 .. n0 + 3;
   // planes p < lo and p >= P are 0, unread.
@@ -206,12 +190,8 @@ int launch_product(Src src, PackedPlanes wts, pann::Finish fin, int* partial,
           src, wts, fin, M, K, N, kchunk);
     return static_cast<int>(cudaGetLastError());
   }
-  dim3 grid((N + pann::kTileN - 1) / pann::kTileN, ksplit,
-            (M + pann::kTileM - 1) / pann::kTileM);
-  pann::pann_tile_kernel<Src, PackedPlanes>
-      <<<grid, pann::kTileThreads, 0, st>>>(src, wts, partial, M, K, N,
-                                            kchunk);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = pann::tc::launch<Src, pann::tc::Mode::kPacked>(
+      src, wts, partial, M, K, N, ksplit, kchunk, st);
   if (err != 0) return err;
   return pann::launch_epilogue(partial, nullptr, fin.s, fin.s_stride,
                                fin.gamma, fin.zcol, fin.y, M, N, ksplit, st);
@@ -224,7 +204,7 @@ int launch_product(Src src, PackedPlanes wts, pann::Finish fin, int* partial,
 // Up to 8 rows they pass acc (M x N int32) and tickets (one per column tile
 // of 128), both zero, and partial null, with kchunk a multiple of 64; above
 // 8 rows partial (ksplit, M, N), acc and tickets null, and kchunk a
-// multiple of 32. Each returns cudaGetLastError() after its launches.
+// multiple of 64. Each returns cudaGetLastError() after its launches.
 extern "C" int pann_matmul_packed_act_launch(
     const float* x, const uint8_t* pos, const uint8_t* neg, const float* qp,
     const float* gamma, const int* zcol, float* y, int* partial, int* acc,

@@ -1,21 +1,32 @@
-// The tensor-core tile kernel of the bit-plane matmuls on unpacked planes
-// above kDecodeRows rows (pann_matmul.cu: B1 pann_matmul_act and B4
-// pann_matmul, modes 'fused' and 'planes'), for Hopper (sm_90a).
+// The tensor-core tile kernel of the integer matmuls above kDecodeRows rows,
+// for Hopper (sm_90a). One kernel, four weight sources (Mode):
+//
+//   kFused, kPlanes  unpacked planes (P, K, N) int8 in {0, 1}: B1
+//                    pann_matmul_act and B4 pann_matmul (pann_matmul.cu),
+//                    modes 'fused' and 'planes';
+//   kPacked          planes packed 8 rows a byte along K, (P, K/8, N) uint8:
+//                    B2 pann_matmul_packed_act and B5 pann_matmul_packed
+//                    (pann_matmul_packed.cu);
+//   kSplit           the signed int8 weight (K, N) of B6 unsigned_matmul
+//                    (unsigned_matmul.cu), split into W+ and W- here.
 //
 // A block computes a kBM x kBN = 128 x 128 tile of exact int32 partial sums
-// over one K split, stepping K by kK (64 'fused', 32 'planes'), in two roles:
+// over one K split, stepping K by kK (32 'planes', 64 otherwise), in two
+// roles:
 //
 //   a copy warp streams everything the block reads with TMA: for each K
-//       step the codes (int8 x_q, or fp32 x for B1) into one of two code
-//       slots, then for each live plane one box of pos_p and one of neg_p
-//       (kK rows x 128 columns) into a ring of slots, as many as shared
-//       memory holds (up to 16). A full and an empty mbarrier guard every
-//       slot. Rows or columns that TMA cannot address (a row stride that is
-//       no multiple of 16 bytes) the warp's lanes load themselves;
+//       step the codes (int8 x_q, or fp32 x for B1/B2) into one of two code
+//       slots, then the step's weight units into a ring of slots, as many as
+//       shared memory holds (up to kMaxRaw). A unit is, for each live plane,
+//       one box of pos_p and one of neg_p (kK rows x 128 columns unpacked,
+//       kK / 8 packed rows x 128 columns packed), or one box of the int8
+//       weight (kK rows x 128 columns). A full and an empty mbarrier guard
+//       every slot. Rows or columns that TMA cannot address (a row stride
+//       that is no multiple of 16 bytes) the warp's lanes load themselves;
 //   two worker warpgroups (256 threads), every K step,
-//     1. build the step's stage: the code tile (128 x kK int8; B1 encodes x
-//        here, once per block and K step) and the weight tile(s), K-major in
-//        wgmma's no-swizzle canonical layout (8 x 16-byte core matrices);
+//     1. build the step's stage: the code tile (128 x kK int8; B1/B2 encode
+//        x here, once per block and K step) and the weight tile(s), K-major
+//        in wgmma's no-swizzle canonical layout (8 x 16-byte core matrices);
 //     2. meet at a named barrier, and each warpgroup issues
 //        wgmma.m64n128k32.s32.s8.s8 on its 64 rows of the stage, s32
 //        accumulators in registers (no .satfinite: the sums wrap exactly as
@@ -26,34 +37,52 @@
 // barrier of the next step, so a buffer is rewritten only after both
 // warpgroups have read it.
 //
-// The weight rebuild is SIMD within a register. A worker holds 8 columns x
-// 4 rows of each plane, one 8-byte piece a row and side, and for each
-// 32-bit word of 4 weights forms
-//     posw = OR_{p >= shift} (pos_p << p),  negw likewise,
-//     w    = __vsub4(posw, negw)
-// (each byte is 0/1 and p <= 6, so no bit crosses a byte; the per-byte
-// difference is the int8 two's complement of w since |w| <= 127): about one
-// operation per weight and live plane. A 4 x 4 byte transpose (__byte_perm)
-// turns 4 rows x 4 columns into 4 K-major words before the store. Dead
-// planes (p < shift, B1's plane_shift) are never loaded; with every plane
-// dead the block writes zeros.
-//
-// 'planes' keeps the literal Eq.-10 dataflow: for each live plane p the
-// workers write the pos_p and neg_p tiles pre-scaled by 2^p (<= 64, so the
-// 0/1 bytes shifted by p still fit s8), each warpgroup issues one wgmma per
-// side into acc_pos and acc_neg, and acc = acc_pos - acc_neg once at the
-// end: 2 * P_live tensor-core products per K step, never folded into one.
+// The weight rebuild is SIMD within a register, one 32-bit word of 4
+// weights at a time; dead planes (p < shift, B1/B2's plane_shift) are never
+// loaded, and with every plane dead the block writes zeros.
+//   kFused: a worker holds 8 columns x 4 rows of each plane, one 8-byte
+//     piece a row and side, and forms posw = OR_{p >= shift} (pos_p << p),
+//     negw likewise, w = __vsub4(posw, negw) (each byte is 0/1 and p <= 6,
+//     so no bit crosses a byte; the per-byte difference is the int8 two's
+//     complement of w since |w| <= 127): about one operation per weight and
+//     live plane. A 4 x 4 byte transpose (__byte_perm) turns 4 rows x 4
+//     columns into 4 K-major words before the store.
+//   kPlanes keeps the literal Eq.-10 dataflow: for each live plane p the
+//     workers write the pos_p and neg_p tiles pre-scaled by 2^p (<= 64, so
+//     the 0/1 bytes shifted by p still fit s8), each warpgroup issues one
+//     wgmma per side into acc_pos and acc_neg, and acc = acc_pos - acc_neg
+//     once at the end: 2 * P_live products per K step, never folded.
+//   kPacked: a worker holds one packed row (8 K rows) x 4 columns, one
+//     32-bit word a live plane and side (a warp reads a whole 128-byte
+//     row). The 8 plane words of a side are an 8 x 8 bit matrix in each
+//     byte lane; three swap stages (pann::transpose_bits) turn them into
+//     the magnitudes of rows 0..7, pos - neg per byte without borrow
+//     (pann::sub_bytes), two 4 x 4 byte transposes into 8 K-major bytes a
+//     column, one 8-byte store each. One product, as 'fused': the JAX
+//     kernel folds the planes before its dot.
+//   kSplit keeps Eq. 6's two unsigned products: a worker holds 8 columns x
+//     4 rows of the int8 weight and splits each word into W+ and W- bytes
+//     (split_word), each warpgroup issues one wgmma on the W+ tile into
+//     acc_pos and one on the W- tile into acc_neg, and acc = acc_pos -
+//     acc_neg once at the end (the one subtraction of Eq. 6; int32 sums of
+//     these sizes are exact, so doing it before the split-K sum gives the
+//     same bits as after it). Every operand is in [0, 127], where .s8 and
+//     .u8 read the same bits as the same values: the products run as
+//     .s8.s8, the instruction of every other mode, at the same rate.
 //
 // What bounds it at M = 512 (phase 6 of chip_smoke.py): 'fused' reads 2P
 // plane bytes per weight for 2M MACs, so it is bound by bytes; the grid puts
 // the row tiles of one column panel next to each other (blockIdx.x over M
-// tiles), so each plane byte comes from device memory once per panel and
-// from L2 for the other row tiles. 'planes' does 2 P_live products, bound by
-// tensor-core operations. What holds both back on the card is the workers'
-// own work per step (the rebuild and its shared-memory traffic: every plane
-// byte is written by TMA, read once and stored transposed), not waiting on
-// the ring (PERF.md). Split-K (grid.z) fills the card at narrow N; the
-// partials go to pann::epilogue_kernel unchanged.
+// tiles), so each weight byte comes from device memory once per panel and
+// from L2 for the other row tiles. 'planes' does 2 P_live products and
+// 'split' 2, bound by tensor-core operations; 'packed' reads 2P/8 bytes a
+// weight. What holds them back on the card is the workers' own work per
+// step (the rebuild and its shared-memory traffic: every weight byte is
+// written by TMA, read once and stored transposed), not waiting on the ring;
+// B1/B2 pay about 1.8 ms a pass more than B4/B5 for their fp32 rows, which
+// every column panel reads and encodes again (PERF.md). Split-K (grid.z)
+// fills the card at narrow N; the partials go to pann::epilogue_kernel
+// unchanged.
 #pragma once
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -69,20 +98,31 @@ constexpr int kThreads = kWorkers + 32;  // and the copy warp
 constexpr int kMaxPlanes = 7;
 constexpr int kCodeSlots = 2;         // code slots of the row source
 constexpr int kSmemMax = 232448;      // dynamic shared memory of a block
-constexpr int kMaxRaw = 16;           // ring slots, at most
+
+// The weight source of a launch, and how its tile is built (header).
+enum class Mode { kFused, kPlanes, kPacked, kSplit };
 
 // kElem: bytes a value of the row source (1: int8 codes, 4: fp32 x).
-template <bool kPlanes, int kElem>
+template <Mode kMode, int kElem>
 struct Cfg {
-  static constexpr int kK = kPlanes ? 32 : 64;  // K step of a stage
+  static constexpr int kK = kMode == Mode::kPlanes ? 32 : 64;  // K step
   static constexpr int kSbo = 8 * kK;           // bytes between 8-row groups
-  static constexpr int kUnitBytes = 2 * kK * kBN;  // pos and neg boxes
+  // rows of a weight box: packed rows hold 8 K rows each
+  static constexpr int kBoxRows = kMode == Mode::kPacked ? kK / 8 : kK;
+  static constexpr int kSides = kMode == Mode::kSplit ? 1 : 2;  // boxes a unit
+  static constexpr int kUnitBytes = kSides * kBoxRows * kBN;
   static constexpr int kCodeBytes = kBM * kK * kElem;  // a code slot
+  // ring slots, at most: a packed unit is 8x smaller, so its ring holds
+  // more K steps
+  static constexpr int kMaxRaw = kMode == Mode::kPacked ? 64 : 16;
+  // weight tiles of a stage for P planes
+  __host__ __device__ static constexpr int tiles(int P) {
+    return kMode == Mode::kPlanes ? 2 * P : kMode == Mode::kSplit ? 2 : 1;
+  }
   // shared memory but the ring for P planes: two stage buffers and the code
   // slots with their barriers
   __host__ __device__ static constexpr int fixed(int P) {
-    return 2 * kK * (kBM + (kPlanes ? 2 * P : 1) * kBN) +
-           kCodeSlots * (kCodeBytes + 16);
+    return 2 * kK * (kBM + tiles(P) * kBN) + kCodeSlots * (kCodeBytes + 16);
   }
   // the ring takes what is left (a slot and its two barriers each)
   __host__ __device__ static constexpr int slots(int P) {
@@ -94,6 +134,17 @@ struct Cfg {
     return fixed(P) + slots(P) * (kUnitBytes + 16);
   }
 };
+
+// Planes of the weight source: P, or 1 for the split weight (one unit a K
+// step, never shifted).
+template <Mode kMode, class W>
+__host__ __device__ __forceinline__ int planes_of(const W& wts) {
+  if constexpr (kMode == Mode::kSplit) {
+    return 1;
+  } else {
+    return wts.P;
+  }
+}
 
 // Byte (r, k) of a rows x kK K-major tile: core matrices of 8 rows x 16 k,
 // K-neighbours 128 B apart (the descriptor's LBO), 8-row groups 8 * kK B
@@ -186,16 +237,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
   } while (!done);
 }
 
-// TMA: the (kBN x kK x 1) box of a (N, K, P) plane tensor at (n, k, p) into
-// shared memory, completing on barrier b; out-of-range rows and columns are
-// zero-filled.
+// TMA: the (kBN x rows x 1) box of a (N, rows, P) plane tensor at (n, r, p)
+// into shared memory, completing on barrier b; out-of-range rows and
+// columns are zero-filled.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int n, int k, int p, uint64_t* b) {
+                                        int n, int r, int p, uint64_t* b) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
           smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(n), "r"(k), "r"(p),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(n), "r"(r), "r"(p),
       "r"(smem_u32(b))
       : "memory");
 }
@@ -334,32 +385,64 @@ __device__ __forceinline__ void finish_codes(const FloatRows::Reader& rd,
   }
 }
 
-// The copy warp's lanes fill one unit without TMA (N % 16 != 0): the same
-// [side][kK rows][kBN] layout, 4 bytes a load, 0 past K and N.
-template <int kK, class W>
+// The copy warp's lanes fill rows [row0, row0 + rows) x columns n_blk.. of
+// a (row_end, N) byte matrix into dst[rows][kBN] without TMA (N % 16 != 0),
+// 4 bytes a load, 0 past row_end and N.
+__device__ __forceinline__ void fill_rows(uint8_t* dst, const uint8_t* src,
+                                          int rows, int row0, int row_end,
+                                          int n_blk, int N, int lane) {
+  for (int i = lane; i < rows * (kBN / 4); i += 32) {
+    const int r = i / (kBN / 4), c = i % (kBN / 4);
+    const int k = row0 + r, n = n_blk + 4 * c;
+    uint32_t v = 0u;
+    if (k < row_end && n < N)
+      v = *reinterpret_cast<const uint32_t*>(src + (size_t)k * N + n);
+    *reinterpret_cast<uint32_t*>(dst + r * kBN + 4 * c) = v;
+  }
+}
+
+// One unit of the ring without TMA: the TMA boxes' [side][box rows][kBN]
+// layout, for plane p and the K step at kb.
+template <class C, Mode kMode, class W>
 __device__ __forceinline__ void fill_unit(const W& wts, uint8_t* dst, int p,
                                           int kb, int n_blk, int N,
                                           int lane) {
-  for (int i = lane; i < 2 * kK * (kBN / 4); i += 32) {
-    const int side = i / (kK * (kBN / 4)), r = (i / (kBN / 4)) % kK;
-    const int c = i % (kBN / 4);
-    const int k = kb + r, n = n_blk + 4 * c;
-    uint32_t v = 0u;
-    if (k < wts.K && n < N)
-      v = *reinterpret_cast<const uint32_t*>((side ? wts.neg : wts.pos) +
-                                             (size_t)p * wts.plane() +
-                                             (size_t)k * N + n);
-    *reinterpret_cast<uint32_t*>(dst + (side * kK + r) * kBN + 4 * c) = v;
+  if constexpr (kMode == Mode::kSplit) {
+    fill_rows(dst, reinterpret_cast<const uint8_t*>(wts.w), C::kBoxRows, kb,
+              wts.K, n_blk, N, lane);
+  } else {
+    const int rows = kMode == Mode::kPacked ? wts.K / 8 : wts.K;
+    const int row0 = kMode == Mode::kPacked ? kb / 8 : kb;
+    const size_t plane = (size_t)p * rows * N;
+    fill_rows(dst, reinterpret_cast<const uint8_t*>(wts.pos) + plane,
+              C::kBoxRows, row0, rows, n_blk, N, lane);
+    fill_rows(dst + C::kBoxRows * kBN,
+              reinterpret_cast<const uint8_t*>(wts.neg) + plane, C::kBoxRows,
+              row0, rows, n_blk, N, lane);
   }
 }
 
 // Worker t reads rows 4kq + i (i < 4) x columns 8nb.. (8 bytes a row) of a
-// unit: 'fused' (kK 64) kq = t / 16 and both sides, 'planes' (kK 32) kq =
-// t / 16 % 8 and side t / 128. A warp reads whole 128-byte rows.
+// unit: 'fused' and 'split' (kK 64) kq = t / 16 (and both sides for
+// 'fused'), 'planes' (kK 32) kq = t / 16 % 8 and side t / 128. A warp reads
+// whole 128-byte rows.
 __device__ __forceinline__ uint2 unit_piece(const uint8_t* unit, int kK,
                                             int side, int r, int nb) {
   return *reinterpret_cast<const uint2*>(unit + (side * kK + r) * kBN +
                                          8 * nb);
+}
+
+// W+ and W- of a word of 4 int8 weights in [-127, 127]: one = 1 in each
+// negative byte, s = 0xFF there, |w| = (w ^ s) + one per byte (no carry
+// crosses a byte: each ends at <= 127); W+ keeps |w| where w >= 0, W- where
+// w < 0.
+__device__ __forceinline__ void split_word(uint32_t w, uint32_t& pos,
+                                           uint32_t& neg) {
+  const uint32_t one = (w >> 7) & 0x01010101u;
+  const uint32_t s = one * 0xFFu;
+  const uint32_t mag = (w ^ s) + one;
+  pos = mag & ~s;
+  neg = mag & s;
 }
 
 // Store words w[i][j] (row i = k 4kq + i, columns 8nb + 4j..) transposed
@@ -386,6 +469,36 @@ __device__ __forceinline__ void store_block(uint8_t* b, int kq, int nb,
     *reinterpret_cast<uint32_t*>(base + ((s + rot) & 7) * 16) = d[s];
 }
 
+// 'packed': store words d[j] (row j = k 8k8 + j, byte c = column 4c4 + c)
+// into the K-major tile b, 8 bytes a column. Store s of worker c4 writes
+// column 4c4 + (s + c4 / 2) % 4: a warp (one k8, c4 = lane) then hits 8
+// distinct 16-byte rows of its core matrices (4 lanes a row, where 16
+// would meet without the rotation); the 4 column pairs are rotated by
+// (c4 / 2) % 4 in registers to match.
+template <int kK>
+__device__ __forceinline__ void store_rows8(uint8_t* b, int k8, int c4,
+                                            const uint32_t (&d)[8]) {
+  uint32_t lo[4], hi[4], l1[4], h1[4];
+  transpose4(d[0], d[1], d[2], d[3], lo);  // rows 0-3 of column c
+  transpose4(d[4], d[5], d[6], d[7], hi);  // rows 4-7
+  const int rot = (c4 >> 1) & 3;
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    l1[o] = (rot & 1) ? lo[(o + 1) & 3] : lo[o];
+    h1[o] = (rot & 1) ? hi[(o + 1) & 3] : hi[o];
+  }
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    lo[o] = (rot & 2) ? l1[(o + 2) & 3] : l1[o];
+    hi[o] = (rot & 2) ? h1[(o + 2) & 3] : h1[o];
+  }
+  uint8_t* base = b + tile_off<kK>(4 * c4, 8 * k8);
+#pragma unroll
+  for (int s = 0; s < 4; ++s)  // lo[s], hi[s] are column 4c4 + (s + rot) % 4
+    *reinterpret_cast<uint2*>(base + ((s + rot) & 3) * 16) =
+        make_uint2(lo[s], hi[s]);
+}
+
 // 'planes': acc += A (pos_p tiles), neg += A (neg_p tiles) for L live
 // planes, tiles 2j and 2j + 1 of b.
 template <int L, int kSbo>
@@ -399,23 +512,26 @@ __device__ __forceinline__ void plane_products(int (&acc)[64], int (&neg)[64],
   }
 }
 
-template <class Src, class W, bool kPlanes>
+template <class Src, Mode kMode, class W>
 __global__ void __launch_bounds__(kThreads, 1)
     tile_kernel(Src src, W wts, const __grid_constant__ CUtensorMap pos_map,
                 const __grid_constant__ CUtensorMap neg_map,
                 const __grid_constant__ CUtensorMap row_map,
                 int* __restrict__ partial, int M, int K, int N, int kchunk,
-                int tma_planes, int tma_rows) {
+                int tma_weights, int tma_rows) {
   constexpr int kElem = RowBox<Src>::kElem;
-  using C = Cfg<kPlanes, kElem>;
+  using C = Cfg<kMode, kElem>;
   constexpr int kK = C::kK;
   constexpr int kCols = kElem == 4 ? 32 : kK;  // columns a box
   constexpr int kCodeBytes = C::kCodeBytes;
+  // two accumulators: Eq. 10's and Eq. 6's positive and negative products
+  constexpr bool kTwo = kMode == Mode::kPlanes || kMode == Mode::kSplit;
   extern __shared__ __align__(1024) uint8_t smem[];
   const int t = threadIdx.x, lane = t & 31;
+  const int P = planes_of<kMode>(wts);
   const int a_bytes = kBM * kK, b_bytes = kBN * kK;
-  const int stage_bytes = a_bytes + (kPlanes ? 2 * wts.P : 1) * b_bytes;
-  const int raw_slots = C::slots(wts.P);
+  const int stage_bytes = a_bytes + C::tiles(P) * b_bytes;
+  const int raw_slots = C::slots(P);
   uint8_t* codes = smem + 2 * stage_bytes;
   uint8_t* ring = codes + kCodeSlots * kCodeBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + raw_slots * C::kUnitBytes);
@@ -427,9 +543,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int steps = (kend - k0 + kK - 1) / kK;
   // shift and roles broadcast from lane 0, so the compiler sees them
   // warp-uniform and keeps the products asynchronous
-  const int shift = __shfl_sync(0xffffffffu, src.shift(wts.P), 0);
-  const int live = wts.P - shift;  // live planes, 0..P
-  if (live == 0) {  // every plane dead (shift = P): the product is 0
+  const int shift = __shfl_sync(0xffffffffu, src.shift(P), 0);
+  const int units = P - shift;  // units a K step: the live planes, 0..P
+  if (units == 0) {  // every plane dead (shift = P): the product is 0
     for (int i = t; i < kBM * kBN; i += kThreads) {
       const int m = m0 + i / kBN, n = n_blk + i % kBN;
       if (m < M && n < N) partial[((size_t)blockIdx.z * M + m) * N + n] = 0;
@@ -450,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (__shfl_sync(0xffffffffu, t / kWorkers, 0) != 0) {  // the copy warp
-    // the codes of a step go out one step ahead of its planes
+    // the codes of a step go out one step ahead of its weight units
     auto issue_codes = [&](int it) {
       const int kb = k0 + it * kK, cs = it % kCodeSlots;
       uint8_t* cdst = codes + cs * kCodeBytes;
@@ -473,18 +589,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int it = 0; it < steps; ++it) {
       if (it + 1 < steps) issue_codes(it + 1);
       const int kb = k0 + it * kK;
-      for (int j = 0; j < live; ++j) {
-        const int u = it * live + j, slot = u % raw_slots, p = shift + j;
+      for (int j = 0; j < units; ++j) {
+        const int u = it * units + j, slot = u % raw_slots, p = shift + j;
         uint8_t* dst = ring + slot * C::kUnitBytes;
         mbar_wait(&empty[slot], ((u / raw_slots) & 1) ^ 1);
-        if (tma_planes) {
+        if (tma_weights) {
           if (lane == 0) {
             mbar_expect_tx(&full[slot], C::kUnitBytes);
-            tma_box(dst, &pos_map, n_blk, kb, p, &full[slot]);
-            tma_box(dst + kK * kBN, &neg_map, n_blk, kb, p, &full[slot]);
+            if constexpr (kMode == Mode::kSplit) {
+              tma_box2(dst, &pos_map, n_blk, kb, &full[slot]);
+            } else {
+              const int r = kMode == Mode::kPacked ? kb / 8 : kb;
+              tma_box(dst, &pos_map, n_blk, r, p, &full[slot]);
+              tma_box(dst + C::kBoxRows * kBN, &neg_map, n_blk, r, p,
+                      &full[slot]);
+            }
           }
         } else {
-          fill_unit<kK>(wts, dst, p, kb, n_blk, N, lane);
+          fill_unit<C, kMode>(wts, dst, p, kb, n_blk, N, lane);
           __syncwarp();
           if (lane == 0) mbar_arrive(&full[slot]);
         }
@@ -495,13 +617,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // workers
   const auto rd = src.reader();
-  const int nb = t & 15, kq = kPlanes ? (t >> 4) & 7 : t >> 4;
-  const int side0 = kPlanes ? t >> 7 : 0;
+  const int nb = t & 15, kq = kMode == Mode::kPlanes ? (t >> 4) & 7 : t >> 4;
+  const int side0 = kMode == Mode::kPlanes ? t >> 7 : 0;
   const int wg = __shfl_sync(0xffffffffu, t >> 7, 0), warp = (t >> 5) & 3;
-  int acc[64], neg[kPlanes ? 64 : 1];
+  int acc[64], neg[kTwo ? 64 : 1];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0;
-  if constexpr (kPlanes) {
+  if constexpr (kTwo) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) neg[i] = 0;
   }
@@ -514,43 +636,84 @@ __global__ void __launch_bounds__(kThreads, 1)
                      kend, t);
     __syncwarp();
     if (lane == 0) mbar_arrive(&code_empty[cs]);
-    uint32_t pw[4][2] = {}, nw[4][2] = {};
-    for (int j = 0; j < live; ++j) {
-      const int u = it * live + j, slot = u % raw_slots;
-      const int p = shift + j;
-      const uint8_t* unit = ring + slot * C::kUnitBytes;
-      mbar_wait(&full[slot], (u / raw_slots) & 1);
-      if constexpr (kPlanes) {
-        // pos_p or neg_p pre-scaled by 2^p, its own tile
-        uint32_t w[4][2];
+    if constexpr (kMode == Mode::kPacked) {
+      // packed row k8 = t / 32 (K rows 8 k8 ..), columns 4 (t % 32) ..
+      const int k8 = t >> 5;
+      uint32_t pw[8], nw[8], d[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint2 v = unit_piece(unit, kK, side0, 4 * kq + i, nb);
-          w[i][0] = v.x << p;
-          w[i][1] = v.y << p;
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[slot]);
-        store_block<kK>(b + (2 * j + side0) * b_bytes, kq, nb, w);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint2 x = unit_piece(unit, kK, 0, 4 * kq + i, nb);
-          const uint2 y = unit_piece(unit, kK, 1, 4 * kq + i, nb);
-          pw[i][0] |= x.x << p; pw[i][1] |= x.y << p;
-          nw[i][0] |= y.x << p; nw[i][1] |= y.y << p;
-        }
+      for (int p = 0; p < kMaxPlanes; ++p) {
+        pw[p] = nw[p] = 0u;
+        if (p < shift || p >= P) continue;  // a dead plane: never loaded
+        const int u = it * units + p - shift, slot = u % raw_slots;
+        const uint8_t* unit = ring + slot * C::kUnitBytes;
+        mbar_wait(&full[slot], (u / raw_slots) & 1);
+        pw[p] = *reinterpret_cast<const uint32_t*>(unit + k8 * kBN +
+                                                   4 * lane);
+        nw[p] = *reinterpret_cast<const uint32_t*>(
+            unit + (C::kBoxRows + k8) * kBN + 4 * lane);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[slot]);
       }
-    }
-    if constexpr (!kPlanes) {
+      pw[7] = nw[7] = 0u;
+      transpose_bits(pw);  // word j, byte c: |w| of sign at row j, column c
+      transpose_bits(nw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) d[j] = sub_bytes(pw[j], nw[j]);
+      store_rows8<kK>(b, k8, lane, d);
+    } else if constexpr (kMode == Mode::kSplit) {
+      const int slot = it % raw_slots;
+      const uint8_t* unit = ring + slot * C::kUnitBytes;
+      mbar_wait(&full[slot], (it / raw_slots) & 1);
+      uint32_t wp[4][2], wn[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pw[i][0] = __vsub4(pw[i][0], nw[i][0]);
-        pw[i][1] = __vsub4(pw[i][1], nw[i][1]);
+        const uint2 v = unit_piece(unit, kK, 0, 4 * kq + i, nb);
+        split_word(v.x, wp[i][0], wn[i][0]);
+        split_word(v.y, wp[i][1], wn[i][1]);
       }
-      store_block<kK>(b, kq, nb, pw);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      store_block<kK>(b, kq, nb, wp);
+      store_block<kK>(b + b_bytes, kq, nb, wn);
+    } else {
+      uint32_t pw[4][2] = {}, nw[4][2] = {};
+      for (int j = 0; j < units; ++j) {
+        const int u = it * units + j, slot = u % raw_slots;
+        const int p = shift + j;
+        const uint8_t* unit = ring + slot * C::kUnitBytes;
+        mbar_wait(&full[slot], (u / raw_slots) & 1);
+        if constexpr (kMode == Mode::kPlanes) {
+          // pos_p or neg_p pre-scaled by 2^p, its own tile
+          uint32_t w[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint2 v = unit_piece(unit, kK, side0, 4 * kq + i, nb);
+            w[i][0] = v.x << p;
+            w[i][1] = v.y << p;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[slot]);
+          store_block<kK>(b + (2 * j + side0) * b_bytes, kq, nb, w);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint2 x = unit_piece(unit, kK, 0, 4 * kq + i, nb);
+            const uint2 y = unit_piece(unit, kK, 1, 4 * kq + i, nb);
+            pw[i][0] |= x.x << p; pw[i][1] |= x.y << p;
+            nw[i][0] |= y.x << p; nw[i][1] |= y.y << p;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[slot]);
+        }
+      }
+      if constexpr (kMode == Mode::kFused) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pw[i][0] = __vsub4(pw[i][0], nw[i][0]);
+          pw[i][1] = __vsub4(pw[i][1], nw[i][1]);
+        }
+        store_block<kK>(b, kq, nb, pw);
+      }
     }
     // this warpgroup's previous product has read the other buffer; after
     // the barrier both have, and this stage is complete for wgmma's proxy
@@ -560,10 +723,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint8_t* aw = a + wg * 64 * kK;  // this warpgroup's 64 rows
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     fence_acc(acc);
-    if constexpr (kPlanes) {
+    if constexpr (kMode == Mode::kPlanes) {
       fence_acc(neg);
       const uint64_t da = desc(aw, C::kSbo);
-      switch (live) {  // straight-line batches: the products pipeline
+      switch (units) {  // straight-line batches: the products pipeline
         case 1: plane_products<1, C::kSbo>(acc, neg, da, b, b_bytes); break;
         case 2: plane_products<2, C::kSbo>(acc, neg, da, b, b_bytes); break;
         case 3: plane_products<3, C::kSbo>(acc, neg, da, b, b_bytes); break;
@@ -571,6 +734,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         case 5: plane_products<5, C::kSbo>(acc, neg, da, b, b_bytes); break;
         case 6: plane_products<6, C::kSbo>(acc, neg, da, b, b_bytes); break;
         default: plane_products<7, C::kSbo>(acc, neg, da, b, b_bytes);
+      }
+    } else if constexpr (kMode == Mode::kSplit) {
+      fence_acc(neg);
+#pragma unroll
+      for (int kk = 0; kk < kK / 32; ++kk) {  // 32 k = 2 core matrices
+        const uint64_t da = desc(aw + 256 * kk, C::kSbo);
+        wgmma_s8(acc, da, desc(b + 256 * kk, C::kSbo));
+        wgmma_s8(neg, da, desc(b + b_bytes + 256 * kk, C::kSbo));
       }
     } else {
 #pragma unroll
@@ -580,11 +751,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     fence_acc(acc);
-    if constexpr (kPlanes) fence_acc(neg);
+    if constexpr (kTwo) fence_acc(neg);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_acc(acc);
-  if constexpr (kPlanes) {
+  if constexpr (kTwo) {
     fence_acc(neg);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] -= neg[i];  // the one subtraction
@@ -637,14 +808,25 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The (N, K, P) uint8 view of one side's planes, boxes of kBN x kK x 1.
-inline int plane_map(CUtensorMap* map, const int8_t* planes, int P, int K,
-                     int N, int kK) {
-  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)P};
-  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
-  const cuuint32_t box[3] = {kBN, (cuuint32_t)kK, 1};
+// The (N, rows, P) uint8 view of one side's planes (rows = K unpacked, K/8
+// packed), boxes of kBN x box_rows x 1.
+inline int plane_map(CUtensorMap* map, const void* planes, int P, int rows,
+                     int N, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)rows, (cuuint64_t)P};
+  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)rows * N};
+  const cuuint32_t box[3] = {kBN, (cuuint32_t)box_rows, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, planes, dims,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The (N, K) uint8 view of the int8 weight, boxes of kBN x kK.
+inline int weight_map(CUtensorMap* map, const void* w, int K, int N,
+                      int kK) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {kBN, (cuuint32_t)kK};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // The (K, M) view of the row source, boxes of kK (x_q) or 32 (x, 128-byte
@@ -677,23 +859,49 @@ inline bool rows_tma_ok(const FloatRows& src, int K) {
   return K % 4 == 0 && aligned16(src.x);
 }
 
+// The tensor maps of the weight source (pos_map only for the split
+// weight). Returns 0, or the error of an encode.
+template <class C, Mode kMode, class W>
+int weight_maps(const W& wts, int K, int N, CUtensorMap* pos_map,
+                CUtensorMap* neg_map) {
+  if constexpr (kMode == Mode::kSplit) {
+    return weight_map(pos_map, wts.w, K, N, C::kK);
+  } else {
+    const int rows = kMode == Mode::kPacked ? K / 8 : K;
+    int err = plane_map(pos_map, wts.pos, wts.P, rows, N, C::kBoxRows);
+    if (err == 0) err = plane_map(neg_map, wts.neg, wts.P, rows, N,
+                                  C::kBoxRows);
+    return err;
+  }
+}
+
+template <Mode kMode, class W>
+bool weights_aligned(const W& wts) {
+  if constexpr (kMode == Mode::kSplit) {
+    return aligned16(wts.w);
+  } else {
+    return aligned16(wts.pos) && aligned16(wts.neg);
+  }
+}
+
 // Launch the tile kernel over grid (M tiles, N tiles, ksplit). kchunk is a
 // multiple of 64 (split_k in kernels/pann_matmul.py), so only the last K
-// step of the last split is partial, and P <= kMaxPlanes. TMA moves a
-// tensor whose rows are 16-byte aligned; the copy warp loads the others.
-template <class Src, class W, bool kPlanes>
+// step of the last split is partial, and P <= kMaxPlanes (K % 8 == 0 for
+// packed planes). TMA moves a tensor whose rows are 16-byte aligned; the
+// copy warp loads the others.
+template <class Src, Mode kMode, class W>
 int launch(Src src, W wts, int* partial, int M, int K, int N, int ksplit,
            int kchunk, cudaStream_t st) {
-  using C = Cfg<kPlanes, RowBox<Src>::kElem>;
-  if (wts.P < 1 || wts.P > kMaxPlanes || (ksplit > 1 && kchunk % 64 != 0))
+  using C = Cfg<kMode, RowBox<Src>::kElem>;
+  const int P = planes_of<kMode>(wts);
+  if (P < 1 || P > kMaxPlanes || (ksplit > 1 && kchunk % 64 != 0) ||
+      (kMode == Mode::kPacked && K % 8 != 0))
     return cudaErrorInvalidValue;
   CUtensorMap pos_map{}, neg_map{}, rows{};
-  const int tma_planes =
-      N % 16 == 0 && aligned16(wts.pos) && aligned16(wts.neg);
+  const int tma_weights = N % 16 == 0 && weights_aligned<kMode>(wts);
   int err = 0;
-  if (tma_planes) {
-    err = plane_map(&pos_map, wts.pos, wts.P, K, N, C::kK);
-    if (err == 0) err = plane_map(&neg_map, wts.neg, wts.P, K, N, C::kK);
+  if (tma_weights) {
+    err = weight_maps<C, kMode>(wts, K, N, &pos_map, &neg_map);
     if (err != 0) return err;
   }
   const int tma_rows = rows_tma_ok(src, K);
@@ -701,14 +909,14 @@ int launch(Src src, W wts, int* partial, int M, int K, int N, int ksplit,
     err = row_map(&rows, src, M, C::kK);
     if (err != 0) return err;
   }
-  auto kern = tile_kernel<Src, W, kPlanes>;
+  auto kern = tile_kernel<Src, kMode, W>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemMax);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, ksplit);
-  kern<<<grid, kThreads, C::smem(wts.P), st>>>(
-      src, wts, pos_map, neg_map, rows, partial, M, K, N, kchunk, tma_planes,
-      tma_rows);
+  kern<<<grid, kThreads, C::smem(P), st>>>(src, wts, pos_map, neg_map, rows,
+                                           partial, M, K, N, kchunk,
+                                           tma_weights, tma_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,17 +7,23 @@
 //
 // with x_q (M, K) int8 codes >= 0, w_q (K, N) int8 in [-127, 127], s_x (M,)
 // and s_w (N,) f32. The two unsigned products accumulate in two exact int32
-// sums; the one subtraction of Eq. 6 happens in the epilogue, after the
-// split-K partials of each side are added.
+// sums, as the TPU kernel's two dot_generals do, and are subtracted once.
 //
-// What bounds it on this card: at decode (M = 4) bytes — one byte per
+// What bounds it on this card: at decode (M <= 8) bytes — one byte per
 // weight against 2*M MACs — so each thread owns 4 adjacent columns and
 // reads them with one 32-bit load per row of K (a warp reads 128
-// contiguous bytes), with K split across blocks to fill the SMs. Above 8
-// rows the tile kernel splits a 32 x 128 weight tile into W+ and W- tiles
-// in shared memory once for 64 rows, and is then bound by its CUDA-core
-// integer MACs (two per weight and row). Tensor cores are later work.
+// contiguous bytes), with K split across blocks to fill the SMs; the
+// epilogue kernel subtracts the W- sums from the W+ sums after adding the
+// splits. Above 8 rows the product runs on the int8 tensor cores:
+// pann_tc.cuh's tile kernel in mode kSplit. Its copy warp streams the
+// codes and one TMA box of the weight (64 rows x 128 columns) a K step;
+// the workers split each 32-bit word into W+ and W- bytes, store both as
+// K-major tiles and each warpgroup issues two wgmma a 32-k step, into
+// acc_pos and acc_neg; the kernel subtracts once before it writes its
+// split's sums, and the epilogue kernel adds the splits and scales. Two
+// products a weight, against one for torch._int_mm on the same bytes.
 #include "pann_common.cuh"
+#include "pann_tc.cuh"
 
 namespace {
 
@@ -68,74 +74,42 @@ __global__ void __launch_bounds__(pann::kThreads)
   pann::store_partial<MT>(partial + neg, acc_n, M, N, m0, n0, blockIdx.y);
 }
 
-__global__ void __launch_bounds__(pann::kTileThreads)
-    tile_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-                int* __restrict__ partial, int M, int K, int N, int kchunk) {
-  using pann::kTileK;
-  using pann::kTileWords;
-  __shared__ __align__(16) int codes[pann::kTileM][kTileK];
-  __shared__ int4 wp[kTileK][kTileWords];
-  __shared__ int4 wn[kTileK][kTileWords];
-  const pann::CodeRows rd{xq, K};
-  const int m0 = blockIdx.z * pann::kTileM, n_blk = blockIdx.x * pann::kTileN;
-  const int k0 = blockIdx.y * kchunk, kend = min(k0 + kchunk, K);
-  const int r0 = (threadIdx.x / kTileWords) * 8;
-  const int cw = threadIdx.x % kTileWords;
-  int acc_p[8][kCols] = {}, acc_n[8][kCols] = {};
-  for (int kb = k0; kb < kend; kb += kTileK) {
-    pann::load_code_tile(rd, codes, M, m0, kb, kend);
-    pann::fill_tile<true>(
-        wp, wn, kb, n_blk, K, N,
-        [&](int k, int n0, int (&a)[8][kCols], int (&b)[8][kCols]) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (k + j < K)
-              split(*reinterpret_cast<const char4*>(w + (size_t)(k + j) * N +
-                                                    n0),
-                    a[j], b[j]);
-        });
-    __syncthreads();
-    pann::tile_mac(codes, wp, r0, cw, acc_p);
-    pann::tile_mac(codes, wn, r0, cw, acc_n);
-    __syncthreads();
-  }
-  if (n_blk + cw * kCols < N) {
-    const size_t neg = (size_t)gridDim.y * M * N;
-    pann::store_partial<8>(partial, acc_p, M, N, m0 + r0, n_blk + cw * kCols,
-                           blockIdx.y);
-    pann::store_partial<8>(partial + neg, acc_n, M, N, m0 + r0,
-                           n_blk + cw * kCols, blockIdx.y);
-  }
-}
+struct SignedWeight {  // (K, N) int8 in [-127, 127]
+  const int8_t* w;
+  int K;
+};
 
 }  // namespace
 
 // The wrapper (repro_torch/kernels/unsigned_matmul.py) checks shapes,
-// dtypes, contiguity and N % 4 == 0, and allocates y (M, N) and partial
-// (2, ksplit, M, N): the W+ sums, then the W- sums. kchunk is a multiple of
-// 8 (of 32 above 8 rows). Returns cudaGetLastError() after the launches.
+// dtypes, contiguity and N % 4 == 0, and allocates y (M, N) and partial:
+// up to 8 rows (2, ksplit, M, N), the W+ sums, then the W- sums, with
+// kchunk a multiple of 8; above 8 rows (ksplit, M, N), the differences,
+// with kchunk a multiple of 64. Returns cudaGetLastError() after the
+// launches.
 extern "C" int unsigned_matmul_launch(const int8_t* xq, const int8_t* w,
                                       const float* s_x, const float* s_w,
                                       float* y, int* partial, int M, int K,
                                       int N, int ksplit, int kchunk,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= pann::kDecodeRows) {
-    const int cols = pann::kThreads * kCols;
-    const int mt = M <= 4 ? 4 : 8;
-    dim3 grid((N + cols - 1) / cols, ksplit, (M + mt - 1) / mt);
-    if (mt == 4)
-      decode_kernel<4><<<grid, pann::kThreads, 4 * kchunk, st>>>(
-          xq, w, partial, M, K, N, kchunk);
-    else
-      decode_kernel<8><<<grid, pann::kThreads, 8 * kchunk, st>>>(
-          xq, w, partial, M, K, N, kchunk);
-  } else {
-    dim3 grid((N + pann::kTileN - 1) / pann::kTileN, ksplit,
-              (M + pann::kTileM - 1) / pann::kTileM);
-    tile_kernel<<<grid, pann::kTileThreads, 0, st>>>(xq, w, partial, M, K, N,
-                                                     kchunk);
+  if (M > pann::kDecodeRows) {
+    int err = pann::tc::launch<pann::CodeRows, pann::tc::Mode::kSplit>(
+        pann::CodeRows{xq, K}, SignedWeight{w, K}, partial, M, K, N,
+        ksplit, kchunk, st);
+    if (err != 0) return err;
+    return pann::launch_epilogue(partial, nullptr, s_x, 1, s_w, nullptr, y,
+                                 M, N, ksplit, st);
   }
+  const int cols = pann::kThreads * kCols;
+  const int mt = M <= 4 ? 4 : 8;
+  dim3 grid((N + cols - 1) / cols, ksplit, (M + mt - 1) / mt);
+  if (mt == 4)
+    decode_kernel<4><<<grid, pann::kThreads, 4 * kchunk, st>>>(
+        xq, w, partial, M, K, N, kchunk);
+  else
+    decode_kernel<8><<<grid, pann::kThreads, 8 * kchunk, st>>>(
+        xq, w, partial, M, K, N, kchunk);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return pann::launch_epilogue(partial, partial + (size_t)ksplit * M * N, s_x,

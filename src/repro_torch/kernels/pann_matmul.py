@@ -37,17 +37,16 @@ pann_matmul_launches = 0    # pann_matmul launches since the last reset
 MODES = ("fused", "planes")
 
 # split-K sizing of the tile kernels: enough blocks for two waves on the
-# H100's 132 SMs. Above DECODE_ROWS rows a block covers a tile of (rows,
-# columns) and steps K by a multiple of the K alignment: TC_TILE for this
-# module's tensor-core kernel (csrc/pann_tc.cuh: 128 x 128 outputs, K steps
-# of 64 and 32), CORE_TILE for the CUDA-core tile kernels of
-# pann_matmul_packed and unsigned_matmul. Up to DECODE_ROWS rows
-# unsigned_matmul's decode kernel covers 4 or 8 rows x 512 columns.
+# H100's 132 SMs. Above DECODE_ROWS rows every matmul (B1/B4 here, B2/B5 in
+# pann_matmul_packed, B6 in unsigned_matmul) runs the tensor-core tile
+# kernel (csrc/pann_tc.cuh): a block covers TC_TILE = (rows, columns, K
+# alignment), 128 x 128 outputs over K chunks of whole 64-row steps. Up to
+# DECODE_ROWS rows unsigned_matmul's decode kernel covers 4 or 8 rows x 512
+# columns.
 _TARGET_BLOCKS = 2 * 132
 DECODE_ROWS = 8
 _MAX_KCHUNK = 4096
 TC_TILE = (128, 128, 64)
-CORE_TILE = (64, 128, 32)
 
 # The streaming decode kernels of the bit-plane matmuls (M <= DECODE_ROWS,
 # csrc/pann_common.cuh): a block is DECODE_WARPS warps over DECODE_COLS
@@ -62,15 +61,14 @@ BLOCKS_PACKED = {4: 3, 8: 2}
 _DECODE_MIN_STEPS = 2       # K steps per warp, at least
 
 
-def split_k(m: int, k: int, n: int, tile: tuple = TC_TILE
-            ) -> tuple[int, int]:
+def split_k(m: int, k: int, n: int) -> tuple[int, int]:
     """(ksplit, kchunk) of the launch: ksplit * kchunk >= k > (ksplit - 1)
-    * kchunk, kchunk a multiple of 8 (above DECODE_ROWS rows, of the K
-    alignment of ``tile`` = (rows, columns, K alignment))."""
+    * kchunk, kchunk a multiple of 8 (above DECODE_ROWS rows, of TC_TILE's
+    K alignment)."""
     if m <= DECODE_ROWS:
         rows, cols, align, cap = (4 if m <= 4 else 8), 512, 8, _MAX_KCHUNK
     else:
-        (rows, cols, align), cap = tile, None
+        (rows, cols, align), cap = TC_TILE, None
     tiles = -(-n // cols) * -(-m // rows)
     ksplit = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // 64)))
     kchunk = -(-(-(-k // ksplit)) // align) * align
@@ -263,13 +261,13 @@ def decode_scratch(x: Tensor, n_acc: int, n_tickets: int) -> tuple:
 
 def launch_product(launcher, what: str, x: Tensor, planes: tuple,
                    scale: Tensor, gamma: Tensor, zcol, *extra,
-                   tile: tuple = TC_TILE, step: int = STEP_PLANES,
+                   step: int = STEP_PLANES,
                    blocks: dict = BLOCKS_PLANES) -> Tensor:
     """Allocate y and the split-K scratch and call one C entry point of the
     bit-plane matmuls: up to DECODE_ROWS rows the streaming decode kernel
     (K steps of ``step`` rows, ``blocks`` a SM by row tile, see
-    ``decode_split``; one launch), above it the tile kernel (``tile``, see
-    ``split_k``) and the epilogue kernel; raises on a CUDA error."""
+    ``decode_split``; one launch), above it the tensor-core tile kernel
+    (see ``split_k``) and the epilogue kernel; raises on a CUDA error."""
     m, k = x.shape
     p, _, n = planes[0].shape
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -279,7 +277,7 @@ def launch_product(launcher, what: str, x: Tensor, planes: tuple,
         partial = None
         acc, tickets = decode_scratch(x, m * n, -(-n // DECODE_COLS))
     else:
-        ksplit, kchunk = split_k(m, k, n, tile)
+        ksplit, kchunk = split_k(m, k, n)
         partial = torch.empty((ksplit, m, n), dtype=torch.int32,
                               device=x.device)
         acc = tickets = None

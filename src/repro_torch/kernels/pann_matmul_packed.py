@@ -5,8 +5,9 @@ scales; and the plane codec).
 
 Layout: packed[p, k8, n] holds bit (k8*8 + j) of plane p in bit j — 2*P/8
 bytes per weight for both signs. Each matmul launches its CUDA kernel
-(``csrc/pann_matmul_packed.cu``) on CUDA tensors and runs its ``*_plain``
-version on CPU tensors.
+(``csrc/pann_matmul_packed.cu``: the streaming decode kernel up to 8 rows,
+the tensor-core tile kernel of ``csrc/pann_tc.cuh`` above) on CUDA tensors
+and runs its ``*_plain`` version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import (BLOCKS_PACKED, CORE_TILE,
-                                             STEP_PACKED, check_args,
-                                             check_codes_args, epilogue,
-                                             int_product, launch_product)
+from repro_torch.kernels.pann_matmul import (BLOCKS_PACKED, STEP_PACKED,
+                                             check_args, check_codes_args,
+                                             epilogue, int_product,
+                                             launch_product)
 
 Tensor = torch.Tensor
 
@@ -106,8 +107,7 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
                qparams, gamma, zcol)
     y = launch_product(_act_launcher(), "pann_matmul_packed_act", x,
                        (packed_pos, packed_neg), qparams, gamma, zcol,
-                       tile=CORE_TILE, step=STEP_PACKED,
-                       blocks=BLOCKS_PACKED)
+                       step=STEP_PACKED, blocks=BLOCKS_PACKED)
     global launches
     launches += 1
     return y
@@ -129,8 +129,7 @@ def pann_matmul_packed(x_q: Tensor, packed_pos: Tensor, packed_neg: Tensor,
                      x_q.shape[1] // 8, s_x, gamma, zcol)
     y = launch_product(_codes_launcher(), "pann_matmul_packed", x_q,
                        (packed_pos, packed_neg), s_x, gamma, zcol,
-                       tile=CORE_TILE, step=STEP_PACKED,
-                       blocks=BLOCKS_PACKED)
+                       step=STEP_PACKED, blocks=BLOCKS_PACKED)
     global pann_matmul_packed_launches
     pann_matmul_packed_launches += 1
     return y

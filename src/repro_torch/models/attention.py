@@ -106,10 +106,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
             v_planes=torch.zeros(shape, dtype=torch.uint8, device=device),
             k_s=row(), k_z=row(), v_s=row(), v_z=row(),
             length=torch.zeros((), dtype=torch.int32, device=device))
+    if cfg.kv_cache_dtype:   # e.g. "float8_e4m3fn": half the cache bytes
+        dtype = getattr(torch, cfg.kv_cache_dtype)
     shape = (batch, max_len, cfg.num_kv_heads, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    length=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _write_pos(buf: Tensor, idx: Tensor, new: Tensor) -> None:
+    """buf[:, idx] = new cast to buf's dtype, in place; a 1-byte (float8)
+    cache through its bytes, as index_copy_ has no float8 kernel."""
+    new = new.to(buf.dtype)
+    if buf.element_size() == 1:
+        buf, new = buf.view(torch.uint8), new.view(torch.uint8)
+    buf.index_copy_(1, idx, new)
 
 
 def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
@@ -127,8 +138,8 @@ def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
         return _decode_attend_quant(x, cache, p, cfg, q, k_new, v_new,
                                     window=window)
     idx = pos.reshape(1).to(torch.int64)
-    cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    _write_pos(cache.k, idx, k_new)
+    _write_pos(cache.v, idx, v_new)
     s_max = cache.k.shape[1]
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, hd) * hd ** -0.5

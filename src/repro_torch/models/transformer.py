@@ -85,10 +85,18 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device) -> Any:
+    """The layer's cache of ``max_len`` positions. A windowed layer whose
+    window is shorter than ``max_len`` is refused: the reference sizes its
+    cache at the window and drops the writes past it, and a ring buffer is
+    not ported yet (ROADMAP C2)."""
     _require_attn(spec)
-    win = spec.window
-    cache_len = min(max_len, win) if win else max_len
-    return A.init_cache(cfg, batch, cache_len, dtype, device)
+    if spec.window and spec.window < max_len:
+        raise ValueError(
+            f"windowed layer: window {spec.window} < max_len {max_len}; a "
+            f"cache of {spec.window} rows would be written past its end at "
+            f"position {spec.window} (ROADMAP C2: windowed caches past the "
+            "window are not ported)")
+    return A.init_cache(cfg, batch, max_len, dtype, device)
 
 
 def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
