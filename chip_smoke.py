@@ -28,13 +28,30 @@ Phases (any failure raises and the script exits non-zero):
 4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
               vocab 128256, random weights from a seed) through the PANN
               ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
-              6 requests, prompt 32, gen 16; checks the launch counts of the
-              packed matmul and attention kernels per decode step, and in
-              the profiler one device kernel per matmul (no epilogue
-              kernel).
+              6 requests, prompt 32, gen 16. Every decode step replays a
+              CUDA graph that ``warmup`` captured (``ServeEngine``): the
+              wrappers' launch counts advance only while warmup captures,
+              so they are held at (rungs + graphs) steps' worth and must
+              not move while serving; the profiler counts the kernels of
+              a graph replay (guard step, ``spin_kernel`` marker): 225 B2
+              and 32 B3 a step, no epilogue kernel. The requests are
+              served again with every step's input token and logits
+              recorded, and every wave is replayed eagerly through
+              ``MD.decode_step``: every graphed step's logits must be
+              bit-identical. ``assert_no_recompile`` after serving.
+4b. layerwise — the same model at allocation 'layerwise' with
+              cache_bits 'auto' (each rung's allocator trades cache bits
+              against weight bits), served through graphs and held to
+              eager the same way; reports each rung's cache bits and
+              Gbit-flips per token.
 5. backends — the same config cut to 2 layers served by 'ref', 'fused' and
               'packed' engines over ONE weight store: logits and tokens must
-              be bit-identical; counts the fused matmul kernel's launches.
+              be bit-identical; counts the fused matmul kernel's launches;
+              the store is written as a v1 serving artifact
+              (``write_artifact``), loaded back onto the card
+              (``load_artifact``), and its logits must be bit-identical to
+              the store's on every backend, every view leaf that the store
+              holds aliasing the store's tensor.
 6. unfused  — the kernel API (``repro_torch.kernels.ops``), one PANN linear
               deployed as "quantize, then multiply codes", over a layer's
               seven projections and the lm_head at llama3-8b's full widths,
@@ -65,6 +82,7 @@ is ``{"ok": true, "device": {...}}``. A longer report is written to
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -499,6 +517,139 @@ def _counts() -> dict:
             for kernel, mod, attr in COUNTERS}
 
 
+def _graph_launches(n_layers: int) -> dict:
+    """The wrappers' launches of one decode step of an engine serving
+    through the packed backend with a quantized cache."""
+    return {"pann_matmul_packed_act": 7 * n_layers + 1,
+            "decode_attention": n_layers}
+
+
+def _check_capture_counts(engine, counts: dict, per_step: dict) -> None:
+    """The wrappers count a launch while ``warmup`` captures a graph (a
+    replay launches without them) and in its eager step per rung before
+    the captures: (rungs + graphs) steps' worth, nothing else."""
+    steps = len(engine.ladder) + engine.graphs_captured
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * steps for k, v in per_step.items()})
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want} "
+                             f"over warmup's {steps} steps")
+
+
+def _record(engine):
+    """Log every wave the engine starts and every decode step's input
+    token and logits (device copies) by wrapping its slot acquisition and
+    its step; returns (log, restore)."""
+    log = []
+    acquire, run = engine._acquire, engine._run_step
+
+    def rec_acquire():
+        slot = acquire()
+        log.append(("wave", slot.index))
+        return slot
+
+    def rec_run(bits, slot):
+        tok = slot.tok.clone()
+        logits = run(bits, slot)
+        log.append(("step", slot.index, bits, tok, logits.clone()))
+        return logits
+
+    engine._acquire, engine._run_step = rec_acquire, rec_run
+
+    def restore():
+        del engine._acquire, engine._run_step
+
+    return log, restore
+
+
+def eager_replay(engine, log) -> dict:
+    """Replay every logged wave eagerly through ``MD.decode_step`` on the
+    engine's views from a fresh decode state: every graphed step's logits
+    must be finite and bit-identical to the eager step's."""
+    from repro_torch.models import model as MD
+    current, waves = {}, []
+    for entry in log:
+        if entry[0] == "wave":
+            current[entry[1]] = []
+            waves.append(current[entry[1]])
+        else:
+            current[entry[1]].append(entry[2:])
+    err: dict = {}
+    steps = 0
+    for wave in waves:
+        if not wave:
+            continue
+        bits = wave[0][0]
+        view = engine.variants[bits]
+        state = MD.init_decode_state(view, engine.cfg, engine.max_batch,
+                                     engine.max_len)
+        for b, tok, graphed in wave:
+            if b != bits:
+                raise AssertionError("a wave switched rung mid-flight")
+            if not torch.isfinite(graphed).all():
+                raise AssertionError(f"rung {bits}: graphed logits not "
+                                     "finite")
+            logits, state = MD.decode_step(view, engine.cfg, state, tok)
+            d = (logits.double() - graphed.double()).abs().max().item()
+            err[bits] = max(err.get(bits, 0.0), d)
+            if not torch.equal(logits, graphed):
+                raise AssertionError(f"rung {bits}, step {steps}: graphed "
+                                     f"logits differ from eager by {d}")
+            steps += 1
+    return {"waves": len([w for w in waves if w]), "steps": steps,
+            "max_abs_err_by_rung": err}
+
+
+def serve_graphed(engine, reqs, vocab: int) -> dict:
+    """Warm the engine up (every graph captured) with the launch counters
+    from 0, serve ``reqs`` (timed), prove that nothing was captured or
+    launched outside a replay while serving, then serve them again with
+    every step recorded and replay every wave eagerly."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    counts = _counts()
+    steps0 = dict(engine.steps_by_rung)
+    t0 = time.perf_counter()
+    responses = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.assert_no_recompile()
+    if _counts() != counts:
+        raise AssertionError(f"a wrapper launched while serving: {counts} "
+                             f"-> {_counts()}: a step ran outside a graph")
+    steps_by_rung = {b: engine.steps_by_rung[b] - steps0[b]
+                     for b in engine.rungs}
+    for r in responses:
+        if len(r.tokens) != GEN or not all(0 <= t < vocab
+                                           for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
+    log, restore = _record(engine)
+    try:
+        again = engine.generate(reqs)
+    finally:
+        restore()
+    engine.assert_no_recompile()
+    if [r.tokens for r in again] != [r.tokens for r in responses]:
+        raise AssertionError("a second serve of the same requests gave "
+                             "other tokens")
+    t0 = time.perf_counter()
+    replay = eager_replay(engine, log)
+    replay["seconds"] = time.perf_counter() - t0
+    del log
+    steps = sum(steps_by_rung.values())
+    n_tok = sum(len(r.tokens) for r in responses)
+    return {"responses": responses, "launches": counts,
+            "warmup_s": warmup_s, "generate_s": wall,
+            "decode_steps": steps, "steps_by_rung": steps_by_rung,
+            "ms_per_step": wall / steps * 1e3,
+            "tok_per_s": n_tok / wall, "generated": n_tok,
+            "compilations_after_warmup": engine.compilations_after_warmup,
+            "eager_replay": replay}
+
+
 def full_width_serve() -> dict:
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
@@ -513,86 +664,97 @@ def full_width_serve() -> dict:
                          cache_bits=CACHE_BITS, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    engine.warmup()
-    reqs = _requests(cfg, seed=0)
-    steps0 = dict(engine.steps_by_rung)
-    _reset_counts()
-    t0 = time.perf_counter()
-    responses = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    steps_by_rung = {b: engine.steps_by_rung[b] - steps0[b] for b in LADDER}
-    steps = sum(steps_by_rung.values())
+    served = serve_graphed(engine, _requests(cfg, seed=0), cfg.vocab_size)
     n_layers = cfg.num_layers
-    want = dict.fromkeys(counts, 0)
-    want.update({"pann_matmul_packed_act": (7 * n_layers + 1) * steps,
-                 "decode_attention": n_layers * steps})
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want} "
-                             f"over {steps} decode steps")
-    for r in responses:
-        if len(r.tokens) != GEN or not all(0 <= t < cfg.vocab_size
-                                           for t in r.tokens):
-            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
-    # the first wave again by hand: finite logits, and its greedy token is
-    # the one the engine served
-    wave = [r for r in reqs if r.power_budget_bits == LADDER[0]]
-    rows = np.stack([r.prompt for r in wave]
-                    + [wave[0].prompt] * (BATCH - len(wave)))
-    rows = torch.as_tensor(rows.astype(np.int64), device="cuda")
-    view = engine.variants[LADDER[0]]
-    state = MD.init_decode_state(view, engine.cfg, BATCH, PROMPT + GEN)
-    for i in range(PROMPT):
-        logits, state = MD.decode_step(view, engine.cfg, state,
-                                       rows[:, i:i + 1])
-    if logits.shape != (BATCH, 1, cfg.padded_vocab) \
-            or not torch.isfinite(logits).all():
-        raise AssertionError("full-width logits not finite / wrong shape")
-    profile = profile_steps(engine.variants, steps_by_rung, engine.cfg,
-                            state, logits, cfg.vocab_size)
-    if profile["device_ms_per_step"] is not None:
-        # one launch per matmul: the split-K sum and epilogue run inside
-        # the decode kernel, no second kernel
-        ops = profile["device_ops_per_step_by_kind"]
-        want_ops = {"pann_matmul_packed_act": 7 * n_layers + 1,
-                    "epilogue": 0}
-        got_ops = {k: ops.get(k, 0.0) for k in want_ops}
-        if got_ops != want_ops:
-            raise AssertionError(f"device kernels per step {got_ops} != "
-                                 f"{want_ops}")
-    first = torch.argmax(logits[:, 0, :cfg.vocab_size], -1).tolist()
-    got = {r.uid: r.tokens[0] for r in responses}
-    for j, r in enumerate(wave):
-        if first[j] != got[r.uid]:
-            raise AssertionError(f"request {r.uid}: replayed first token "
-                                 f"{first[j]} != served {got[r.uid]}")
+    per_step = _graph_launches(n_layers)
+    _check_capture_counts(engine, served["launches"], per_step)
+    steps_by_rung = served["steps_by_rung"]
+    profile = profile_steps(functools.partial(_graph_runner, engine),
+                            steps_by_rung)
+    if profile["device_ms_per_step"] is None:
+        raise AssertionError("the profiler recorded no kernel of a graph "
+                             "replay: the step's kernels are not counted")
+    # one launch per matmul (the split-K sum and epilogue run inside the
+    # decode kernel) and one per attention, in every graphed step
+    ops = profile["device_ops_per_step_by_kind"]
+    want_ops = dict(per_step, epilogue=0)
+    got_ops = {k: ops.get(k, 0.0) for k in want_ops}
+    if got_ops != want_ops:
+        raise AssertionError(f"device kernels per graphed step {got_ops} != "
+                             f"{want_ops}")
+    eager = profile_steps(functools.partial(_eager_runner, engine),
+                          steps_by_rung)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb >= 70.0:
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
-    n_tok = sum(len(r.tokens) for r in responses)
+    responses = served.pop("responses")
+    ms = served["ms_per_step"]
     out = {
         "config": "llama3-8b full width, 32 layers, random weights seed 0",
         "ladder": list(LADDER), "backend": "packed", "cache_bits": CACHE_BITS,
         "max_batch": BATCH, "prompt": PROMPT, "gen": GEN,
-        "requests": REQUESTS, "decode_steps": steps,
-        "steps_by_rung": steps_by_rung,
-        "store_build_s": build_s, "generate_s": wall,
-        "ms_per_step": wall / steps * 1e3,
+        "requests": REQUESTS, "store_build_s": build_s, **served,
+        "graphs": engine.graphs_captured,
         "profile": profile,
-        # the rung-weighted device time of a step over its host wall time
-        "device_busy_share": (None if profile["device_ms_per_step"] is None
-                              else profile["device_ms_per_step"]
-                              / (wall / steps * 1e3)),
-        "tok_per_s": n_tok / wall, "generated": n_tok,
-        "peak_mem_gb": peak_gb, "launches": counts,
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        # the rung-weighted device time of a graphed step over its host
+        # wall time
+        "device_busy_share": profile["device_ms_per_step"] / ms,
+        "eager_profile": eager,
+        "peak_mem_gb": peak_gb,
+        "launches_per_captured_step": per_step,
         "tokens": {r.uid: r.tokens for r in responses},
         "rung_bits": {r.uid: r.rung_bits for r in responses},
         "est_gbitflips_per_token": {
             r.uid: r.metadata["est_gbitflips_per_token"] for r in responses},
     }
-    del engine, state, logits
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def layerwise_serve() -> dict:
+    """Phase 4b: a full-width engine at allocation 'layerwise' with
+    cache_bits 'auto', served through graphs and held to eager."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import policy as pol
+    from repro_torch.models import model as MD
+    from repro_torch.serve_engine import ServeEngine
+    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, MD.init_params(cfg, seed=2, device="cuda"),
+                         ladder_bits=LADDER, max_batch=BATCH,
+                         max_len=PROMPT + GEN, backend="packed",
+                         allocation="layerwise", cache_bits="auto",
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    served = serve_graphed(engine, _requests(cfg, seed=2), cfg.vocab_size)
+    _check_capture_counts(engine, served["launches"],
+                          _graph_launches(cfg.num_layers))
+    responses = served.pop("responses")
+    ctx = PROMPT + GEN
+    rungs = {op.bits: {
+        "allocation": op.allocation, "b_x_tilde": op.b_x_tilde,
+        "r": op.r, "power_per_weight_mac": op.power,
+        "cache_bits": pol.tree_cache_bits(engine._rung_tree(op)),
+        "gbitflips_per_token": engine.token_flips(op.bits, ctx) / 1e9}
+        for op in engine.ladder}
+    if any(r["allocation"] != "layerwise" for r in rungs.values()):
+        raise AssertionError(f"rungs not layerwise: {rungs}")
+    out = {
+        "config": "llama3-8b full width, 32 layers, random weights seed 2",
+        "allocation": "layerwise", "cache_bits": "auto",
+        "ladder": list(LADDER), "backend": "packed", "store_build_s": build_s,
+        **served, "graphs": engine.graphs_captured,
+        "cache_bits_by_rung": engine.describe()["cache_bits_by_rung"],
+        "rungs": rungs, "context": ctx,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens": {r.uid: r.tokens for r in responses},
+        "rung_bits": {r.uid: r.rung_bits for r in responses},
+    }
+    del engine
     torch.cuda.empty_cache()
     return out
 
@@ -612,33 +774,56 @@ def _kernel_kind(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def _profile_rung(view, cfg, state, tok) -> tuple:
-    """(device ms by kernel kind, device ops by kind) of PROFILE_STEPS
-    decode steps of one rung view, from torch.profiler; the state advances
-    in place.
+def _graph_runner(engine, bits: int):
+    """A call replays rung ``bits``'s graph of a slot zeroed here (the
+    profiled rung advances it by PROFILE_STEPS + 1 positions)."""
+    slot = engine._acquire()
+    slot.busy = False
+    return engine._steps[(bits, slot.index)]
+
+
+def _eager_runner(engine, bits: int):
+    """A call runs one eager ``MD.decode_step`` of rung ``bits`` on a
+    fresh decode state made here."""
+    from repro_torch.models import model as MD
+    view = engine.variants[bits]
+    box = [MD.init_decode_state(view, engine.cfg, engine.max_batch,
+                                engine.max_len)]
+    tok = torch.zeros((engine.max_batch, 1), dtype=torch.int64,
+                      device="cuda")
+
+    def run():
+        _, box[0] = MD.decode_step(view, engine.cfg, box[0], tok)
+    return run
+
+
+def _profile_rung(run) -> tuple:
+    """(device ms by kernel kind, device ops by kind, records lost) of
+    PROFILE_STEPS calls of ``run`` (one decode step each), from
+    torch.profiler.
 
     The profiler can lose the records of the first kernels of a window
     (none in some windows, more in each later window of a process), so
     the window opens with one uncounted guard step; what it lacks against
-    a counted step is reported as ``guard_step_records_lost``. A marker kernel (``torch.cuda._sleep``'s ``spin_kernel``) follows
-    it on the same stream, and only the kernels that start after the
-    marker are counted: device timestamps against device timestamps."""
+    a counted step is reported as ``guard_step_records_lost``. A marker
+    kernel (``torch.cuda._sleep``'s ``spin_kernel``) follows it on the
+    same stream, and only the kernels that start after the marker are
+    counted: device timestamps against device timestamps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import model as MD
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, state = MD.decode_step(view, cfg, state, tok)
+        run()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         for _ in range(PROFILE_STEPS):
-            _, state = MD.decode_step(view, cfg, state, tok)
+            run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        return {}, {}, 0, state
+        return {}, {}, 0
     marks = [e.time_range.start for e in kernels if "spin_kernel" in e.name]
     if len(marks) != 1:
         raise AssertionError(f"profiler recorded {len(marks)} marker "
@@ -657,22 +842,19 @@ def _profile_rung(view, cfg, state, tok) -> tuple:
     # the guard step launches what a counted step does: what it lacks, the
     # profiler lost
     lost = sum(count.values()) / PROFILE_STEPS - guard
-    return ms, count, lost, state
+    return ms, count, lost
 
 
-def profile_steps(views: dict, steps_by_rung: dict, cfg, state, logits,
-                  vocab: int) -> dict:
-    """Device kernel time per decode step of each rung (PROFILE_STEPS steps
-    each, torch.profiler), and the mean over rungs weighted by the serve's
-    steps per rung: the device time of the serve's average step, by kernel
-    kind. The profiler's own host overhead does not enter the device times.
-    Reported as None when the profiler records no device activity on this
-    machine."""
-    tok = torch.argmax(logits[:, :, :vocab], -1)
+def profile_steps(runner, steps_by_rung: dict) -> dict:
+    """Device kernel time per decode step of each rung (PROFILE_STEPS
+    steps each, torch.profiler), and the mean over rungs weighted by the
+    serve's steps per rung: the device time of the serve's average step,
+    by kernel kind. The profiler's own host overhead does not enter the
+    device times. ``device_ms_per_step`` is None when the profiler
+    records no device activity on this machine."""
     by_rung = {}
     for bits in LADDER:
-        ms, count, lost, state = _profile_rung(views[bits], cfg, state,
-                                               tok)
+        ms, count, lost = _profile_rung(runner(bits))
         if not ms:
             print("[profile] the profiler recorded no device activity: "
                   "device time per step not measured", flush=True)
@@ -702,12 +884,47 @@ def profile_steps(views: dict, steps_by_rung: dict, cfg, state, logits,
             "by_rung": by_rung}
 
 
+def _teacher_forced(views: dict, cfg, rows) -> torch.Tensor:
+    """(rungs, B, T, V) eager logits of teacher-forcing ``rows`` (B, T)
+    through every rung's view."""
+    from repro_torch.models import model as MD
+    per_rung = []
+    for bits in LADDER:
+        view = views[bits]
+        state = MD.init_decode_state(view, cfg, rows.shape[0], rows.shape[1])
+        steps = []
+        for i in range(rows.shape[1]):
+            lg, state = MD.decode_step(view, cfg, state, rows[:, i:i + 1])
+            steps.append(lg)
+        per_rung.append(torch.cat(steps, 1))
+    return torch.stack(per_rung)
+
+
+def _check_aliasing(ws) -> int:
+    """Every view leaf at a path the store holds is the store's own
+    device tensor; returns how many there are."""
+    from repro_torch.serve_engine.artifact import _flatten
+    store = dict(_flatten(ws.store))
+    n = 0
+    for key, view in ws.views.items():
+        for path, t in _flatten(view):
+            if path in store:
+                if t is not store[path] or t.data_ptr() != \
+                        store[path].data_ptr():
+                    raise AssertionError(f"rung {key}: {path} does not "
+                                         "alias the store")
+                n += 1
+    return n
+
+
 def backends_agree() -> dict:
+    import tempfile
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import model as MD
     from repro_torch.models import serving
-    from repro_torch.serve_engine import ServeEngine, build_ladder
+    from repro_torch.serve_engine import (ServeEngine, build_ladder,
+                                          load_artifact, write_artifact)
     cfg = dataclasses.replace(
         configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
         num_layers=2)
@@ -716,7 +933,18 @@ def backends_agree() -> dict:
         MD.init_params(cfg, seed=1, device="cuda"), cfg,
         {op.bits: (op.r, op.b_x_tilde) for op in ladder},
         serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+    # the v1 artifact: written off the card, mapped and copied back
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        write_artifact(d, ws, cfg, meta={"arch": cfg.name})
+        blob_bytes = Path(d, "weights.bin").stat().st_size
+        loaded = load_artifact(d, device="cuda")
+        torch.cuda.synchronize()
+    artifact_s = time.perf_counter() - t0
+    aliased = _check_aliasing(loaded)
     reqs = _requests(cfg, seed=1)
+    rows = torch.as_tensor(np.stack([reqs[0].prompt] * BATCH).astype(
+        np.int64), device="cuda")
     tokens, logits, launches = {}, {}, {}
     for backend in ("ref", "fused", "packed"):
         eng = ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
@@ -724,44 +952,49 @@ def backends_agree() -> dict:
                           backend=backend, cache_bits=CACHE_BITS,
                           device="cuda")
         _reset_counts()
+        eng.warmup()
         res = eng.generate(reqs)
         torch.cuda.synchronize()
+        eng.assert_no_recompile()
         launches[backend] = _counts()
+        launches[backend]["graphs"] = eng.graphs_captured
         launches[backend]["decode_steps"] = sum(eng.steps_by_rung.values())
         tokens[backend] = [r.tokens for r in res]
         # teacher-forced logits of every rung over the first request's
-        # prompt + tokens
-        rows = torch.as_tensor(np.stack([reqs[0].prompt] * BATCH).astype(
-            np.int64), device="cuda")
-        per_rung = []
-        for bits in LADDER:
-            view = eng.variants[bits]
-            state = MD.init_decode_state(view, eng.cfg, BATCH, PROMPT)
-            steps = []
-            for i in range(PROMPT):
-                lg, state = MD.decode_step(view, eng.cfg, state,
-                                           rows[:, i:i + 1])
-                steps.append(lg)
-            per_rung.append(torch.cat(steps, 1))
-        logits[backend] = torch.stack(per_rung)
+        # prompt, from the store and from its artifact copy
+        logits[backend] = _teacher_forced(eng.variants, eng.cfg, rows)
+        from_artifact = _teacher_forced(loaded.views, eng.cfg, rows)
+        if not torch.equal(from_artifact, logits[backend]):
+            d = (from_artifact - logits[backend]).abs().max().item()
+            raise AssertionError(f"{backend}: the artifact's logits differ "
+                                 f"from the store's by {d}")
+        del eng
+        torch.cuda.empty_cache()
     for backend in ("fused", "packed"):
         if not torch.equal(logits[backend], logits["ref"]):
             d = (logits[backend] - logits["ref"]).abs().max().item()
             raise AssertionError(f"{backend} logits differ from ref by {d}")
         if tokens[backend] != tokens["ref"]:
             raise AssertionError(f"{backend} tokens differ from ref")
-    steps = launches["fused"]["decode_steps"]
-    if launches["fused"]["pann_matmul_act"] != (7 * 2 + 1) * steps \
-            or launches["fused"]["decode_attention"] != 2 * steps:
-        raise AssertionError(f"fused launch counts {launches['fused']}")
-    if any(v for k, v in launches["ref"].items() if k != "decode_steps"):
+    fused = launches["fused"]
+    steps = len(LADDER) + fused["graphs"]
+    if fused["pann_matmul_act"] != (7 * 2 + 1) * steps \
+            or fused["decode_attention"] != 2 * steps:
+        raise AssertionError(f"fused launch counts {fused} over warmup's "
+                             f"{steps} steps")
+    if any(v for k, v in launches["ref"].items()
+           if k not in ("decode_steps", "graphs")):
         raise AssertionError(f"ref backend launched kernels: "
                              f"{launches['ref']}")
     return {"config": "llama3-8b full width cut to 2 layers (the only cut), "
                       "random weights seed 1",
             "cache_bits": CACHE_BITS, "logits_bit_identical": True,
             "tokens_identical": True, "logits_shape": list(
-                logits["ref"].shape), "launches": launches}
+                logits["ref"].shape), "launches": launches,
+            "artifact": {"blob_bytes": blob_bytes, "write_load_s": artifact_s,
+                         "view_leaves_aliasing_the_store": aliased,
+                         "logits_bit_identical_on": ["ref", "fused",
+                                                     "packed"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1244,15 +1477,31 @@ def main() -> int:
             print(f"[kernels] {name} " + json.dumps(
                 {k: v for k, v in r.items()}), flush=True)
 
-    # phase 4: full-width serve through the ladder
+    # phase 4: full-width serve through the ladder, every step a graph
     serve = full_width_serve()
     print("[serve] " + json.dumps({k: v for k, v in serve.items()
-                                   if k != "tokens"}), flush=True)
+                                   if k not in ("tokens", "profile",
+                                                "eager_profile")}),
+          flush=True)
+    print(f"[serve] graphed step: {serve['ms_per_step']:.3f} ms on the host, "
+          f"{serve['profile']['device_ms_per_step']:.3f} ms of device "
+          f"kernels (busy share {serve['device_busy_share']:.3f}), "
+          f"{serve['tok_per_s']:.2f} tok/s; the eager step's kernels "
+          f"{serve['eager_profile']['device_ms_per_step']} ms; "
+          f"{serve['graphs']} graphs captured", flush=True)
+    print("[serve] kernels per graphed step " + json.dumps(
+        serve["profile"]["device_ops_per_step_by_kind"]) + ", ms "
+        + json.dumps(serve["profile"]["ms_per_step_by_kind"]), flush=True)
     for uid, toks in serve["tokens"].items():
         print(f"[serve] request {uid} (rung {serve['rung_bits'][uid]}) "
               f"tokens {toks}", flush=True)
 
-    # phase 5: backends agree
+    # phase 4b: full width, layerwise allocation, cache_bits 'auto'
+    layerwise = layerwise_serve()
+    print("[layerwise] " + json.dumps({k: v for k, v in layerwise.items()
+                                       if k != "tokens"}), flush=True)
+
+    # phase 5: backends agree, and the v1 artifact round trip
     agree = backends_agree()
     print("[backends] " + json.dumps(agree), flush=True)
 
@@ -1291,6 +1540,11 @@ def main() -> int:
                                       for r in att_rows + att_checks),
                       step),
     ]
+    for k in kernels:       # B1-B3: the serve's and phase 5's engines
+        k["launches_are"] = ("the wrapper's count while warmup captured the "
+                             "decode graphs (one eager step per rung, then "
+                             "one step per graph); a replay launches "
+                             "without the wrapper")
     kernels[0]["launches_unfused"] = unfused["launches"]["pann_matmul_act"]
     kernels[0]["unfused_shapes"] = [r for r in unfused["rows"]
                                     if r["kernel"] == "pann_matmul_act"]
@@ -1324,7 +1578,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "nvcc": nvcc, "driver": driver,
               "build_s": build.build_seconds, "sass": sass,
               "kernels": kernels,
-              "serve": serve, "backends": agree, "unfused": unfused}
+              "serve": serve, "layerwise": layerwise, "backends": agree,
+              "unfused": unfused}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,13 +1,16 @@
-"""Carry parameters and weight stores across from the JAX package.
+"""Carry parameters and weight stores across from the JAX package, and
+back into its layout.
 
-Both functions take nested numpy trees — the JAX package's pytrees after
-``np.asarray`` on every leaf — so this module imports nothing of JAX. The
-JAX package stacks the layers of each repeating group along a leading
-axis; the port keeps one dict per layer, so the stacked leaves are sliced
-here.
+The functions take nested numpy trees — the JAX package's pytrees after
+``np.asarray`` on every leaf — or torch tensors, so this module imports
+nothing of JAX. The JAX package stacks the layers of each repeating group
+along a leading axis; the port keeps one dict per layer, so the stacked
+leaves are sliced here, and ``reference_layout`` restacks them (the
+serving artifact is written in the JAX package's layout).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -17,25 +20,99 @@ from repro_torch.models import transformer as T
 
 
 def _unstack(node: Any, i: int) -> Any:
-    """Slice index ``i`` of the leading (group) axis of every leaf."""
+    """Slice index ``i`` of the leading (group) axis of every leaf (numpy
+    arrays or torch tensors)."""
     if isinstance(node, dict):
         return {k: _unstack(v, i) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_unstack(v, i) for v in node]
+    if isinstance(node, torch.Tensor):
+        return node[i]
     return np.asarray(node)[i]
 
 
-def _port_layout(tree: dict, cfg) -> dict:
+def _first_leaf(node: Any) -> Any:
+    while isinstance(node, (dict, list, tuple)):
+        node = next(iter(node.values())) if isinstance(node, dict) \
+            else node[0]
+    return node
+
+
+def _port_layout(tree: dict, cfg=None) -> dict:
     """Reference layout {"decoder": {"groups": {"layers": [...]}, "tail"},
-    ...} -> port layout {"layers": [...], ...} (numpy leaves)."""
-    pattern, n_groups, n_tail = T.group_layout(cfg)
+    ...} -> port layout {"layers": [...], ...}. The group pattern and the
+    group count are read off the stacked tree; ``cfg``, when given, must
+    agree with them."""
     dec = tree["decoder"]
-    layers = [_unstack(dec["groups"]["layers"][i], g)
-              for g in range(n_groups) for i in range(len(pattern))]
-    layers += [dec["tail"][j] for j in range(n_tail)]
+    groups = dec.get("groups", {}).get("layers", [])
+    n_groups = int(_first_leaf(groups).shape[0]) if groups else 0
+    tail = list(dec.get("tail", []))
+    if cfg is not None:
+        pattern, want_groups, n_tail = T.group_layout(cfg)
+        if (len(groups), n_groups, len(tail)) != (
+                len(pattern) if want_groups else 0, want_groups, n_tail):
+            raise ValueError(
+                f"stacked tree has {n_groups} groups of {len(groups)} "
+                f"layers and {len(tail)} tail layers; {cfg.name} has "
+                f"{want_groups} of {len(pattern)} and {n_tail}")
+    layers = [_unstack(groups[i], g)
+              for g in range(n_groups) for i in range(len(groups))]
+    layers += tail
     out = {k: v for k, v in tree.items() if k != "decoder"}
     out["layers"] = layers
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked:
+    """One leaf of the reference layout, stacked along its leading group
+    axis from the port's per-layer tensors ``parts`` (kept apart: their
+    bytes in order are the stacked array's)."""
+    parts: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+
+def _stack(nodes: list) -> Any:
+    """Zip per-layer trees of one structure into one tree of Stacked."""
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {k: _stack([n[k] for n in nodes]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([n[i] for n in nodes]) for i in range(len(first))]
+    return Stacked(parts=tuple(nodes))
+
+
+def reference_layout(tree: dict, cfg) -> dict:
+    """The reverse of ``_port_layout``: port layout {"layers": [...], ...}
+    -> reference layout, the layers of each position of ``cfg``'s group
+    pattern restacked along a leading group axis (``Stacked`` leaves), the
+    tail layers as they are."""
+    pattern, n_groups, n_tail = T.group_layout(cfg)
+    layers = tree["layers"]
+    if len(layers) != n_groups * len(pattern) + n_tail:
+        raise ValueError(f"{len(layers)} layers; {cfg.name} has "
+                         f"{n_groups * len(pattern) + n_tail}")
+    dec: dict = {}
+    if n_groups:
+        dec["groups"] = {"layers": [
+            _stack(layers[i:n_groups * len(pattern):len(pattern)])
+            for i in range(len(pattern))]}
+    if n_tail:
+        dec["tail"] = list(layers[n_groups * len(pattern):])
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["decoder"] = dec
+    return out
+
+
+def _leaf(node: Any, device) -> torch.Tensor:
+    """A leaf on ``device``: a torch tensor in one copy (none when it is
+    there already), a numpy array through a host copy of its own."""
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    return torch.as_tensor(np.array(node), device=device)
 
 
 def _to_torch(node: Any, device) -> Any:
@@ -43,7 +120,7 @@ def _to_torch(node: Any, device) -> Any:
         return {k: _to_torch(v, device) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_to_torch(v, device) for v in node]
-    return torch.as_tensor(np.array(node), device=device)
+    return _leaf(node, device)
 
 
 def params_from_reference(np_params: dict, cfg, device) -> dict:
@@ -67,7 +144,7 @@ def _alias(view: Any, store: Any, device) -> Any:
     if isinstance(view, (list, tuple)):
         stores = store if isinstance(store, list) else [None] * len(view)
         return [_alias(v, s, device) for v, s in zip(view, stores)]
-    return torch.as_tensor(np.array(view), device=device)
+    return _leaf(view, device)
 
 
 def weight_store_from_reference(np_store: dict, np_views: dict, cfg,

@@ -37,19 +37,27 @@ def serve_ladder(args) -> dict:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = MD.resolve_device(args.device)
     params = MD.init_params(cfg, seed=args.seed, device=device)
+    cache_bits = None
+    if args.cache_bits:
+        cache_bits = "auto" if args.cache_bits == "auto" \
+            else int(args.cache_bits)
     engine = ServeEngine(cfg, params, ladder_bits=ladder_bits,
                          max_batch=args.batch,
                          max_len=args.prompt_len + args.gen,
+                         allocation=args.allocation,
                          backend=args.backend,
-                         cache_bits=(int(args.cache_bits) if args.cache_bits
-                                     else None),
+                         cache_bits=cache_bits,
                          device=device)
     del params
     engine.warmup()
     total_macs = sum(m.macs for m in engine.profile)
     for op in engine.ladder:
-        print(f"[serve] rung[{op.bits}b] "
-              f"{op.plan.describe(total_macs=total_macs)}")
+        if op.lw is not None:
+            print(f"[serve] {op.describe()}")
+        else:
+            # same unit as the layerwise line: total network Gbit-flips
+            print(f"[serve] rung[{op.bits}b] "
+                  f"{op.plan.describe(total_macs=total_macs)}")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=i,
@@ -64,6 +72,7 @@ def serve_ladder(args) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
+    engine.assert_no_recompile()
 
     n_tok = sum(len(r.tokens) for r in responses)
     summary = {
@@ -93,14 +102,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--power_ladder", default="2,4,6",
                     help="comma-separated bit budgets of the ladder rungs")
+    ap.add_argument("--allocation", default="uniform",
+                    choices=["uniform", "layerwise"],
+                    help="ladder rung allocation: one global (b~x, R) per "
+                         "rung, or a per-module PolicyTree spending the "
+                         "same total power layer-wise "
+                         "(planner.allocate_layerwise)")
     ap.add_argument("--backend", default="packed",
                     choices=["ref", "fused", "packed"],
                     help="serving-matmul backend: ref (plain PyTorch "
                          "integer dataflow), fused (bit-plane kernel), "
                          "packed (packed-plane kernel)")
     ap.add_argument("--cache_bits", default="",
-                    help="quantize the decode-time KV cache at this many "
-                         "bits in [2, 7]; empty = fp cache")
+                    help="quantize the decode-time KV cache: an int in "
+                         "[2, 7] pins every rung's cache width; 'auto' lets "
+                         "each rung pick (uniform rungs cache at their own "
+                         "b~x, layerwise rungs let the allocator trade "
+                         "cache bits against weight bits under one "
+                         "budget); empty = fp cache")
     ap.add_argument("--budgets", default="",
                     help="per-request power budgets (bits), cycled over the "
                          "request stream; defaults to the ladder itself")

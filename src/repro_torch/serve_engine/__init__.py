@@ -1,7 +1,9 @@
 """Power-budget-aware multi-operating-point serving (port of
 ``repro.serve_engine``): the rung ladder, the continuous-batching
-scheduler and ``ServeEngine``. The artifact files, the encoder engine and
-the fleet are not ported yet."""
+scheduler, ``ServeEngine`` and the v1 serving artifact. The encoder
+engine and the fleet are not ported yet."""
+from repro_torch.serve_engine.artifact import (ArtifactError, load_artifact,
+                                               write_artifact)
 from repro_torch.serve_engine.engine import Lane, ServeEngine
 from repro_torch.serve_engine.ladder import (OperatingPoint, build_ladder,
                                              select_rung)
@@ -9,4 +11,5 @@ from repro_torch.serve_engine.scheduler import (Request, Response,
                                                 Scheduler)
 
 __all__ = ["ServeEngine", "Lane", "OperatingPoint", "build_ladder",
-           "select_rung", "Request", "Response", "Scheduler"]
+           "select_rung", "Request", "Response", "Scheduler",
+           "ArtifactError", "load_artifact", "write_artifact"]

@@ -3,10 +3,24 @@ rung chosen per request (port of ``repro.serve_engine.engine``).
 
 The ladder is quantized once into one ``WeightStore``; every rung is a view
 whose per-rung values (``plane_shift``, activation and cache level counts)
-are device tensors read by the kernels. So one eager step function serves
-every rung, switching rungs is picking another view, and the decode loop
-makes no host round trip: sampled tokens stay on the device until a
-response is finalized.
+are device tensors read by the kernels. So one step function serves every
+rung, switching rungs is picking another view, and the decode loop makes
+no host round trip: sampled tokens stay on the device until a response is
+finalized.
+
+The compiled decode step. The JAX package traces ``decode_step`` once per
+engine (``jax.jit``) and proves after traffic that nothing retraced. The
+port's counterpart is a CUDA graph: ``warmup()`` captures, for every rung
+and every decode-state *slot*, one graph of the whole step (the model, the
+copy of the new cache lengths and position back into the slot, and the
+greedy token written into the slot's token buffer), and every decode step
+of ``generate``, ``prefill_wave`` and ``decode_stream`` on the card is a
+replay of one of them. A graph replays fixed pointers, so a slot owns its
+decode state and token buffer for the engine's life and starting a wave
+zeroes them in place. Nothing is captured after warmup
+(``assert_no_recompile``); a step whose graph warmup did not capture
+raises, it never runs eagerly on the card. The CPU has no graphs: a CPU
+engine runs the same slot step eagerly.
 
 Lanes (one per in-flight wave) advance round-robin one decode step each, so
 different rungs interleave between steps of one process.
@@ -14,7 +28,8 @@ different rungs interleave between steps of one process.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+import functools
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,61 +45,108 @@ from repro_torch.serve_engine.ladder import build_ladder, select_rung
 from repro_torch.serve_engine.scheduler import (Request, Response, Scheduler,
                                                 Wave)
 
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class Slot:
+    """A decode state with fixed buffers: the caches and position a graph
+    reads and writes in place, and the (max_batch, 1) int64 token buffer
+    it reads its input from and writes its greedy token into."""
+    index: int
+    state: MD.DecodeState
+    tok: Tensor
+    busy: bool = False
+
 
 @dataclasses.dataclass
 class Lane:
-    """One in-flight wave: its decode state and the tokens grown so far
-    (device tensors)."""
+    """One in-flight wave: the slot holding its decode state and the
+    tokens grown so far (device tensors). A lane holds its slot until the
+    engine finalizes it."""
     wave: Wave
-    state: Any
-    tok: Any                 # (max_batch, 1) int64 — last sampled token
+    slot: Slot
     generated: list          # [(max_batch, 1), ...] greedy tokens
     steps_left: int
 
 
 class ServeEngine:
-    """Multi-operating-point PANN serving runtime (see module docstring),
-    uniform allocation (one (b~x, R) per rung; the layerwise allocation is
-    not ported yet).
+    """Multi-operating-point PANN serving runtime (see module docstring).
 
     Pass ``params`` (fp32, quantized here; the engine takes them over and
     drops each fp weight once it is quantized) or a prebuilt
-    ``weight_store``. ``device`` defaults to 'cuda' and raises without a
-    card; the CPU runs only when asked for (the plain kernel versions)."""
+    ``weight_store``. ``allocation`` is 'uniform' (one (b~x, R) per rung)
+    or 'layerwise' (a per-module PolicyTree per rung at the same total
+    power). ``cache_bits`` is None (fp KV cache), an int in [2, 7] (every
+    rung's cache width), or 'auto' (each rung picks: a uniform rung caches
+    at its own b~x, a layerwise rung lets the allocator trade cache bits
+    against weight bits under one budget). ``slots`` is the number of
+    decode states, hence of lanes in flight, that ``warmup`` captures
+    graphs for: the default covers ``generate``'s default ``max_lanes``,
+    and ``decode_stream`` uses one. ``device`` defaults to 'cuda' and
+    raises without a card; the CPU runs only when asked for (the plain
+    kernel versions)."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
                  max_batch: int = 4, max_len: int = 64,
                  mse_dim: Optional[float] = None,
+                 allocation: str = "uniform",
                  backend: str = "packed",
-                 cache_bits: Optional[int] = None,
+                 cache_bits: Any = None,
                  weight_store: Optional[serving.WeightStore] = None,
+                 slots: int = 2,
                  device="cuda"):
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "
                              "weight_store (serve a prebuilt store)")
-        if cache_bits is not None:
-            if cache_bits == "auto":
-                raise ValueError("cache_bits='auto' is not ported yet")
+        # the cache STRUCTURE is fixed on the config (7 planes for 'auto');
+        # per-rung widths ride in the views as data (k_nlvl / v_nlvl), so
+        # one step function, one graph per slot, serves the whole ladder
+        if cache_bits is not None and cache_bits != "auto":
             cache_bits = int(cache_bits)
             if not 2 <= cache_bits <= 7:
                 raise ValueError(f"cache_bits must be in [2, 7], got "
                                  f"{cache_bits}")
-            cfg = dataclasses.replace(cfg, cache_bits=cache_bits)
         self.cache_bits = cache_bits
+        if cache_bits is not None:
+            cfg = dataclasses.replace(
+                cfg, cache_bits=7 if cache_bits == "auto" else cache_bits)
         self.backend = dispatch.parse_backend(backend)
         cfg = dataclasses.replace(cfg, kernel_backend=self.backend)
         self.cfg = cfg
         self.max_batch = int(max_batch)
         self.max_len = int(max_len)
-        # the per-module MAC profile: the per-module energy breakdown on
-        # every response
+        self.allocation = allocation
+        # the per-module MAC profile: feeds the layerwise allocator and the
+        # per-module energy breakdown on every response
         self.profile = costs.module_cost_profile(cfg)
+        # "auto" + layerwise: the allocator sees the cache roles as
+        # pseudo-modules and spends ONE budget across weights and cache
+        alloc_profile = self.profile
+        if cache_bits == "auto" and allocation == "layerwise":
+            alloc_profile = self.profile + costs.cache_cost_modules(cfg)
         self.ladder = build_ladder(ladder_bits,
-                                   d=float(mse_dim or cfg.d_model))
+                                   d=float(mse_dim or cfg.d_model),
+                                   allocation=allocation,
+                                   profile=alloc_profile)
         self.rungs = {op.bits: op for op in self.ladder}
-        rung_specs = {op.bits: (op.r, op.b_x_tilde) for op in self.ladder}
+        # per-rung cache width: an int pins the rung's k_nlvl / v_nlvl;
+        # None defers to the rung's PolicyTree cache-role overrides
+        self._cache_bits_by_rung: dict[int, Optional[int]] = {}
+        if cache_bits is not None:
+            for op in self.ladder:
+                if cache_bits != "auto":
+                    self._cache_bits_by_rung[op.bits] = cache_bits
+                elif op.tree is not None and pol.tree_cache_bits(op.tree):
+                    self._cache_bits_by_rung[op.bits] = None
+                else:
+                    self._cache_bits_by_rung[op.bits] = min(
+                        int(op.b_x_tilde), 7)
+        rung_specs = {op.bits: (op.tree if op.tree is not None
+                                else (op.r, op.b_x_tilde))
+                      for op in self.ladder}
         if weight_store is not None:
             missing = [b for b in rung_specs if b not in weight_store.views]
             if missing:
@@ -96,7 +158,7 @@ class ServeEngine:
         else:
             spec = serving.ServingQuantSpec(
                 pack_planes=self.backend == "packed",
-                cache_bits=cache_bits)
+                cache_bits=self._cache_bits_by_rung or None)
             ws = serving.build_weight_store(params, cfg, rung_specs, spec)
             self.weight_store = ws.store
             self.variants = ws.views
@@ -109,41 +171,149 @@ class ServeEngine:
         self.rung_switches = 0
         self._last_step_bits: Optional[int] = None
         self._macs_by_ctx: dict[int, Any] = {}
+        # decode steps replay CUDA graphs on the card; the CPU runs them
+        self.graphed = self.device.type == "cuda"
+        self._slots = [self._new_slot(i) for i in range(int(slots))]
+        self._steps: dict[tuple[int, int], Callable[[], Tensor]] = {}
+        self._pool = None
+        self._stream = None
+        self.graphs_captured = 0
+        self.compilations_after_warmup: Optional[int] = None
+
+    # -- the compiled decode step -------------------------------------------
+
+    def _new_slot(self, index: int) -> Slot:
+        state = MD.init_decode_state(self.variants[self.ladder[0].bits],
+                                     self.cfg, self.max_batch, self.max_len)
+        tok = torch.zeros((self.max_batch, 1), dtype=torch.int64,
+                          device=self.device)
+        return Slot(index=index, state=state, tok=tok)
+
+    @staticmethod
+    def _reset(slot: Slot) -> None:
+        """Zero the slot in place: it then equals a fresh
+        ``init_decode_state`` (and a zero token buffer) bit for bit."""
+        for cache in slot.state.caches:
+            for t in cache:
+                t.zero_()
+        slot.state.position.zero_()
+        slot.tok.zero_()
+
+    def _slot_step(self, bits: int, slot: Slot) -> Tensor:
+        """One decode step of ``slot`` at rung ``bits``, in place: the
+        model (``MD.decode_step``, which writes the new token's K/V into
+        the slot's caches), the new cache lengths and position copied back
+        into the slot, and the greedy token over the first ``vocab_size``
+        logits written into the slot's token buffer. Returns the logits.
+        This is the work one graph replays."""
+        logits, new = MD.decode_step(self.variants[bits], self.cfg,
+                                     slot.state, slot.tok)
+        for cache, out in zip(slot.state.caches, new.caches):
+            cache.length.copy_(out.length)
+        slot.state.position.copy_(new.position)
+        slot.tok.copy_(self._greedy(logits))
+        return logits
+
+    def _prepare_capture(self) -> None:
+        """Run one eager step per rung on the capture stream before any
+        capture. It builds the kernels and resolves their entry points,
+        fills the attention kernel's cluster-occupancy cache, and creates
+        the capture stream's zeroed split-K scratch of the decode kernels
+        (``kernels.pann_matmul.decode_scratch``, one pair per stream) at
+        its largest size, so that no capture allocates it from the graph's
+        pool, where a memset node would zero it on every replay. The
+        kernels leave that scratch zero after each launch, which is what
+        makes replays that share it safe."""
+        self._stream = torch.cuda.Stream(self.device)
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        slot = self._slots[0]
+        with torch.cuda.stream(self._stream):
+            for op in self.ladder:
+                self._reset(slot)
+                self._slot_step(op.bits, slot)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        torch.cuda.synchronize(self.device)
+
+    def _capture(self, bits: int, slot: Slot) -> Callable[[], Tensor]:
+        """The CUDA graph of ``slot``'s step at rung ``bits``, captured on
+        the engine's capture stream into the pool all its graphs share
+        (they replay one after another on one stream); returns its replay.
+        A replay's logits are valid until the next replay of any of the
+        engine's graphs."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            logits = self._slot_step(bits, slot)
+        self.graphs_captured += 1
+
+        def replay() -> Tensor:
+            graph.replay()
+            return logits
+
+        return replay
+
+    def warmup(self) -> None:
+        """Capture the decode step of every (rung, slot) before traffic;
+        the CPU has nothing to capture. A second call captures nothing."""
+        if self.compilations_after_warmup is not None:
+            return
+        if self.graphed:
+            self._prepare_capture()
+            for slot in self._slots:
+                for op in self.ladder:
+                    self._steps[(op.bits, slot.index)] = self._capture(
+                        op.bits, slot)
+        self.compilations_after_warmup = self.graphs_captured
+
+    def assert_no_recompile(self) -> None:
+        """After serving: no graph was captured past warmup."""
+        if self.compilations_after_warmup is None:
+            raise RuntimeError("call warmup() first")
+        if self.graphs_captured > self.compilations_after_warmup:
+            raise AssertionError(
+                f"decode step captured while serving: "
+                f"{self.compilations_after_warmup} -> {self.graphs_captured}"
+                " graphs")
 
     # -- decode plumbing ----------------------------------------------------
 
-    def warmup(self) -> None:
-        """One decode step per rung before traffic: builds the kernels and
-        touches every rung's view."""
-        state = self._init_state(self.ladder[0].bits)
-        tok = torch.zeros((self.max_batch, 1), dtype=torch.int64,
-                          device=self.device)
-        for op in self.ladder:
-            MD.decode_step(self.variants[op.bits], self.cfg, state, tok)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _acquire(self) -> Slot:
+        """A free slot, zeroed for a new wave."""
+        for slot in self._slots:
+            if not slot.busy:
+                slot.busy = True
+                self._reset(slot)
+                return slot
+        raise ValueError(
+            f"all {len(self._slots)} decode-state slots are in flight; "
+            f"warmup() captures graphs for ServeEngine(slots=...) slots")
 
-    def _init_state(self, bits: int):
-        return MD.init_decode_state(self.variants[bits], self.cfg,
-                                    self.max_batch, self.max_len)
-
-    def _run_step(self, bits: int, state, tok):
+    def _run_step(self, bits: int, slot: Slot) -> Tensor:
+        """One decode step of ``slot`` at rung ``bits``: a replay on the
+        card, the eager slot step on the CPU. Returns the logits."""
+        if self.graphed:
+            step = self._steps.get((bits, slot.index))
+            if step is None:
+                raise ValueError(
+                    f"no decode graph for rung {bits}, slot {slot.index}: "
+                    "call warmup() before serving on the card")
+        else:
+            step = functools.partial(self._slot_step, bits, slot)
         if self._last_step_bits is not None and bits != self._last_step_bits:
             self.rung_switches += 1
         self._last_step_bits = bits
         self.steps_by_rung[bits] += 1
-        return MD.decode_step(self.variants[bits], self.cfg, state, tok)
+        return step()
 
     def _greedy(self, logits):
         return torch.argmax(logits[:, :, :self.cfg.vocab_size], dim=-1)
 
-    def _teacher_force(self, bits: int, state, prompts):
-        """Feed a (max_batch, L) prefix token by token; return the logits of
-        the final position and the threaded state."""
-        logits = None
+    def _teacher_force(self, bits: int, slot: Slot, prompts) -> None:
+        """Feed a (max_batch, L) prefix token by token through the slot;
+        its token buffer then holds the greedy token after the prefix."""
         for i in range(prompts.shape[1]):
-            logits, state = self._run_step(bits, state, prompts[:, i:i + 1])
-        return logits, state
+            slot.tok.copy_(prompts[:, i:i + 1])
+            self._run_step(bits, slot)
 
     def _pad_rows(self, rows: np.ndarray) -> np.ndarray:
         """Pad the request dim to max_batch (repeating row 0)."""
@@ -158,45 +328,49 @@ class ServeEngine:
                                device=self.device)
 
     def prefill_wave(self, wave: Wave) -> Lane:
-        """Teacher-force a wave's prompts and return its lane (the first
-        generated token included)."""
+        """Teacher-force a wave's prompts in a free slot and return its
+        lane (the first generated token included)."""
         reqs = wave.requests
         gen_max = max(r.max_new_tokens for r in reqs)
         if reqs[0].prompt_len + gen_max > self.max_len:
             raise ValueError(
                 f"prompt_len {reqs[0].prompt_len} + gen {gen_max} exceeds "
                 f"engine max_len {self.max_len}")
-        state = self._init_state(wave.rung.bits)
-        logits, state = self._teacher_force(
-            wave.rung.bits, state,
-            self._rows_tensor(np.stack([r.prompt for r in reqs])))
-        tok = self._greedy(logits)
-        return Lane(wave=wave, state=state, tok=tok, generated=[tok],
+        rows = self._rows_tensor(np.stack([r.prompt for r in reqs]))
+        slot = self._acquire()
+        try:
+            self._teacher_force(wave.rung.bits, slot, rows)
+        except BaseException:
+            slot.busy = False
+            raise
+        return Lane(wave=wave, slot=slot, generated=[slot.tok.clone()],
                     steps_left=gen_max - 1)
 
     def step_lane(self, lane: Lane) -> bool:
         """Advance a lane one decode step; True when the lane is finished."""
         if lane.steps_left > 0:
-            logits, lane.state = self._run_step(
-                lane.wave.rung.bits, lane.state, lane.tok)
-            lane.tok = self._greedy(logits)
-            lane.generated.append(lane.tok)
+            self._run_step(lane.wave.rung.bits, lane.slot)
+            lane.generated.append(lane.slot.tok.clone())
             lane.steps_left -= 1
         return lane.steps_left <= 0
 
     # -- energy accounting --------------------------------------------------
 
     def _rung_tree(self, rung) -> pol.PolicyTree:
-        """The rung's PolicyTree — the uniform lift of its (b~x, R) point,
-        plus explicit cache-role overrides at the cache width when the KV
-        cache is quantized."""
-        tree = pol.uniform_policy(pol.ModuleQuant(
-            mode="pann", r=rung.r, b_x_tilde=rung.b_x_tilde))
-        if self.cache_bits is None:
+        """The rung's PolicyTree: its layerwise tree, or the uniform lift
+        of its (b~x, R) point; with a pinned cache width, plus explicit
+        cache-role overrides at that width."""
+        if rung.tree is not None:
+            tree = rung.tree
+        else:
+            tree = pol.uniform_policy(pol.ModuleQuant(
+                mode="pann", r=rung.r, b_x_tilde=rung.b_x_tilde))
+        cb = self._cache_bits_by_rung.get(rung.bits)
+        if cb is None:          # cache off, or policy-driven (tree has them)
             return tree
         ov = dict(tree.overrides)
         for role in pol.CACHE_PATHS:
-            ov[role] = pol.cache_module_quant(self.cache_bits)
+            ov[role] = pol.cache_module_quant(cb)
         return pol.policy_tree(tree.default, ov)
 
     def ledger_for(self, rung, ctx: int) -> pw.EnergyLedger:
@@ -206,7 +380,7 @@ class ServeEngine:
                 ctx, costs.macs_per_token(self.cfg, context_len=ctx))
         total, breakdown = pol.tree_power_per_token(
             self.profile, self._rung_tree(rung), act_macs=macs.act_macs)
-        if self.cache_bits is None:
+        if rung.tree is None and self.cache_bits is None:
             # uniform rung, fp cache: the headline number of the JAX
             # package, bit for bit (same formula; the breakdown itemizes it)
             total = pw.pann_token_bitflips(macs, rung.r, rung.b_x_tilde)
@@ -219,6 +393,7 @@ class ServeEngine:
 
     def _finalize(self, lane: Lane) -> list[Response]:
         gen = torch.cat(lane.generated, dim=1).cpu().numpy()
+        lane.slot.busy = False
         rung = lane.wave.rung
         out = []
         for i, req in enumerate(lane.wave.requests):
@@ -248,6 +423,11 @@ class ServeEngine:
         """Serve a batch of mixed-budget requests to completion: lanes
         advance round-robin one decode step at a time, and a finished lane
         frees a slot for the scheduler's next wave."""
+        if max_lanes > len(self._slots):
+            raise ValueError(
+                f"max_lanes={max_lanes} needs {max_lanes} decode-state "
+                f"slots; warmup() captures graphs for {len(self._slots)} "
+                "(ServeEngine(slots=...))")
         resolved = []
         for r in requests:
             if r.prompt_len + r.max_new_tokens > self.max_len:
@@ -261,16 +441,20 @@ class ServeEngine:
             self.scheduler.submit(r, rung=rung)
         lanes: list[Lane] = []
         responses: list[Response] = []
-        while lanes or self.scheduler.pending():
-            while len(lanes) < max_lanes:
-                wave = self.scheduler.next_wave()
-                if wave is None:
-                    break
-                lanes.append(self.prefill_wave(wave))
-            for lane in list(lanes):
-                if self.step_lane(lane):
-                    responses.extend(self._finalize(lane))
-                    lanes.remove(lane)
+        try:
+            while lanes or self.scheduler.pending():
+                while len(lanes) < max_lanes:
+                    wave = self.scheduler.next_wave()
+                    if wave is None:
+                        break
+                    lanes.append(self.prefill_wave(wave))
+                for lane in list(lanes):
+                    if self.step_lane(lane):
+                        responses.extend(self._finalize(lane))
+                        lanes.remove(lane)
+        finally:
+            for lane in lanes:
+                lane.slot.busy = False
         return sorted(responses, key=lambda r: r.uid)
 
     def decode_stream(self, prompt: np.ndarray,
@@ -291,13 +475,17 @@ class ServeEngine:
             if n <= 0:
                 segments.append({"rung_bits": bits, "tokens": []})
                 continue
-            state = self._init_state(bits)
-            logits, state = self._teacher_force(
-                bits, state, self._rows_tensor(np.asarray(prefix)[None, :]))
-            toks = [self._greedy(logits)]
-            for _ in range(n - 1):
-                logits, state = self._run_step(bits, state, toks[-1])
-                toks.append(self._greedy(logits))
+            slot = self._acquire()
+            try:
+                self._teacher_force(
+                    bits, slot,
+                    self._rows_tensor(np.asarray(prefix)[None, :]))
+                toks = [slot.tok.clone()]
+                for _ in range(n - 1):
+                    self._run_step(bits, slot)
+                    toks.append(slot.tok.clone())
+            finally:
+                slot.busy = False
             seg = [int(t) for t in torch.cat(toks, dim=1)[0].cpu()]
             prefix.extend(seg)
             segments.append({"rung_bits": bits, "tokens": seg})
@@ -308,12 +496,10 @@ class ServeEngine:
     def describe(self) -> dict:
         total_macs = sum(m.macs for m in self.profile)
         return {
-            "allocation": "uniform",
+            "allocation": self.allocation,
             "backend": self.backend,
             "cache_bits": self.cache_bits,
-            "cache_bits_by_rung": (None if self.cache_bits is None else
-                                   {op.bits: self.cache_bits
-                                    for op in self.ladder}),
+            "cache_bits_by_rung": dict(self._cache_bits_by_rung) or None,
             "device": str(self.device),
             "ladder": [{"bits": op.bits, "b_x_tilde": op.b_x_tilde,
                         "r": round(op.r, 3),
@@ -323,9 +509,10 @@ class ServeEngine:
                        for op in self.ladder],
             "max_batch": self.max_batch,
             "max_len": self.max_len,
+            "compilations_after_warmup": self.compilations_after_warmup,
             "steps_by_rung": dict(self.steps_by_rung),
             "rung_switches": self.rung_switches,
         }
 
 
-__all__ = ["Lane", "ServeEngine", "Request", "Response"]
+__all__ = ["Lane", "ServeEngine", "Slot", "Request", "Response"]

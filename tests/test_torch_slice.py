@@ -160,8 +160,7 @@ def test_engine_refuses_cuda_less_default_and_unported_options():
                      ladder_bits=LADDER)
     with pytest.raises(RuntimeError, match="cuda"):
         TMD.init_params(cfg)
-    for bad in (dict(cache_bits="auto"),
-                dict(backend="packed:force"), dict(cache_bits=8)):
+    for bad in (dict(backend="packed:force"), dict(cache_bits=8)):
         with pytest.raises(ValueError):
             TServeEngine(cfg, weight_store=reference_store()[3],
                          ladder_bits=LADDER, device="cpu", **bad)
