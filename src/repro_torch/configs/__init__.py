@@ -1,19 +1,24 @@
 """Config registry of the port: ``get_config(arch_id)`` and ``reduced``.
 
-Port of ``repro.configs``. Only llama3-8b is registered so far; the other
-nine architectures of the JAX package come with their model families.
+Port of ``repro.configs``. The dense decoders are registered: llama3-8b,
+qwen1.5-4b, stablelm-12b and gemma2-9b. The other six architectures of the
+JAX package (MoE, hybrid, SSM, encoder-decoder, vision) come with their
+model families.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import gemma2_9b, llama3_8b, qwen1_5_4b, stablelm_12b
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ConvSpec,
                                       ModelConfig, MoEConfig, QuantConfig,
                                       ShapeConfig)
 
 _REGISTRY = {
+    "qwen1.5-4b": qwen1_5_4b.config,
+    "stablelm-12b": stablelm_12b.config,
+    "gemma2-9b": gemma2_9b.config,
     "llama3-8b": llama3_8b.config,
 }
 

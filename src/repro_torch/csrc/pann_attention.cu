@@ -20,8 +20,10 @@
 //     with cp.async at once; K rows go straight into registers (a 32-bit
 //     word of a plane row a lane); right after the first K rows are
 //     requested every live V plane row of the chunk is copied into shared
-//     memory with cp.async (16-byte rows at hd = 128), so V's bytes are in
-//     flight while QK^T runs: one DRAM round trip, not two. Dead high
+//     memory with cp.async (16-byte rows at hd = 128; at hd = 160 a head's
+//     20-byte row sits at a 4-byte-aligned offset, so it goes as five 4-byte
+//     copies into a 20-byte shared row), so V's bytes are in flight while
+//     QK^T runs: one DRAM round trip, not two. Dead high
 //     planes (p >= pact) are never loaded; at pact <= 4 the code is
 //     compiled for four planes.
 //   * Both products run on the int8 tensor cores (mma.sync m16n8k32, u8,
@@ -164,12 +166,17 @@ struct Args {
 };
 
 // Layout of a plane row in shared memory and of a thread's K word: WPR
-// 32-bit words a row (hd = 16 pads its 2-byte rows to one word).
+// 32-bit words a row (hd = 16 pads its 2-byte rows to one word). A head's
+// row starts at a multiple of D8 bytes in global memory, so a cp.async
+// piece is the largest of 16, 8 and 4 bytes that divides D8 (hd = 160:
+// five 4-byte pieces of a 20-byte row).
 template <int D8>
 struct Rows {
+  static_assert(D8 < 4 || D8 % 4 == 0, "hd must be a multiple of 32 above 16");
   static constexpr int kWPR = D8 >= 4 ? D8 / 4 : 1;
   static constexpr int kRS = 4 * kWPR;                // bytes a shared row
-  static constexpr int kCopy = D8 >= 16 ? 16 : D8;    // bytes a cp.async
+  static constexpr int kCopy =                        // bytes a cp.async
+      D8 % 16 == 0 ? 16 : D8 % 8 == 0 ? 8 : D8 >= 4 ? 4 : D8;
 };
 
 // c += A * B, one m16n8k32 product of unsigned bytes with int32 sums (the
@@ -203,7 +210,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int HD = D8 * 8;
   constexpr int WPR = Rows<D8>::kWPR;
   constexpr int RS = Rows<D8>::kRS;
-  constexpr int kHalves = WPR > 4 ? WPR / 4 : 1;  // K words a lane and row
+  constexpr int kHalves = (WPR + 3) / 4;  // K words a lane and row (WPR = 5:
+                                          // the second holds word 4 only)
   constexpr int kSteps = 4;  // QK^T steps of 8 rows a warp loads at once
   cg::cluster_group cluster = cg::this_cluster();
   // values the same in every lane of a warp are passed through a shuffle
@@ -273,8 +281,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       uint8_t* dst0 = vsm + ((size_t)p * cp + (v0 - c0)) * RS;
       for (int i = tid; i < n; i += kThreads) {
         const int s = i / kPieces, piece = i - s * kPieces;
-        const uint8_t* src = src0 + (size_t)(v0 + s) * rowstride + piece * 16;
-        uint8_t* dst = dst0 + s * RS + piece * 16;
+        const uint8_t* src =
+            src0 + (size_t)(v0 + s) * rowstride + piece * kCopy;
+        uint8_t* dst = dst0 + s * RS + piece * kCopy;
         if constexpr (D8 >= 4) {
           cp_async(dst, src, kCopy);
         } else {
@@ -530,9 +539,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   // k' of rows 4 kq + m' and 16 + 4 kq + m'; a 4 x 4 byte transpose across
   // the lanes m' (two shuffles) leaves it byte j0 + 4 k' + m' of rows
   // 4 kq .. 4 kq + 3 (and 16 + ...), the B layout, and the bit transpose
-  // turns the planes into the codes of bit i in word i.
+  // turns the planes into the codes of bit i in word i. At hd = 160 the
+  // three octets (the last one half empty) take two warps each and warps
+  // 6 and 7 stay idle.
   {
-    constexpr int n_oct = D8 > 8 ? D8 / 8 : 1;
+    constexpr int n_oct = (D8 + 7) / 8;
     constexpr int wpo = kWarps / n_oct;  // warps a byte octet
     const int oct = warp % n_oct, part_w = warp / n_oct;
     const int n_l = lane >> 2, kq = lane & 3, kp = n_l >> 2, mp = n_l & 3;
@@ -543,7 +554,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e2 = 0; e2 < 4; ++e2) acc[i][e2] = 0;
     const int lv0 = v0 - c0, lv1 = nvalid > 0 ? v1 - c0 : 0;
-    const bool has_rows = (lv0 / 32 + part_w) * 32 < lv1;
+    // a warp past an octet's wpo warps takes no step
+    const int r_first = part_w < wpo ? (lv0 / 32 + part_w) * 32 : lv1;
+    const bool has_rows = r_first < lv1;
     auto pv_pass = [&](auto np) {
       constexpr int NP = decltype(np)::value;
       // codes (word i) of byte j0 + n_l at rows r0 + 4 kq .. + 3
@@ -567,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
         pann::transpose_bits(code);
       };
-      for (int r0 = (lv0 / 32 + part_w) * 32; r0 < lv1; r0 += 32 * wpo) {
+      for (int r0 = r_first; r0 < lv1; r0 += 32 * wpo) {
         uint32_t b0[8], b1[8];  // rows r0 + 4 kq .., r0 + 16 + 4 kq ..
         codes_at(r0, b0);
         codes_at(r0 + 16, b1);
@@ -663,6 +676,7 @@ int dispatch(const Args& a, int B, int C, int HD, cudaStream_t st,
     case 4: return launch<4>(a, B, C, st, active);
     case 8: return launch<8>(a, B, C, st, active);
     case 16: return launch<16>(a, B, C, st, active);
+    case 20: return launch<20>(a, B, C, st, active);
     case 32: return launch<32>(a, B, C, st, active);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -690,9 +704,8 @@ bool valid_shape(int P, int S, int G, int C) {
 }  // namespace
 
 // q_z, q_scale (f32 scalars), k_pact, v_pact (f32 scalars, or null = all
-// planes) and pos (int32) are device pointers. C is the cluster size (1, 2,
-// 4 or 8). The wrapper (repro_torch/kernels/pann_attention.py) checks
-// shapes, dtypes, contiguity, alignment, hd in {16, 32, 64, 128, 256},
+// planes) and pos (int32) are device pointers. C is the cluster size (1 to 8). The wrapper (repro_torch/kernels/pann_attention.py) checks
+// shapes, dtypes, contiguity, alignment, hd in {16, 32, 64, 128, 160, 256},
 // G <= 8 and the shared-memory bound on S; a refused launch returns its
 // CUDA error and the wrapper raises.
 extern "C" int decode_attention_launch(

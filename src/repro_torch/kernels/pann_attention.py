@@ -36,16 +36,16 @@ launches = 0     # kernel launches since the caller last reset it
 decode_attention_plain = _ref.decode_attention_ref
 
 # A block keeps its chunk's V rows for every cache plane (hd/8 bytes a row,
-# padded to 4), its v_s / v_z rows, its (G, chunk) fp32 scores and two bytes
-# of probability code in dynamic shared memory: the H100's 227 KB a block
-# less the kernel's static arrays and a margin. Chunks are padded to whole
-# 32-row groups.
+# padded to 4: 20 at hd = 160), its v_s / v_z rows, its (G, chunk) fp32
+# scores and two bytes of probability code in dynamic shared memory: the
+# H100's 227 KB a block less the kernel's static arrays and a margin.
+# Chunks are padded to whole 32-row groups.
 DYN_SMEM_BYTES = 232448 - 12 * 1024
 CLUSTERS = tuple(range(1, 9))
 MIN_CHUNK = 64          # positions a block is worth a cluster rank for
 ROW_PAD = 32
 MAX_GROUP = 8
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 
 
 def _chunk_pad(s: int, c: int) -> int:

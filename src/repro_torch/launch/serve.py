@@ -92,7 +92,8 @@ def serve_ladder(args) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=list(configs.ARCH_NAMES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = the "

@@ -1,6 +1,7 @@
 """Shared layers of the serving path (port of ``repro.models.layers``):
-norms, the embedding gather, logit soft-capping, and the projection choke
-point that routes every quantized weight through ``kernels.dispatch``.
+norms, the embedding gather and the tied head, logit soft-capping, and the
+projection choke point that routes every quantized weight through
+``kernels.dispatch``.
 
 Parameters are plain dicts of tensors, laid out as in the JAX package so
 the two can be compared leaf for leaf.
@@ -22,15 +23,28 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return (y * (1.0 + scale)).to(x.dtype)
 
 
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor,
+              eps: float = 1e-5) -> Tensor:
+    """The reference's op order: fp32 mean, biased variance,
+    rsqrt(var + eps), then y * scale + bias."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def apply_norm(x: Tensor, params: dict, kind: str) -> Tensor:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet (rmsnorm only)")
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
     return rmsnorm(x, params["scale"])
 
 
 def init_norm(d: int, kind: str, device) -> dict:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet (rmsnorm only)")
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((d,), dtype=torch.float32,
+                                    device=device)}
     return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
@@ -89,3 +103,17 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, device) -> dict:
 
 def embed(tokens: Tensor, p: dict, dtype) -> Tensor:
     return p["table"].to(dtype)[tokens]
+
+
+def unembed(x: Tensor, p: dict, qc) -> Tensor:
+    """The tied LM head: x @ table.T. The reference routes it through
+    ``qlinear`` at ``qc``'s mode, which the serve engine leaves at "none",
+    so it is a float matmul over the embedding table (kept in fp32 by the
+    weight store); the fake-quant modes come with ROADMAP A3."""
+    mode = getattr(qc, "mode", None)
+    if mode != "none":
+        raise ValueError(
+            f"tied lm_head at quant mode {mode!r}: only mode 'none' (the "
+            "float matmul) is ported; the ruq / ruq_unsigned / pann "
+            "projections are ROADMAP A3")
+    return x @ p["table"].t().to(x.dtype)

@@ -2,8 +2,9 @@
 ``repro.models.model``): parameter init, decode state and ``decode_step``.
 
 Parameters are a plain dict: {"embed": {"table"}, "layers": [one dict per
-layer], "final_norm": {"scale"}, "lm_head": {"w"}}; a weight store's views
-have the same structure with quantized projection leaves.
+layer], "final_norm": {"scale"[, "bias"]}, "lm_head": {"w"}}; a config with
+tied embeddings has no "lm_head" and unembeds through the table. A weight
+store's views have the same structure with quantized projection leaves.
 """
 from __future__ import annotations
 
@@ -46,16 +47,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    if cfg.tie_embeddings:
-        raise ValueError("tied embeddings are not ported yet")
-    return {
+    params = {
         "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dev),
         "layers": [T.init_layer(gen, cfg, spec, dev)
                    for spec in layer_specs(cfg)],
         "final_norm": L.init_norm(cfg.d_model, cfg.norm, dev),
-        "lm_head": L.init_linear(gen, cfg.d_model, cfg.padded_vocab, dev,
-                                 scale=0.02),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.padded_vocab,
+                                          dev, scale=0.02)
+    return params
 
 
 class DecodeState(NamedTuple):
@@ -73,20 +74,31 @@ def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                                             device=dev))
 
 
+def embed_scale(cfg: ModelConfig) -> float:
+    """gemma2's embedding multiplier: sqrt(d_model) rounded to the compute
+    dtype first, as the reference's ``jnp.asarray(d ** 0.5, dtype)``
+    (a host scalar, so a captured graph holds no host-to-device copy)."""
+    return torch.tensor(cfg.d_model ** 0.5, dtype=_dtype(cfg)).item()
+
+
 def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
                 tokens: Tensor) -> tuple[Tensor, DecodeState]:
     """tokens: (B, 1) -> (logits (B, 1, V), new state). Caches are updated
     in place (``models.attention``)."""
-    x = L.embed(tokens, params["embed"], _dtype(cfg))
+    dtype = _dtype(cfg)
+    x = L.embed(tokens, params["embed"], dtype)
     if cfg.scale_embed:
-        x = x * cfg.d_model ** 0.5
+        x = x * embed_scale(cfg)
     new_caches: list[Any] = []
     for spec, lp, cache in zip(layer_specs(cfg), params["layers"],
                                state.caches):
         x, c = T.decode_layer(x, cache, lp, cfg, spec)
         new_caches.append(c)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = L.project(x, params["lm_head"], cfg, "lm_head")
+    if cfg.tie_embeddings:
+        logits = L.unembed(x, params["embed"], L.module_quant(cfg, "lm_head"))
+    else:
+        logits = L.project(x, params["lm_head"], cfg, "lm_head")
     logits = L.softcap(logits.to(torch.float32), cfg.logit_softcap)
     return logits, DecodeState(caches=new_caches,
                                position=state.position + 1)

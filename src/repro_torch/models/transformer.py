@@ -77,10 +77,14 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> dict:
     _require_attn(spec)
     d = cfg.d_model
-    return {"norm1": L.init_norm(d, cfg.norm, device),
-            "attn": A.init_attention(gen, cfg, device),
-            "norm2": L.init_norm(d, cfg.norm, device),
-            "mlp": M.init_mlp(gen, cfg, device)}
+    p = {"norm1": L.init_norm(d, cfg.norm, device),
+         "attn": A.init_attention(gen, cfg, device),
+         "norm2": L.init_norm(d, cfg.norm, device),
+         "mlp": M.init_mlp(gen, cfg, device)}
+    if cfg.post_norm:       # gemma2: a norm on each sublayer's output
+        p["post1"] = L.init_norm(d, cfg.norm, device)
+        p["post2"] = L.init_norm(d, cfg.norm, device)
+    return p
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,

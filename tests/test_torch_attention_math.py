@@ -25,7 +25,8 @@ card):
 
 The emulation is held bit for bit against the plain version
 ``kernels.ref.decode_attention_ref`` (torch, CPU) for clusters of 1-8
-blocks, 1-7 live planes, G in {1, 4, 8}, hd in {16, 128, 256}, the first,
+blocks, 1-7 live planes, G in {1, 4, 8}, hd in {16, 128, 160, 256}, the
+first,
 middle and last position, windows that mask whole chunks, and softcap 0
 and > 0. The transcendental steps (``expf``, ``tanhf``) are taken from
 torch on the CPU, as the plain version takes them: the card's own
@@ -133,7 +134,7 @@ def qk_scores(kpl, q, qz, q_scale, ks, kz, softcap, k_pact, hd):
     wk = row_words(kpl)                               # (P, n, WPR)
     wpr = wk.shape[-1]
     n = wk.shape[1]
-    halves = max(1, wpr // 4)
+    halves = -(-wpr // 4)                             # kHalves
     # query words: word (g, k, i), byte c = q[g, 8 (4k + c) + i]
     qpad = np.zeros((g_n, max(d8, 4) * 8), np.int64)
     qpad[:, :hd] = q
@@ -183,10 +184,22 @@ def qk_scores(kpl, q, qz, q_scale, ks, kz, softcap, k_pact, hd):
     return out
 
 
+def pv_steps(lv0: int, lv1: int, n_oct: int) -> list:
+    """The 32-row steps r0 of one byte octet, as its warps take them: warp
+    w of octet w % n_oct is part w // n_oct of wpo = WARPS // n_oct, and
+    the warps past wpo parts (hd = 160: warps 6, 7) take none."""
+    wpo = WARPS // n_oct
+    steps = []
+    for part_w in range(-(-WARPS // n_oct)):
+        r_first = (lv0 // 32 + part_w) * 32 if part_w < wpo else lv1
+        steps += list(range(r_first, lv1, 32 * wpo))
+    return steps
+
+
 def pv_partial(vsm, pql, pqh, v_pact, lv0, lv1, hd):
     """One block's PV partial (G, hd) int64 from its shared rows vsm
     (P, cp, d8) and probability code bytes pql / pqh (G, cp), lane by lane
-    over 32-row steps and byte octets."""
+    over the 32-row steps each warp takes and the byte octets."""
     d8 = hd // 8
     words = row_words(vsm)                            # (P, cp, WPR)
     wpr = words.shape[-1]
@@ -197,7 +210,7 @@ def pv_partial(vsm, pql, pqh, v_pact, lv0, lv1, hd):
     out = np.zeros((g_n, hd), np.int64)
     if lv1 <= lv0:
         return out
-    r0 = np.arange(lv0 // 32, -(-lv1 // 32))[:, None] * 32  # (steps, 1)
+    n_oct = -(-d8 // 8)
 
     def pq_word(arr, col):                            # 4 bytes from col
         gi = np.minimum(n_l, g_n - 1)
@@ -205,7 +218,11 @@ def pv_partial(vsm, pql, pqh, v_pact, lv0, lv1, hd):
                 for x in range(4))
         return np.where(n_l < g_n, w, 0).astype(np.uint32)
 
-    for oct_ in range(max(1, d8 // 8)):
+    for oct_ in range(n_oct):
+        steps = pv_steps(lv0, lv1, n_oct)
+        # every step of the block's rows taken by exactly one warp
+        assert sorted(steps) == list(range(lv0 // 32 * 32, lv1, 32))
+        r0 = np.asarray(steps)[:, None]               # (steps, 1)
         wd = 2 * oct_ + kp                            # per lane
         acc = np.zeros((r0.shape[0], 32, 8, 4), np.int64)
         halves = []
@@ -374,7 +391,7 @@ def plain(a, pos, window, softcap) -> np.ndarray:
 # tests
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160, 256])
 @pytest.mark.parametrize("bits", range(1, 8))
 def test_transposed_k_words_are_the_cache_codes(hd, bits):
     """The bit transpose of a position's live plane words gives the codes
@@ -398,7 +415,7 @@ def test_transposed_k_words_are_the_cache_codes(hd, bits):
                     assert not got[:, i, c].any()
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160, 256])
 def test_lane_byte_transpose_builds_the_b_fragments(hd):
     """PV's two shuffles and four byte_perms: lane 4 (4 k' + m') + kq,
     which read word 2 oct + k' of row 4 kq + m', ends with byte
@@ -414,7 +431,7 @@ def test_lane_byte_transpose_builds_the_b_fragments(hd):
     kp, mp = n_l >> 2, n_l & 3
     padded = np.zeros((16, 4 * wpr), np.int64)
     padded[:, :d8] = rows
-    for oct_ in range(max(1, d8 // 8)):
+    for oct_ in range(-(-d8 // 8)):
         wd = 2 * oct_ + kp
         x = np.where(wd < wpr, words[4 * kq + mp, np.minimum(wd, wpr - 1)],
                      0).astype(np.uint32)
@@ -504,9 +521,37 @@ def test_cluster_size_follows_occupancy_and_shared_memory():
         assert c == 1 or -(-s // c) >= tpa.MIN_CHUNK
 
 
+@pytest.mark.parametrize("hd", tpa.HEAD_DIMS)
+def test_shared_rows_and_copies_cover_a_head_row(hd):
+    """The kernel's Rows<D8>: the shared row (kRS bytes) is the wrapper's
+    row in ``smem_bytes``, a cp.async piece divides the head's row and the
+    alignment of its start (a multiple of D8 bytes), and the pieces cover
+    the row; the QK^T halves and PV octets cover every 32-bit word and
+    every byte. At hd = 160 (20-byte rows) that is five 4-byte copies,
+    two halves and three octets of which two warps each work."""
+    d8 = hd // 8
+    wpr = d8 // 4 if d8 >= 4 else 1
+    rs = 4 * wpr
+    copy = (16 if d8 % 16 == 0 else 8 if d8 % 8 == 0 else 4 if d8 >= 4
+            else d8)
+    assert rs == max(hd // 8, 4)
+    assert tpa.smem_bytes(64, 1, 4, hd) == 64 * (P * rs + 6 * 4 + 8)
+    assert d8 % copy == 0 and (d8 // copy) * copy == d8
+    assert copy in (2, 4, 8, 16) and rs >= d8
+    assert 4 * -(-wpr // 4) >= wpr and -(-wpr // 4) <= 2
+    n_oct = -(-d8 // 8)
+    assert 8 * n_oct >= d8 and WARPS // n_oct >= 1
+    if hd == 160:
+        assert (copy, d8 // copy, -(-wpr // 4), n_oct) == (4, 5, 2, 3)
+        assert tpa.max_seq_len(4, 160) >= 4096
+    for lv0, lv1 in ((0, 48), (5, 300), (40, 41), (0, 1280)):
+        steps = pv_steps(lv0, lv1, n_oct)
+        assert sorted(steps) == list(range(lv0 // 32 * 32, lv1, 32))
+
+
 @pytest.mark.parametrize("g,hd", [(1, 16), (4, 16), (8, 16), (1, 128),
-                                  (4, 128), (8, 128), (1, 256), (4, 256),
-                                  (8, 256)])
+                                  (4, 128), (8, 128), (1, 160), (4, 160),
+                                  (8, 160), (1, 256), (4, 256), (8, 256)])
 @pytest.mark.parametrize("c", range(1, 9))
 def test_emulated_kernel_is_the_plain_version(c, g, hd):
     """Every live-plane count 1-7, each with one of the (pos, window)
@@ -530,7 +575,7 @@ def test_emulated_kernel_is_the_plain_version(c, g, hd):
 @settings(max_examples=30, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), c=st.integers(1, 8),
        g=st.sampled_from([1, 2, 3, 4, 8]),
-       hd=st.sampled_from([16, 32, 64, 128, 256]),
+       hd=st.sampled_from([16, 32, 64, 128, 160, 256]),
        s=st.integers(1, 150), bits=st.integers(1, 7),
        pos_frac=st.floats(0, 1), window=st.one_of(st.none(),
                                                   st.integers(1, 160)))
