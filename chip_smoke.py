@@ -31,7 +31,13 @@ Phases (any failure raises and the script exits non-zero):
               shapes (M = 4 at plane_shift 0-6, M = 1 at 0 and 5), timed
               at M = 4 beside its bound and the fp32 matmul on the
               dequantized weight; gemma2's tied head (an fp32 matmul over
-              the embedding table) timed alone.
+              the embedding table) timed alone. B2 and B1 (fused) at every
+              plane count a single-point artifact can have, P = 1-7, at
+              llama3-8b's (4096, 14336) and (14336, 4096), M = 4 (the
+              decode kernel), 64 and 4096 (the tile kernel), plane_shift 0
+              and P - 1; both timed at P = 5, M = 4 beside their
+              plane-byte bound and the fp32 matmul on the dequantized
+              weight.
 4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
               vocab 128256, random weights from a seed) through the PANN
               ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
@@ -83,6 +89,23 @@ Phases (any failure raises and the script exits non-zero):
               extreme operands (7 planes of +-127 weights, codes of 127,
               K = 14336) and, for B1 and B2 above 8 rows, at plane_shift
               0-7.
+7. prefill and single point — (a) a full-width llama3-8b weight store
+              (ladder 2,4,6, packed planes, seed 7): ``MD.forward`` on the
+              top rung's view at (B, T) = (2, 2048) through 'ref', 'fused'
+              and 'packed', logits bit-identical; launches counted from 0:
+              225 B2 on 'packed', 225 B1 on 'fused', nothing else; forward
+              ms, prefill tokens/s and the device time by kernel kind
+              (profiler). (b) ``repro_torch.launch.serve.main`` in
+              single-point mode at full width, --quant pann --power_bits
+              2 and 4 through 'packed' (the artifact's value-exact P: 5
+              and 6 on the square projections, asserted, the rest
+              recorded), --power_bits 2 again through 'ref' and 'fused':
+              the same sample tokens; batch 4, prompt 32, gen 16, every
+              step an eager ``decode_step``. (c) the legacy paths cut to 2
+              layers: --quant none, --quant ruq --power_bits 8, --quant
+              pann --power_bits 4 --backend "" (fp params through the
+              fake-quant projections). Every serve: the reference's
+              summary keys, finite logits, peak memory under 70 GB.
 
 The build phase also counts the tensor-core instructions (wgmma's GMMA,
 mma.sync's IMMA) in the SASS of the pann_matmul, pann_matmul_packed and
@@ -195,20 +218,24 @@ LAYER_SHAPES = [((4096, 4096), 2, "wq,wo"), ((4096, 1024), 2, "wk,wv"),
 HEAD_SHAPE = ((4096, 128256), 1, "lm_head")
 
 
-def _matmul_operands(gen, m, k, n):
+def _matmul_operands(gen, m, k, n, planes: int = 7):
+    """Operands of B1/B2 at ``planes`` planes: x (m, k) N(0, 1), codes
+    uniform in +-(2^planes - 1) as int8 planes and packed planes, (s, z)
+    of x at 127 levels, random gamma and zcol."""
     from repro_torch.core import quant
     from repro_torch.kernels.pann_matmul_packed import pack_planes
     x = torch.randn((m, k), generator=gen, device="cuda")
-    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+    top = 1 << planes
+    codes = torch.randint(1 - top, top, (k, n), generator=gen, device="cuda",
                           dtype=torch.int32)
-    pos = torch.empty((7, k, n), dtype=torch.int8, device="cuda")
+    pos = torch.empty((planes, k, n), dtype=torch.int8, device="cuda")
     neg = torch.empty_like(pos)
-    for p in range(7):
+    for p in range(planes):
         pos[p] = (codes.clamp(min=0) >> p) & 1
         neg[p] = ((-codes).clamp(min=0) >> p) & 1
     del codes
-    ppk = torch.stack([pack_planes(pos[p]) for p in range(7)])
-    npk = torch.stack([pack_planes(neg[p]) for p in range(7)])
+    ppk = torch.stack([pack_planes(pos[p]) for p in range(planes)])
+    npk = torch.stack([pack_planes(neg[p]) for p in range(planes)])
     lo, hi = quant.act_range_bounds(x)
     n127 = torch.full((), 127.0, device="cuda")
     s, z = quant.affine_scale_zp(lo, hi, n127)
@@ -368,6 +395,99 @@ def check_packed_tile_rows() -> tuple:
         del x, ppk, npk
         torch.cuda.empty_cache()
     return err.get("pann_matmul_packed_act", 0.0), checked
+
+
+# B1 and B2 at every plane count a single-point artifact can have (its
+# value-exact P: 5 and 6 at the single-point serve's --power_bits 2 and 4)
+# at llama3-8b's widest projections; rows: the decode kernel, the tile
+# kernel, a (2, 2048) prefill
+PLANE_COUNTS = tuple(range(1, 8))
+PLANE_M = (4, 64, 4096)
+PLANE_SHAPES = ((4096, 14336), (14336, 4096))
+TIMED_PLANES, TIMED_M = 5, 4
+
+
+def _time_planes(x, pos, neg, ppk, npk, s, z, n127, gamma, zcol) -> list:
+    """B2 and B1 at TIMED_M rows, plane_shift 0, cold L2, beside their
+    plane-byte bound and the fp32 matmul on the dequantized weight."""
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    planes, k, n = pos.shape
+    m = TIMED_M
+    xm = x[:m]
+    qp = torch.stack([s, z, n127, torch.zeros((), device="cuda")])
+    w_deq = pm.rebuild_weight(pos, neg, qp[3]).float() * gamma[None, :]
+    lib = time_ms(lambda: torch.matmul(xm, w_deq), 20)
+    del w_deq
+    rows = []
+    for name, fn, plain, plane_bytes in (
+            ("pann_matmul_packed_act",
+             lambda: pk.pann_matmul_packed_act(xm, ppk, npk, qp, gamma,
+                                               zcol),
+             lambda: pk.pann_matmul_packed_act_plain(xm, ppk, npk, qp,
+                                                     gamma, zcol),
+             2 * planes * (k // 8) * n),
+            ("pann_matmul_act",
+             lambda: pm.pann_matmul_act(xm, pos, neg, qp, gamma, zcol),
+             lambda: pm.pann_matmul_act_plain(xm, pos, neg, qp, gamma,
+                                              zcol),
+             2 * planes * k * n)):
+        nbytes = 4 * (m * k + 2 * n + 4 + m * n) + plane_bytes
+        b_ms, b_by = bound_ms(nbytes, 2 * m * k * n)
+        ms = time_ms(fn, 20)
+        row = {"kernel": name, "K": k, "N": n, "M": m, "planes": planes,
+               "ms": ms, "plain_ms": time_ms(plain, 3), "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_bound": b_ms / ms}
+        rows.append(row)
+        print(f"[planes] {name} P={planes} K={k} N={n} M={m}: {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * row['share_of_bound']:.1f} % of bound, library "
+              f"{lib:.4f} ms, plain {row['plain_ms']:.3f} ms", flush=True)
+    return rows
+
+
+def check_plane_counts() -> tuple:
+    """B2 and B1 (mode fused) at P = 1..7 planes, M in PLANE_M (B2: the
+    decode kernel at 4, the tile kernel above 8 rows), plane_shift 0 and P
+    - 1 (the top plane alone), each bit for bit against its plain version
+    (these launches are not the path's); B2 and B1 timed at P =
+    TIMED_PLANES, M = TIMED_M. Operands from a generator of their own, so
+    the later phases see the operands they saw before. Returns (max |err|
+    by kernel, the checked (P, shift, M, K, N), the timed rows)."""
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    err: dict = {}
+    checked, timed = [], []
+    for k, n in PLANE_SHAPES:
+        for planes in PLANE_COUNTS:
+            ops = _matmul_operands(gen, max(PLANE_M), k, n, planes)
+            x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = ops
+            for shift in sorted({0, planes - 1}):
+                qp = torch.stack([s, z, n127, torch.full(
+                    (), float(shift), device="cuda")])
+                for m in PLANE_M:
+                    args1 = (x[:m], pos, neg, qp, gamma, zcol)
+                    args2 = (x[:m], ppk, npk, qp, gamma, zcol)
+                    p2 = pk.pann_matmul_packed_act_plain(*args2)
+                    _agree("pann_matmul_packed_act",
+                           pk.pann_matmul_packed_act(*args2), p2, err)
+                    p1 = pm.pann_matmul_act_plain(*args1)
+                    if not torch.equal(p1, p2):
+                        raise AssertionError(
+                            f"plain versions disagree at P={planes} "
+                            f"shift={shift} M={m}")
+                    _agree("pann_matmul_act", pm.pann_matmul_act(*args1),
+                           p1, err)
+                    del p1, p2
+                    checked.append([planes, shift, m, k, n])
+            if planes == TIMED_PLANES:
+                timed += _time_planes(*ops)
+            del ops, x, pos, neg, ppk, npk
+            torch.cuda.empty_cache()
+    return err, checked, timed
 
 
 def _attention_operands(gen, b, kh, g, hd, s, k_bits, v_bits):
@@ -957,6 +1077,7 @@ def layerwise_serve() -> dict:
 KERNEL_KINDS = (("packed_decode_kernel", "pann_matmul_packed_act"),
                 ("planes_decode_kernel", "pann_matmul_act"),
                 ("decode_attention", "decode_attention"),
+                ("tile_kernel", "tile_kernel"),
                 ("epilogue", "epilogue"))
 
 
@@ -990,10 +1111,9 @@ def _eager_runner(engine, bits: int):
     return run
 
 
-def _profile_rung(run) -> tuple:
+def _profile_rung(run, steps: int = PROFILE_STEPS) -> tuple:
     """(device ms by kernel kind, device ops by kind, records lost) of
-    PROFILE_STEPS calls of ``run`` (one decode step each), from
-    torch.profiler.
+    ``steps`` calls of ``run`` (one decode step each), from torch.profiler.
 
     The profiler can lose the records of the first kernels of a window
     (none in some windows, more in each later window of a process), so
@@ -1011,7 +1131,7 @@ def _profile_rung(run) -> tuple:
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1034,7 +1154,7 @@ def _profile_rung(run) -> tuple:
         count[kind] = count.get(kind, 0) + 1
     # the guard step launches what a counted step does: what it lacks, the
     # profiler lost
-    lost = sum(count.values()) / PROFILE_STEPS - guard
+    lost = sum(count.values()) / steps - guard
     return ms, count, lost
 
 
@@ -1602,6 +1722,291 @@ def unfused_path(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: prefill (forward) and the single-point serve
+# ---------------------------------------------------------------------------
+
+PREFILL_B, PREFILL_T = 2, 2048
+# the reference's single-point summary keys (repro/launch/serve.py)
+SINGLE_POINT_KEYS = ("arch", "quant", "backend", "batch", "generated",
+                     "prefill_s", "decode_s", "tok_per_s", "sample")
+
+
+def prefill_forward(seed: int = 7) -> dict:
+    """Phase 7a: ``MD.forward`` at (PREFILL_B, PREFILL_T) on the top rung's
+    view of a full-width llama3-8b weight store, through 'ref', 'fused' and
+    'packed': the logits must be bit-identical; each run's wrapper
+    launches counted from 0 (one B1 or B2 a projection and the lm_head,
+    no B3); forward ms on the host clock of the first (cold) call and of
+    the counted call after it, and the device time by kernel kind from
+    the profiler (one guard forward, one counted). B1's and B2's bounds
+    are summed over the (M, K, N, P) products the warm-up call of
+    'packed' hands B2."""
+    from repro_torch.kernels import pann_matmul_packed as pk
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import model as MD
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import build_ladder
+    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    ladder = build_ladder(LADDER, d=float(cfg.d_model))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws = serving.build_weight_store(
+        _init_params(cfg, seed), cfg,
+        {op.bits: (op.r, op.b_x_tilde) for op in ladder},
+        serving.ServingQuantSpec(pack_planes=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    top = max(LADDER)
+    view = ws.views[top]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_T),
+                           generator=gen, device="cuda")
+    per_fwd = _graph_launches(cfg)["pann_matmul_packed_act"]
+    want_counts = {"ref": {}, "fused": {"pann_matmul_act": per_fwd},
+                   "packed": {"pann_matmul_packed_act": per_fwd}}
+    ref_logits = None
+    runs = {}
+    products = []           # (M, K, N, P) of every B2 launch of a forward
+    launch = pk.pann_matmul_packed_act
+
+    def launch_seen(xf, pp, *rest):
+        products.append((xf.shape[0], pp.shape[1] * 8, pp.shape[2],
+                         pp.shape[0]))
+        return launch(xf, pp, *rest)
+
+    def forward_ms(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = MD.forward(view, c, tokens).logits
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    for backend in ("ref", "fused", "packed"):
+        c = dataclasses.replace(cfg, kernel_backend=backend)
+        if backend == "packed":
+            pk.pann_matmul_packed_act = launch_seen
+        try:
+            cold_ms = forward_ms(c)[1]
+        finally:
+            pk.pann_matmul_packed_act = launch
+        _reset_counts()
+        logits, ms = forward_ms(c)
+        counts = _counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(want_counts[backend])
+        if counts != want:
+            raise AssertionError(f"forward on {backend}: launches {counts} "
+                                 f"!= {want}")
+        if ref_logits is None:
+            if logits.shape != (PREFILL_B, PREFILL_T, cfg.padded_vocab) \
+                    or not torch.isfinite(logits).all():
+                raise AssertionError(f"forward logits {tuple(logits.shape)}"
+                                     " not finite or of the wrong shape")
+            ref_logits = logits
+        elif not torch.equal(logits, ref_logits):
+            d = (logits - ref_logits).abs().max().item()
+            raise AssertionError(f"forward on {backend}: logits differ "
+                                 f"from ref by {d}")
+        del logits
+        run = {"forward_ms": ms, "cold_forward_ms": cold_ms,
+               "launches": counts,
+               "prefill_tok_per_s": PREFILL_B * PREFILL_T / (ms * 1e-3)}
+        if backend != "ref":
+            dev_ms, ops, lost = _profile_rung(
+                lambda: MD.forward(view, c, tokens), steps=1)
+            total = sum(dev_ms.values())
+            kernel = dev_ms.get("tile_kernel", 0.0) + dev_ms.get(
+                "epilogue", 0.0)
+            run.update(device_ms=total, device_ms_by_kind=dev_ms,
+                       device_ops_by_kind=ops, guard_records_lost=lost,
+                       kernel_share=kernel / total if total else None)
+        runs[backend] = run
+        print(f"[prefill] {backend}: forward {ms:.1f} ms (cold "
+              f"{cold_ms:.1f}), "
+              f"{run['prefill_tok_per_s']:.0f} tok/s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v})
+              + ("" if backend == "ref" else
+                 f", device {run['device_ms']:.1f} ms, tile + epilogue "
+                 f"share {run['kernel_share']:.3f}, by kind "
+                 + json.dumps(run["device_ms_by_kind"])), flush=True)
+    if len(products) != per_fwd:
+        raise AssertionError(f"forward handed B2 {len(products)} products, "
+                             f"not {per_fwd}")
+    # each launch reads its fp32 rows, gamma, zcol, qparams and its planes
+    # once and writes its fp32 output: B2 packed planes, B1 int8 planes
+    small = sum(4 * (m * k + 2 * n + 4 + m * n) for m, k, n, _ in products)
+    ops = sum(2 * m * k * n for m, k, n, _ in products)
+    for backend, name, plane_bytes in (
+            ("packed", "pann_matmul_packed_act",
+             sum(2 * p * (k // 8) * n for _, k, n, p in products)),
+            ("fused", "pann_matmul_act",
+             sum(2 * p * k * n for _, k, n, p in products))):
+        b_ms, b_by = bound_ms(small + plane_bytes, ops)
+        run = runs[backend]
+        kernel_ms = (run["device_ms_by_kind"].get("tile_kernel", 0.0)
+                     + run["device_ms_by_kind"].get("epilogue", 0.0))
+        run.update(kernel=name, kernel_ms=kernel_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        print(f"[prefill] {name}: {kernel_ms:.1f} ms over {len(products)} "
+              f"products, bound {b_ms:.1f} ms ({b_by})", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 70.0:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
+    del ws, view, ref_logits
+    torch.cuda.empty_cache()
+    return {"config": f"llama3-8b full width, 32 layers, random weights "
+                      f"seed {seed}; weight store ladder {list(LADDER)}, "
+                      f"packed planes; the top rung's view ({top} bits)",
+            "B_T": [PREFILL_B, PREFILL_T], "store_build_s": build_s,
+            "logits_bit_identical": ["ref", "fused", "packed"],
+            "products_MKNP": sorted(set(products)),
+            "runs": runs, "peak_mem_gb": peak_gb}
+
+
+def _plane_counts(artifact: dict) -> dict:
+    """{module path: sorted plane counts over the layers} of an artifact's
+    packed leaves."""
+    out: dict = {}
+    for lp in artifact["layers"]:
+        for block in ("attn", "mlp"):
+            for name, node in lp[block].items():
+                if isinstance(node, dict) and "w_planes_pos" in node:
+                    out.setdefault(f"{block}.{name}", set()).add(
+                        node["w_planes_pos"].shape[0])
+    if "w_planes_pos" in artifact.get("lm_head", {}):
+        out["lm_head"] = {artifact["lm_head"]["w_planes_pos"].shape[0]}
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def serve_single(argv: list) -> dict:
+    """One ``repro_torch.launch.serve.main`` run in single-point mode with
+    the launch counters from 0: its summary (the reference's keys), the
+    wrappers' launches, peak memory and the artifact's plane counts (read
+    off ``serving.quantize_params_for_serving``'s result); and every
+    decode step's logits (read off ``MD.decode_step``'s), finite, stacked
+    on the card for the comparison across backends."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MD
+    from repro_torch.models import serving
+    seen, planes = [], {}
+    quantize, step = serving.quantize_params_for_serving, MD.decode_step
+
+    def quantize_seen(*args, **kwargs):
+        artifact = quantize(*args, **kwargs)
+        planes.update(_plane_counts(artifact))
+        return artifact
+
+    def step_seen(*args, **kwargs):
+        logits, state = step(*args, **kwargs)
+        seen.append(logits.detach().clone())
+        return logits, state
+
+    serving.quantize_params_for_serving = quantize_seen
+    MD.decode_step = step_seen
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = serve.main(argv)
+    finally:
+        serving.quantize_params_for_serving = quantize
+        MD.decode_step = step
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    if sorted(out) != sorted(SINGLE_POINT_KEYS):
+        raise AssertionError(f"summary keys {sorted(out)} != the "
+                             f"reference's {sorted(SINGLE_POINT_KEYS)}")
+    logits = torch.stack(seen) if seen else None
+    if logits is None or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{argv}: logits not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 70.0:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
+    torch.cuda.empty_cache()
+    return dict(out, argv=argv, launches=counts, steps=len(seen),
+                peak_mem_gb=peak_gb, wall_s=wall, planes=planes), logits
+
+
+def single_point() -> dict:
+    """Phase 7b: the single-point serve at full-width llama3-8b, --quant
+    pann at --power_bits 2 through 'ref', 'packed' and 'fused' and at
+    --power_bits 4 through 'ref' and 'packed' (the artifact's value-exact
+    P = 5 and 6 on the square projections): every step's logits of
+    'packed' and 'fused' bit-identical to those of 'ref' at the same
+    bits; 7c: the legacy paths cut to 2 layers (fp params through the
+    fake-quant projections, no kernel)."""
+    from repro_torch import configs
+    base = ["--arch", "llama3-8b", "--batch", str(BATCH), "--prompt_len",
+            str(PROMPT), "--gen", str(GEN)]
+    steps = PROMPT + GEN - 1
+    per_step = _graph_launches(configs.get_config("llama3-8b"))[
+        "pann_matmul_packed_act"]
+    runs, ref_logits = {}, {}
+    for bits, backend, want_p in ((2, "ref", None), (2, "packed", 5),
+                                  (2, "fused", None), (4, "ref", None),
+                                  (4, "packed", 6)):
+        out, logits = serve_single(base + ["--quant", "pann", "--power_bits",
+                                           str(bits), "--backend", backend])
+        kernel = {"packed": "pann_matmul_packed_act",
+                  "fused": "pann_matmul_act"}.get(backend)
+        want = dict.fromkeys(out["launches"], 0)
+        if kernel:
+            want[kernel] = per_step * steps
+        if out["launches"] != want or out["steps"] != steps:
+            raise AssertionError(f"{backend} P{bits}: launches "
+                                 f"{out['launches']} over {out['steps']} "
+                                 f"steps != {want}")
+        if want_p is not None:
+            for name in ("attn.wq", "attn.wo"):
+                if out["planes"][name] != [want_p]:
+                    raise AssertionError(f"--power_bits {bits}: {name} "
+                                         f"packs {out['planes'][name]} "
+                                         f"planes, not {want_p}")
+        if backend == "ref":
+            ref_logits[bits] = logits
+        elif not torch.equal(logits, ref_logits[bits]):
+            d = (logits - ref_logits[bits]).abs().amax(dim=tuple(
+                range(1, logits.ndim)))
+            raise AssertionError(
+                f"--power_bits {bits} --backend {backend}: logits differ "
+                f"from ref at steps {torch.nonzero(d).flatten().tolist()}, "
+                f"by up to {d.max().item()}")
+        else:
+            out["logits_bit_identical_to_ref"] = True
+        del logits
+        runs[f"pann{bits}_{backend}"] = out
+        print(f"[single] --power_bits {bits} --backend {backend}: "
+              + json.dumps({k: out[k] for k in (
+                  "prefill_s", "decode_s", "tok_per_s", "peak_mem_gb",
+                  "wall_s", "sample", "planes")}), flush=True)
+    del ref_logits
+    for bits in (2, 4):
+        samples = {k: r["sample"] for k, r in runs.items()
+                   if k.startswith(f"pann{bits}_")}
+        if len({tuple(v) for v in samples.values()}) != 1:
+            raise AssertionError(f"--power_bits {bits} sample tokens differ "
+                                 f"across backends: {samples}")
+    legacy = {}
+    for argv in (["--quant", "none"], ["--quant", "ruq", "--power_bits", "8"],
+                 ["--quant", "pann", "--power_bits", "4", "--backend", ""]):
+        out, _ = serve_single(base + ["--layers", "2"] + argv)
+        if out["backend"] != "legacy" or any(out["launches"].values()):
+            raise AssertionError(f"{argv}: backend {out['backend']}, "
+                                 f"launches {out['launches']}")
+        legacy[" ".join(argv)] = out
+        print(f"[single] legacy {argv} (2 layers): " + json.dumps(
+            {k: out[k] for k in ("quant", "prefill_s", "decode_s",
+                                 "tok_per_s", "sample")}), flush=True)
+    return {"config": "llama3-8b full width, random weights seed 0 (the "
+                      "CLI's --seed); batch, prompt, gen "
+                      f"{BATCH}, {PROMPT}, {GEN}; legacy paths cut to 2 "
+                      "layers", "steps_per_serve": steps,
+            "runs": runs, "legacy": legacy}
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
                   max_abs_err, times_are):
@@ -1669,6 +2074,11 @@ def main() -> int:
     packed_tile_err, packed_tile_checked = check_packed_tile_rows()
     print(f"[kernels] pann_matmul_packed_act above 8 rows at "
           f"{packed_tile_checked}: max |err| {packed_tile_err}", flush=True)
+    plane_err, plane_checked, plane_rows = check_plane_counts()
+    print(f"[planes] B2 and B1 at P = {list(PLANE_COUNTS)}, M = "
+          f"{list(PLANE_M)}, plane_shift 0 and P - 1, shapes "
+          f"{list(PLANE_SHAPES)}: {len(plane_checked)} cases, max |err| "
+          f"{plane_err}", flush=True)
     att_by_config, att_checks = check_attention(gen)
     att_rows = att_by_config["llama3-8b"]
     variant_mm = check_variant_matmuls()
@@ -1739,6 +2149,13 @@ def main() -> int:
     for r in unfused["rows"]:
         print("[unfused] " + json.dumps(r), flush=True)
 
+    # phase 7: prefill (forward) and the single-point serve
+    t0 = time.perf_counter()
+    prefill = prefill_forward()
+    single = single_point()
+    phase7_s = time.perf_counter() - t0
+    print(f"[phase7] {phase7_s:.1f} s", flush=True)
+
     step = "one full-width decode step's launches, cold L2"
     kernels = [
         _kernel_entry("pann_matmul_act", "src/repro_torch/csrc/pann_matmul.cu",
@@ -1778,6 +2195,22 @@ def main() -> int:
     kernels[1]["unfused_shapes"] = [r for r in unfused["rows"]
                                     if r["kernel"] == "pann_matmul_packed_act"]
     kernels[1]["tile_rows_checked"] = packed_tile_checked
+    # phase 3's plane counts, phase 7's prefill and single-point serves
+    for k, name, backend in ((kernels[0], "pann_matmul_act", "fused"),
+                             (kernels[1], "pann_matmul_packed_act",
+                              "packed")):
+        k["max_abs_err"] = max(k["max_abs_err"], plane_err[name])
+        k["planes_checked"] = {"P": list(PLANE_COUNTS), "M": list(PLANE_M),
+                               "shapes": [list(x) for x in PLANE_SHAPES],
+                               "cases": len(plane_checked)}
+        k[f"p{TIMED_PLANES}_m{TIMED_M}"] = [r for r in plane_rows
+                                            if r["kernel"] == name]
+        k["launches_prefill"] = prefill["runs"][backend]["launches"][name]
+        k["prefill"] = {key: prefill["runs"][backend][key] for key in (
+            "kernel_ms", "bound_ms", "bound_by", "forward_ms",
+            "cold_forward_ms")}
+        k["launches_single_point"] = single["runs"][f"pann2_{backend}"][
+            "launches"][name]
     kernels[2]["shapes"] = att_rows
     kernels[2]["checks"] = att_checks
     kernels[2]["head_dims"] = list(pa.HEAD_DIMS)
@@ -1832,14 +2265,19 @@ def main() -> int:
               "serve": serve, "layerwise": layerwise, "variants": variants,
               "variant_matmuls": variant_mm, "attention": att_by_config,
               "backends": agree, "backends_variants": agree_variants,
-              "unfused": unfused}
+              "unfused": unfused,
+              "plane_counts": {"max_abs_err": plane_err,
+                               "checked": plane_checked,
+                               "timed": plane_rows},
+              "prefill": prefill, "single_point": single,
+              "phase7_s": phase7_s}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k not in ("shapes", "unfused_shapes",
-                                                "checks")}
+                                                "checks", "planes_checked")}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,8 +124,12 @@ def _to_torch(node: Any, device) -> Any:
 
 
 def params_from_reference(np_params: dict, cfg, device) -> dict:
-    """``repro.models.model.init_params`` output (numpy leaves) -> the
-    port's params (``repro_torch.models.model`` layout) on ``device``."""
+    """A tree in the reference's layout (numpy leaves) -> the port's
+    (``repro_torch.models.model`` layout) on ``device``: the fp params of
+    ``repro.models.model.init_params``, or a single-point serving artifact
+    of ``repro.models.serving.quantize_params_for_serving`` (its stacked
+    codes, value-exact plane leaves, act and ``kv_cache`` leaves sliced
+    per layer; it has no ``plane_shift``, and the port runs it at 0)."""
     return _to_torch(_port_layout(np_params, cfg), device)
 
 

@@ -1,13 +1,14 @@
 """Section 5: PANN weight quantization (Eq. 12), the bit-plane view of the
 integer codes and the deployment forward through the planes — the
-deployment subset of ``repro.core.pann`` (the QAT branch is not ported).
+deployment subset of ``repro.core.pann`` and its fake-quant projection.
 
 Weights are quantized with step gamma_w = ||w||_1 / (R d), and the
 non-negative halves of the unsigned split are stored as binary planes,
 w_q = sum_k 2^k B_k, so w_q^T x = sum_k 2^k (B_k^T x): every plane product
 is an addition network (Eq. 10). A rung of the serving ladder is a view
 that drops the low ``shift`` planes of the one max-R store
-(``masked_codes``).
+(``masked_codes``). ``pann_qat_matmul`` is the straight-through
+fake-quant projection of the float path (``models.layers.qlinear``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,13 @@ def pann_quantize(w: Tensor, r: float, dim=0) -> Tuple[Tensor, Tensor]:
     integer codes, gamma)."""
     gamma = pann_gamma(w, r, dim)
     return torch.round(w / gamma), gamma
+
+
+def pann_fake_quant(w: Tensor, r: float, dim=None) -> Tensor:
+    """Straight-through fake quantization with the PANN step: the forward
+    is round(w / gamma) * gamma, the gradient w.r.t. w the identity."""
+    q, gamma = pann_quantize(w, r, dim)
+    return w + (q * gamma - w).detach()
 
 
 def additions_per_element(w_q: Tensor, dim=None) -> Tensor:
@@ -147,3 +155,25 @@ def pann_bitplane_linear(x: Tensor, pw: PannWeights, act_bits: int,
     if bias is not None:
         y = y + bias
     return y
+
+
+def pann_qat_matmul(x: Tensor, w: Tensor, mq,
+                    act_range: Optional[Tensor] = None) -> Tensor:
+    """The fake-quant (STE) PANN projection at one module's operating
+    point: ``mq`` exposes ``.r`` and ``.act_bits_tilde`` (a per-module
+    ``policy.ModuleQuant`` or the global ``QuantConfig``). Weights
+    fake-quantize per output channel, activations affinely over their own
+    per-tensor range, or against ``act_range`` = [lo, hi] when given
+    (frozen calibration; an unseen range falls back to the dynamic one).
+    Fake-quant runs in fp32, the product in the caller's dtype."""
+    dtype = x.dtype
+    wq = pann_fake_quant(w.to(torch.float32), mq.r, dim=0).to(dtype)
+    xf = x.to(torch.float32)
+    n = float((1 << mq.act_bits_tilde) - 1)
+    if act_range is None:
+        q, s, z = quant.affine_quant_levels(xf, n)
+    else:
+        q, s, z = quant.affine_from_range(xf, n, act_range[0], act_range[1])
+    xq_val = s * (q - z)
+    xq = (xf + (xq_val - xf).detach()).to(dtype)
+    return xq @ wq

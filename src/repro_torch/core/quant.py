@@ -1,7 +1,9 @@
-"""The deployment subset of the quantizers (port of ``repro.core.quant``):
-RUQ, the regular uniform quantizer (absmax scale, integer codes), and the
-affine activation quantizer of the serving path (calibration bounds, (s, z)
-scalars, level counts and the encode map).
+"""The quantizers of the serving and fake-quant paths (port of
+``repro.core.quant``): RUQ, the regular uniform quantizer (absmax scale,
+integer codes) and its straight-through fake-quant, and the affine
+activation quantizer (calibration bounds, (s, z) scalars, level counts,
+the encode map and the whole quantizer over the tensor's own or a frozen
+range). The clip-calibrated and LSQ quantizers come with training.
 
 Every op here is a single correctly rounded fp32 operation (max, min,
 subtract, divide, round half to even, clamp), so the port and the JAX
@@ -81,6 +83,27 @@ def ruq(x: Tensor, bits: int, signed: bool, dim=None,
     return quantize(x, scale, qr), scale
 
 
+def fake_quant(x: Tensor, bits: int, signed: bool, dim=None,
+               scale: Optional[Tensor] = None, half_range: bool = False
+               ) -> Tensor:
+    """Straight-through fake quantization: the forward is
+    dequant(quant(x)), the gradient w.r.t. x is the identity."""
+    q, s = ruq(x, bits, signed, dim, scale, half_range)
+    xq = dequantize(q, s)
+    return x + (xq - x).detach()
+
+
+def affine_quant_levels(x: Tensor, n, include_zero: bool = False
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Asymmetric quantization over the tensor's own extremes:
+    x ~ s * (q - z), q in [0, n]. Returns (q, s, z), q float-typed exact
+    integers. ``include_zero`` extends the range to contain 0 (what the
+    integer backends need); the fp fake-quant paths keep the unextended
+    range."""
+    lo, hi = act_range_bounds(x, include_zero=include_zero)
+    return _affine_from_bounds(x, n, lo, hi)
+
+
 def act_range_bounds(x: Tensor, lo: Optional[Tensor] = None,
                      hi: Optional[Tensor] = None, include_zero: bool = True
                      ) -> Tuple[Tensor, Tensor]:
@@ -122,6 +145,14 @@ def cap_levels(bits: int, cap: int = 127) -> int:
     return min((1 << int(bits)) - 1, cap)
 
 
+def _n_tensor(n, like: Tensor) -> Tensor:
+    """A level count as a 0-dim fp32 tensor on ``like``'s device, so the
+    divisions by it stay IEEE on CUDA."""
+    if isinstance(n, Tensor):
+        return n.to(device=like.device, dtype=torch.float32).reshape(())
+    return like.new_full((), float(n), dtype=torch.float32)
+
+
 def affine_encode(x: Tensor, s, z, n) -> Tensor:
     """``clip(round(x / s) + z, 0, n)`` as float-typed exact integers. The
     CUDA matmul kernels inline this op sequence (``rintf(x / s) + z``, IEEE
@@ -130,3 +161,20 @@ def affine_encode(x: Tensor, s, z, n) -> Tensor:
     if isinstance(n, Tensor):
         return torch.minimum(torch.clamp(q, min=0.0), n)
     return torch.clamp(q, 0.0, float(n))
+
+
+def _affine_from_bounds(x: Tensor, n, lo: Tensor, hi: Tensor
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    n = _n_tensor(n, x)
+    s, z = affine_scale_zp(lo, hi, n)
+    return affine_encode(x, s, z, n), s, z
+
+
+def affine_from_range(x: Tensor, n, lo, hi, include_zero: bool = True
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``affine_quant_levels`` against an explicit calibration range
+    [lo, hi]: a seen range is zero-extended (``include_zero``), an unseen
+    one (lo > hi, the calibration sentinel) falls back to the tensor's
+    dynamic extremes WITHOUT the zero extension."""
+    lo, hi = act_range_bounds(x, lo, hi, include_zero=include_zero)
+    return _affine_from_bounds(x, n, lo, hi)

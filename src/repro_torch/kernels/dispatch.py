@@ -108,9 +108,11 @@ def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
                    name: str) -> Tensor:
     """The backend branch on fixed scalars: (M, K) fp32 rows in, (M, N)
     fp32 out. ``plane_shift`` (the view's count of skipped low planes) is a
-    device tensor: the kernels read it, the 'ref' path masks the codes."""
+    device tensor: the kernels read it, the 'ref' path masks the codes. A
+    single-point artifact has no such leaf and runs at shift 0."""
     w_q = p["w_q"]
-    shift = p["plane_shift"].to(torch.float32).reshape(())
+    shift = (_scalar(p["plane_shift"], xf) if "plane_shift" in p
+             else xf.new_zeros(()))
     qparams = torch.stack([s, z, n_lvl, shift])
     if name == "fused":
         n_planes = (p["w_planes_pos"].shape[-3] if "w_planes_pos" in p

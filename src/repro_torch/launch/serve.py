@@ -1,13 +1,26 @@
-"""Serving driver, ladder mode (port of ``repro.launch.serve``'s
-``serve_ladder``): plan a ladder of equal-power PANN operating points once,
-quantize into one weight store, then serve requests whose rung is chosen
-per request from a declared power budget.
+"""Serving CLI (port of ``repro.launch.serve``), two modes.
+
+Ladder mode (the default; ``serve_ladder``): plan a ladder of equal-power
+PANN operating points once, quantize into one weight store, then serve
+requests whose rung is chosen per request from a declared power budget:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --power_ladder 2,4,6 --backend packed --cache_bits 4
 
+Single point (``--quant`` without ``--power_ladder``; ``serve_single``):
+plan one operating point for ``--power_bits`` (Algorithm 1's theory
+planner), then a teacher-forced prefill and a greedy decode through
+``models.model.decode_step``. ``--quant pann`` builds the single-point
+artifact and serves it through the kernel backend (``packed`` unless
+``--backend`` says otherwise; ``--backend ""`` serves the fp params
+through the fake-quant ``qlinear`` instead, the reference's legacy path);
+the other modes serve the fp params through ``qlinear``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --quant pann --power_bits 4
+
 Runs on the card by default (``--device cuda``; raises without one). Prints
-the same ``[serve]`` JSON summary as the JAX package.
+the same ``[serve]`` JSON summaries as the JAX package.
 """
 from __future__ import annotations
 
@@ -21,20 +34,117 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core import costs, planner
 from repro_torch.models import model as MD
+from repro_torch.models import serving
 from repro_torch.serve_engine import Request, ServeEngine
 
 
-def serve_ladder(args) -> dict:
-    """One ServeEngine, per-request rung selection."""
-    ladder_bits = [int(b) for b in args.power_ladder.split(",")]
-    budgets = ([int(b) for b in args.budgets.split(",")] if args.budgets
-               else ladder_bits)
-    cfg = configs.get_config(args.arch, quant=QuantConfig(mode="none"))
+def _config(args, quant=None):
+    cfg = configs.get_config(args.arch, quant=quant)
     if args.reduced:
         cfg = configs.reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
+
+
+def plan_quant(args, total_macs=None) -> QuantConfig:
+    """The single point's QuantConfig: PANN planned for ``--power_bits``
+    (printed with the network's price), or RUQ at ``--power_bits`` bits."""
+    if args.quant == "none":
+        return QuantConfig(mode="none")
+    if args.quant == "pann":
+        plan = planner.plan_with_theory(
+            planner.budget_from_bits(args.power_bits))
+        print(f"[serve] {plan.describe(total_macs=total_macs)}")
+        return QuantConfig(mode="pann", r=plan.r,
+                           act_bits_tilde=plan.b_x_tilde)
+    return QuantConfig(mode=args.quant, weight_bits=args.power_bits,
+                       act_bits=args.power_bits)
+
+
+def serve_single(args) -> dict:
+    """One operating point: teacher-forced prefill, then greedy decode,
+    one ``decode_step`` a token (eager, no CUDA graph)."""
+    if args.allocation != "uniform":
+        raise SystemExit(
+            "--allocation layerwise requires --power_ladder (the "
+            "single-point path has no per-module rungs)")
+    if args.cache_bits:
+        raise SystemExit(
+            "--cache_bits requires --power_ladder (the quantized KV cache "
+            "rides in the serve-engine weight store)")
+    backend = args.backend
+    if backend is None:
+        backend = "packed" if args.quant == "pann" else ""
+    if backend and args.quant != "pann":
+        raise SystemExit("--backend serves the PANN deployment artifact; "
+                         "combine it with --quant pann (or use "
+                         "--power_ladder)")
+    cfg = _config(args)
+    qc = plan_quant(args, total_macs=costs.macs_per_token(cfg).weight_macs)
+    cfg = dataclasses.replace(cfg, quant=qc)
+    device = MD.resolve_device(args.device)
+    params = MD.init_params(cfg, seed=args.seed, device=device)
+    if backend:
+        params = serving.quantize_params_for_serving(
+            params, cfg, spec=serving.ServingQuantSpec(
+                r=qc.r, act_bits=qc.act_bits_tilde,
+                pack_planes=backend == "packed"))
+        cfg = dataclasses.replace(cfg, kernel_backend=backend)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int64, device=device)
+    state = MD.init_decode_state(params, cfg, args.batch,
+                                 args.prompt_len + args.gen)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.monotonic()
+    logits = None
+    for i in range(args.prompt_len):
+        logits, state = MD.decode_step(params, cfg, state,
+                                       prompts[:, i:i + 1])
+    sync()
+    t_prefill = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+    out_tokens = [tok]
+    for _ in range(args.gen - 1):
+        logits, state = MD.decode_step(params, cfg, state, tok)
+        tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+        out_tokens.append(tok)
+    sync()
+    t_decode = time.monotonic() - t0
+
+    gen = torch.cat(out_tokens, dim=1)
+    summary = {
+        "arch": cfg.name,
+        "quant": qc.mode,
+        "backend": backend or "legacy",
+        "batch": args.batch,
+        "generated": int(gen.shape[1]),
+        "prefill_s": round(t_prefill, 3),
+        "decode_s": round(t_decode, 3),
+        "tok_per_s": round(args.batch * (args.gen - 1) / max(t_decode, 1e-9),
+                           1),
+        "sample": gen[0, :8].tolist(),
+    }
+    print("[serve] " + json.dumps(summary))
+    return summary
+
+
+def serve_ladder(args) -> dict:
+    """One ServeEngine, per-request rung selection."""
+    ladder_bits = [int(b) for b in (args.power_ladder or "2,4,6").split(",")]
+    budgets = ([int(b) for b in args.budgets.split(",")] if args.budgets
+               else ladder_bits)
+    cfg = _config(args, quant=QuantConfig(mode="none"))
     device = MD.resolve_device(args.device)
     params = MD.init_params(cfg, seed=args.seed, device=device)
     cache_bits = None
@@ -45,7 +155,8 @@ def serve_ladder(args) -> dict:
                          max_batch=args.batch,
                          max_len=args.prompt_len + args.gen,
                          allocation=args.allocation,
-                         backend=args.backend,
+                         backend=("packed" if args.backend is None
+                                  else args.backend or None),
                          cache_bits=cache_bits,
                          device=device)
     del params
@@ -101,19 +212,34 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt_len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--power_ladder", default="2,4,6",
-                    help="comma-separated bit budgets of the ladder rungs")
+    ap.add_argument("--quant", default=None,
+                    choices=["none", "ruq", "ruq_unsigned", "pann"],
+                    help="serve ONE operating point at this quant mode "
+                         "(single-point mode, unless --power_ladder is "
+                         "given too)")
+    ap.add_argument("--power_bits", type=int, default=4,
+                    help="single point: the power budget as an unsigned-"
+                         "MAC bit width")
+    ap.add_argument("--power_ladder", default="",
+                    help="comma-separated bit budgets of the ladder rungs "
+                         "(default 2,4,6 when --quant is not given)")
     ap.add_argument("--allocation", default="uniform",
                     choices=["uniform", "layerwise"],
                     help="ladder rung allocation: one global (b~x, R) per "
                          "rung, or a per-module PolicyTree spending the "
                          "same total power layer-wise "
                          "(planner.allocate_layerwise)")
-    ap.add_argument("--backend", default="packed",
-                    choices=["ref", "fused", "packed"],
+    ap.add_argument("--backend", default=None,
+                    choices=["", "ref", "fused", "packed"],
                     help="serving-matmul backend: ref (plain PyTorch "
                          "integer dataflow), fused (bit-plane kernel), "
-                         "packed (packed-plane kernel)")
+                         "packed (packed-plane kernel). Default: packed in "
+                         "ladder mode and with --quant pann; a single "
+                         "point at another --quant runs without one (a "
+                         "backend there is refused). '' with --quant pann "
+                         "serves the fp params through the fake-quant "
+                         "projections, the reference's legacy path; a "
+                         "ladder engine refuses it")
     ap.add_argument("--cache_bits", default="",
                     help="quantize the decode-time KV cache: an int in "
                          "[2, 7] pins every rung's cache width; 'auto' lets "
@@ -129,6 +255,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.quant is not None and not args.power_ladder:
+        return serve_single(args)
     return serve_ladder(args)
 
 

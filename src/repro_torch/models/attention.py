@@ -1,5 +1,8 @@
-"""Decode attention with RoPE, GQA and KV caches (port of the decode half
-of ``repro.models.attention``).
+"""Self-attention with RoPE, GQA, windows and softcaps (port of
+``repro.models.attention``): the chunked online-softmax attention of
+prefill and ``forward`` (``_chunked_attention``, ``attend``), and decode
+over KV caches. Cross-attention comes with the encoder-decoder and vision
+configs (ROADMAP A6).
 
 Two caches: ``KVCache`` holds K/V in floating point; ``QuantKVCache``
 holds them as packed bit-plane affine codes, written by ``_cache_write``
@@ -86,6 +89,93 @@ def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig):
     v = L.project(x, p["wv"], cfg, "attn.wv").reshape(b, t, cfg.num_kv_heads,
                                                       hd)
     return q, k, v
+
+
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                       window: Optional[int], softcap_val: float,
+                       q_offset: int = 0, q_chunk: int = 512,
+                       kv_chunk: int = 1024) -> Tensor:
+    """Online-softmax attention over KV chunks, never more than
+    (q_chunk, kv_chunk) scores a pass. q: (B, T, K, G, hd) queries grouped
+    per KV head; k, v: (B, S, K, hd). A length that a chunk does not divide
+    is taken in one chunk. Returns (B, T, K, G, hd) fp32. The reference's
+    op order chunk by chunk (its ``unroll`` cost-probe mode has no
+    counterpart here)."""
+    b, t, kh, g, hd = q.shape
+    s = k.shape[1]
+    q = q * hd ** -0.5
+    kv_chunk = min(kv_chunk, s)
+    q_chunk = min(q_chunk, t)
+    if s % kv_chunk:
+        kv_chunk = s
+    if t % q_chunk:
+        q_chunk = t
+    dev = q.device
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    outs = []
+    for qi in range(0, t, q_chunk):
+        qch = q[:, qi:qi + q_chunk]
+        q_pos = torch.arange(qi, qi + q_chunk, device=dev) + q_offset
+        m = torch.full((b, q_chunk, kh, g), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        lsum = torch.zeros((b, q_chunk, kh, g), dtype=torch.float32,
+                           device=dev)
+        acc = torch.zeros((b, q_chunk, kh, g, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(0, s, kv_chunk):
+            kch = k[:, ki:ki + kv_chunk]
+            vch = v[:, ki:ki + kv_chunk]
+            k_pos = torch.arange(ki, ki + kv_chunk, device=dev)
+            scores = torch.einsum("btkgh,bskh->btkgs", qch,
+                                  kch).to(torch.float32)
+            if softcap_val > 0:
+                scores = L.softcap(scores, softcap_val)
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            scores = torch.where(mask[None, :, None, None, :], scores, neg)
+            m_new = torch.maximum(m, torch.amax(scores, dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("btkgs,bskh->btkgh", p.to(v.dtype),
+                              vch).to(torch.float32)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp(lsum[..., None], min=1e-30))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def attend(x: Tensor, p: dict, cfg: ModelConfig, *,
+           kv_src: Optional[Tensor] = None,
+           positions: Optional[Tensor] = None, causal: bool = True,
+           window: Optional[int] = None, use_rope: bool = True) -> Tensor:
+    """Full (prefill / ``forward``) self-attention. x: (B, T, d). GQA
+    repeats K/V to the full head count, as the reference does."""
+    if kv_src is not None:
+        raise ValueError("cross-attention (kv_src) is not ported: it comes "
+                         "with the encoder-decoder and vision configs "
+                         "(ROADMAP A6)")
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(x, p, cfg)
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    g = cfg.num_heads // cfg.num_kv_heads
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    qg = q.reshape(b, t, cfg.num_heads, 1, hd)
+    out = _chunked_attention(qg, k, v, causal=causal, window=window,
+                             softcap_val=cfg.attn_softcap)
+    out = out.to(x.dtype).reshape(b, t, -1)
+    return L.project(out, p["wo"], cfg, "attn.wo")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):

@@ -1,7 +1,14 @@
-"""Shared layers of the serving path (port of ``repro.models.layers``):
-norms, the embedding gather and the tied head, logit soft-capping, and the
-projection choke point that routes every quantized weight through
-``kernels.dispatch``.
+"""Shared layers (port of ``repro.models.layers``): norms, the embedding
+gather and the tied head, logit soft-capping, the affine activation
+fake-quant, ``qlinear`` (the quantization modes none / ruq / ruq_unsigned /
+pann as fake-quant projections) and the projection choke point
+``apply_linear``, which routes fp params through ``qlinear``, a serving
+artifact through ``kernels.dispatch`` or, without a backend, through the
+legacy float dequant.
+
+The reference's activation-range calibration tap (``calib_tap``) comes
+with training; without one installed the reference's ``path`` argument is
+inert, and so it is here.
 
 Parameters are plain dicts of tensors, laid out as in the JAX package so
 the two can be compared leaf for leaf.
@@ -12,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import pann as pann_core
+from repro_torch.core import quant
 from repro_torch.kernels import dispatch
 
 Tensor = torch.Tensor
@@ -55,12 +64,76 @@ def softcap(x: Tensor, cap: float) -> Tensor:
     return cap * torch.tanh(x / x.new_full((), float(cap)))
 
 
+# ---------------------------------------------------------------------------
+# Asymmetric (zero-point) activation fake-quant
+# ---------------------------------------------------------------------------
+
+def affine_act_quant(x: Tensor, bits: int):
+    """x ~= s * (q - z), q unsigned in [0, 2^b - 1]. Returns (q, s, z)."""
+    return quant.affine_quant_levels(x, (1 << bits) - 1)
+
+
+def affine_fake_quant(x: Tensor, bits: int) -> Tensor:
+    q, s, z = affine_act_quant(x, bits)
+    xq = s * (q - z)
+    return x + (xq - x).detach()
+
+
+def affine_fake_quant_n(x: Tensor, n: Tensor) -> Tensor:
+    """``affine_fake_quant`` with the level count n = 2^b - 1 given as a
+    device tensor (a serving artifact's ``act_n`` leaf)."""
+    xf = x.to(torch.float32)
+    q, s, z = quant.affine_quant_levels(xf, n)
+    return (s * (q - z)).to(x.dtype)
+
+
+def affine_fake_quant_ranged(x: Tensor, bits: int, rng: Tensor) -> Tensor:
+    """``affine_fake_quant`` against a calibrated range rng = [lo, hi]
+    (STE); an unseen range (lo > hi) is bit-exact with
+    ``affine_fake_quant``."""
+    xf = x.to(torch.float32)
+    q, s, z = quant.affine_from_range(xf, float((1 << bits) - 1),
+                                      rng[0], rng[1])
+    xq = s * (q - z)
+    return xf + (xq - xf).detach()
+
+
+# ---------------------------------------------------------------------------
+# QuantLinear
+# ---------------------------------------------------------------------------
+
 def module_quant(cfg, path: str):
     """The quant spec of the module at ``path``: the global ``cfg.quant``,
     or the policy tree's entry when the config carries one."""
     if cfg.policy is None:
         return cfg.quant
     return cfg.policy.lookup(path)
+
+
+def qlinear(x: Tensor, w: Tensor, b: Optional[Tensor], qc,
+            path: Optional[str] = None) -> Tensor:
+    """y = quant(x) @ quant(w) + b at ``qc.mode`` (a ``QuantConfig`` or a
+    per-module ``policy.ModuleQuant``), every mode a fake-quant so the same
+    code serves evaluation and straight-through training. x (..., d_in),
+    w (d_in, d_out). 'ruq_unsigned' is numerically 'ruq' (the unsigned
+    split is exact; it differs in power accounting only). ``path`` names
+    the module; it is inert until the calibration tap is ported."""
+    mode = qc.mode
+    dtype = x.dtype
+    if mode == "none":
+        y = x @ w
+    elif mode in ("ruq", "ruq_unsigned"):
+        wq = quant.fake_quant(w.to(torch.float32), qc.weight_bits,
+                              signed=True, dim=0).to(dtype)
+        xq = affine_fake_quant(x.to(torch.float32), qc.act_bits).to(dtype)
+        y = xq @ wq
+    elif mode == "pann":
+        y = pann_core.pann_qat_matmul(x, w, qc)
+    else:
+        raise ValueError(f"unknown quant mode {mode!r}")
+    if b is not None:
+        y = y + b
+    return y
 
 
 def project(x: Tensor, p: dict, cfg, path: str) -> Tensor:
@@ -82,18 +155,29 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, device,
 
 def apply_linear(x: Tensor, p: dict, qc=None, backend: Optional[str] = None,
                  path: Optional[str] = None) -> Tensor:
-    """The projection entry point. The port serves quantized weight stores
-    only: a module with ``w_q`` leaves runs through the selected kernel
-    backend (``kernels.dispatch.serving_linear``). The JAX package's float
-    and fake-quant (training) branches, which ``qc`` selects there, are not
-    ported yet."""
+    """The projection entry point. fp params ({"w"}) route through
+    ``qlinear`` at ``qc``'s mode; a serving artifact ({"w_q", ...})
+    through the kernel backend (``kernels.dispatch``: 'ref' | 'fused' |
+    'packed'), or, when ``backend`` is None, through the legacy float
+    dequant: w = w_q * w_scale, the activations fake-quantized against the
+    frozen range of ``act_lo``/``act_hi``, at ``act_n`` levels over their
+    own range, or not at all."""
     if "w_q" in p and backend is not None:
         return dispatch.serving_linear(x, p, backend)
-    mode = getattr(qc, "mode", None)
-    raise ValueError(
-        f"module {path!r} (quant mode {mode!r}): the port serves weight-store "
-        "leaves (w_q) through a kernel backend ('ref' | 'fused' | 'packed'); "
-        "the float and QAT projection paths are not ported yet")
+    b = p.get("b")
+    b = None if b is None else b.to(x.dtype)
+    if "w_q" in p:
+        w = (p["w_q"].to(torch.float32) * p["w_scale"]).to(x.dtype)
+        if "act_lo" in p:
+            xf = x.to(torch.float32)
+            q, s, z = quant.affine_from_range(xf, p["act_n"], p["act_lo"],
+                                              p["act_hi"])
+            x = (s * (q - z)).to(x.dtype)
+        elif "act_n" in p:
+            x = affine_fake_quant_n(x, p["act_n"])
+        y = x @ w
+        return y if b is None else y + b
+    return qlinear(x, p["w"].to(x.dtype), b, qc, path=path)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, device) -> dict:
@@ -106,14 +190,7 @@ def embed(tokens: Tensor, p: dict, dtype) -> Tensor:
 
 
 def unembed(x: Tensor, p: dict, qc) -> Tensor:
-    """The tied LM head: x @ table.T. The reference routes it through
-    ``qlinear`` at ``qc``'s mode, which the serve engine leaves at "none",
-    so it is a float matmul over the embedding table (kept in fp32 by the
-    weight store); the fake-quant modes come with ROADMAP A3."""
-    mode = getattr(qc, "mode", None)
-    if mode != "none":
-        raise ValueError(
-            f"tied lm_head at quant mode {mode!r}: only mode 'none' (the "
-            "float matmul) is ported; the ruq / ruq_unsigned / pann "
-            "projections are ROADMAP A3")
-    return x @ p["table"].t().to(x.dtype)
+    """The tied LM head: x @ table.T through ``qlinear`` at ``qc``'s mode
+    (a serve engine leaves it at "none": a float matmul over the fp32
+    table the weight store keeps)."""
+    return qlinear(x, p["table"].t().to(x.dtype), None, qc, path="lm_head")

@@ -1,14 +1,16 @@
-"""Top-level model for decode serving (port of the decode half of
-``repro.models.model``): parameter init, decode state and ``decode_step``.
+"""Top-level model (port of ``repro.models.model``): parameter init,
+``forward`` (prefill / evaluation over whole sequences) and decode
+(``init_decode_state``, ``decode_step``) for the decoder-only configs.
 
 Parameters are a plain dict: {"embed": {"table"}, "layers": [one dict per
 layer], "final_norm": {"scale"[, "bias"]}, "lm_head": {"w"}}; a config with
 tied embeddings has no "lm_head" and unembeds through the table. A weight
-store's views have the same structure with quantized projection leaves.
+store's views and a single-point serving artifact have the same structure
+with quantized projection leaves.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -59,6 +61,57 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
+class ForwardOut(NamedTuple):
+    logits: Tensor
+    aux_loss: Tensor
+    # the observed activation ranges of a calibration pass: always None
+    # until calibration is ported (ROADMAP A8)
+    calib: Optional[dict] = None
+
+
+def _head(x: Tensor, params: dict, cfg: ModelConfig) -> Tensor:
+    """Final norm, the LM head (tied through ``unembed``, untied through
+    ``project``) and the logit softcap; fp32 logits."""
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    if cfg.tie_embeddings:
+        logits = L.unembed(x, params["embed"], L.module_quant(cfg, "lm_head"))
+    else:
+        logits = L.project(x, params["lm_head"], cfg, "lm_head")
+    return L.softcap(logits.to(torch.float32), cfg.logit_softcap)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
+            enc_inputs: Optional[Tensor] = None,
+            image_embeds: Optional[Tensor] = None,
+            remat: bool = True, calib: Optional[dict] = None) -> ForwardOut:
+    """tokens: (B, T) int -> logits (B, T, V) fp32, causal, through every
+    layer. ``params`` are fp params (each projection through ``qlinear``
+    at its quant mode) or a serving artifact or rung view (through
+    ``cfg.kernel_backend``, or the legacy float dequant without one).
+    ``remat`` is accepted and inert: there is no backward pass to
+    checkpoint until training is ported (ROADMAP A8), which brings
+    ``calib`` too; ``enc_inputs`` / ``image_embeds`` come with the
+    encoder-decoder and vision configs (ROADMAP A6)."""
+    if calib:
+        raise ValueError("calib (activation-range calibration) is not "
+                         "ported: it comes with training (ROADMAP A8)")
+    if enc_inputs is not None or image_embeds is not None:
+        raise ValueError("enc_inputs / image_embeds are not ported: they "
+                         "come with the encoder-decoder and vision configs "
+                         "(ROADMAP A6)")
+    specs = layer_specs(cfg)
+    for spec in specs:
+        T._require_attn(spec)
+    x = L.embed(tokens, params["embed"], _dtype(cfg))
+    if cfg.scale_embed:
+        x = x * embed_scale(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, lp in zip(specs, params["layers"]):
+        x, a = T.apply_layer(x, lp, cfg, spec)
+        aux = aux + a
+    return ForwardOut(logits=_head(x, params, cfg), aux_loss=aux)
+
+
 class DecodeState(NamedTuple):
     caches: list           # one cache per layer
     position: Tensor       # () int32
@@ -94,11 +147,5 @@ def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
                                state.caches):
         x, c = T.decode_layer(x, cache, lp, cfg, spec)
         new_caches.append(c)
-    x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    if cfg.tie_embeddings:
-        logits = L.unembed(x, params["embed"], L.module_quant(cfg, "lm_head"))
-    else:
-        logits = L.project(x, params["lm_head"], cfg, "lm_head")
-    logits = L.softcap(logits.to(torch.float32), cfg.logit_softcap)
-    return logits, DecodeState(caches=new_caches,
-                               position=state.position + 1)
+    return _head(x, params, cfg), DecodeState(
+        caches=new_caches, position=state.position + 1)

@@ -1,16 +1,20 @@
-"""Serving-time weight quantization: one max-budget weight store with a
-zero-copy view per ladder rung (port of ``repro.models.serving``'s
-``build_weight_store`` path).
+"""Serving-time weight quantization (port of ``repro.models.serving``):
+the single-point artifact (``quantize_params_for_serving``) and one
+max-budget weight store with a zero-copy view per ladder rung
+(``build_weight_store``).
 
-Each projection weight is quantized ONCE at the largest budget any rung
-asks of it (PANN Eq. 12, per-output-channel gamma), stored as int8 codes
-and, for the 'packed' backend, as bit-packed planes. Every rung is a view
-that references the store's tensors and adds only small per-rung device
-leaves: ``plane_shift`` (the low planes its kernels skip), the view's
-``w_colsum``, the activation level counts, and the ``kv_cache`` level
-counts. Weight memory is therefore independent of ladder depth.
+Each projection weight is quantized with PANN Eq. 12 (per-output-channel
+gamma) and stored as int8 codes and, for the 'packed' backend, as
+bit-packed planes. A single-point artifact packs each module at its
+value-exact plane count. A weight store quantizes each module ONCE at the
+largest budget any rung asks of it, packs 7 planes, and realizes every
+rung as a view that references the store's tensors and adds only small
+per-rung device leaves: ``plane_shift`` (the low planes its kernels
+skip), the view's ``w_colsum``, the activation level counts, and the
+``kv_cache`` level counts. Weight memory is therefore independent of
+ladder depth.
 
-Memory at full width: the store is built module by module. Planes are
+Memory at full width: both builders go module by module. Planes are
 decomposed and packed one plane at a time in uint8 (never as an int32
 stack of all planes), and each fp32 weight is dropped from the params
 dict as soon as it is quantized.
@@ -27,6 +31,7 @@ from repro_torch.core import policy as pol
 from repro_torch.core import quant as quant_core
 from repro_torch.core.unsigned import unsigned_split
 from repro_torch.kernels.pann_matmul_packed import pack_planes
+from repro_torch.models import transformer as T
 
 Tensor = torch.Tensor
 
@@ -51,12 +56,31 @@ def _is_quant_parent(node: dict, trail: tuple) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class ServingQuantSpec:
-    """The serving-quantizer knobs of a ladder build: ``pack_planes`` adds
-    the 'packed' backend's plane leaves; ``cache_bits`` (an int or a
-    {rung key: bits} mapping) attaches the rungs' KV-cache leaves. The JAX
-    package's frozen-calibration knob comes with the training port."""
+    """Every serving-quantizer knob in one object. ``policy`` or ``r`` +
+    ``act_bits`` pick a single-point artifact's operating point (a ladder
+    build takes its points from the rung specs and refuses these three);
+    the codes are always int8. ``pack_planes`` adds the 'packed' backend's
+    plane leaves, at
+    ``plane_count`` planes (None: each module's value-exact count in a
+    single-point artifact; a ladder store packs 7 and refuses another
+    count); ``cache_bits`` (an int,
+    or a {rung key: bits} mapping for a ladder) attaches the KV-cache
+    leaves. ``calib`` (frozen activation ranges from calibrated training)
+    comes with training (ROADMAP A8) and is refused."""
+    policy: Optional[pol.PolicyTree] = None
+    r: Optional[float] = None
+    act_bits: Optional[int] = None
     pack_planes: bool = False
+    plane_count: Optional[int] = None
+    calib: Optional[Mapping[str, Any]] = None
     cache_bits: Any = None
+
+
+def _refuse_calib(calib) -> None:
+    if calib:
+        raise ValueError("calib (frozen activation ranges) is not ported: "
+                         "it comes with training and calibration "
+                         "(ROADMAP A8)")
 
 
 def _planes_artifact(codes: Tensor, plane_count: int) -> dict:
@@ -92,6 +116,114 @@ def _act_leaves(ab: int, device) -> dict:
             "act_nlvl": _full(quant_core.cap_levels(int(ab)), device)}
 
 
+def _cache_role_bits(policy, cache_bits) -> Optional[dict]:
+    """Per-role cache bits: the policy's explicit cache-role overrides win,
+    ``cache_bits`` fills the rest; None keeps the fp cache."""
+    policy_cache = pol.tree_cache_bits(policy) if policy is not None else {}
+    if not policy_cache and cache_bits is None:
+        return None
+    default_b = cache_bits if cache_bits is not None else max(
+        policy_cache.values())
+    return {role: int(policy_cache.get(role, default_b))
+            for role in pol.CACHE_PATHS}
+
+
+def quantize_params_for_serving(params: Any, cfg,
+                                spec: ServingQuantSpec) -> Any:
+    """The single-point serving artifact: every projection {"w"} becomes
+    {"w_q", "w_scale", "w_colsum"[, "w_planes_pos", "w_planes_neg"]
+    [, "act_n", "act_nlvl"][, "b"]} at the point of ``spec``: ``r`` and
+    ``act_bits`` (b~x; None keeps the activations in the compute dtype
+    on the float-dequant path) or each module's own point from
+    ``policy``. The embedding table stays fp32. ``pack_planes`` packs
+    ``plane_count`` planes, or each module's value-exact
+    ``weight_storage_bits`` taken, as the reference takes it, over the
+    module's codes stacked across the layer groups of ``cfg``; codes are
+    clipped to the planes' +-(2^P - 1) so ``w_q`` and the planes describe
+    the same weights. ``cache_bits`` (or a policy's cache-role overrides)
+    attaches a ``kv_cache`` dict of level counts to every attention block.
+    There is no ``plane_shift`` leaf: the kernels run at shift 0.
+
+    The caller hands ``params`` over: each fp32 ``w`` is popped out of it
+    once quantized."""
+    _refuse_calib(spec.calib)
+    policy, act_bits = spec.policy, spec.act_bits
+    r = spec.r if spec.r is not None else cfg.quant.r
+    role_bits = _cache_role_bits(policy, spec.cache_bits)
+    pattern, n_groups, _ = T.group_layout(cfg)
+    grouped = n_groups * len(pattern)
+    modules = []        # (artifact node, stack key) in walk order
+    peak: dict = {}     # stack key -> max |code| over the stack
+
+    def quantize(node: dict, trail: tuple, stack) -> dict:
+        w = node.pop("w")
+        if policy is not None:
+            mq = policy.lookup(pol.serving_path(trail))
+            r_mod, ab = mq.r, mq.b_x_tilde
+        else:
+            r_mod, ab = r, act_bits
+        w_q, gamma = pann_core.pann_quantize(w.to(torch.float32),
+                                             float(r_mod), dim=w.ndim - 2)
+        dev = w.device
+        del w
+        codes = torch.clamp(w_q, -127, 127).to(torch.int8)
+        del w_q
+        key = (stack, trail)
+        m = torch.amax(torch.abs(codes))
+        peak[key] = m if key not in peak else torch.maximum(peak[key], m)
+        out = {"w_q": codes, "w_scale": gamma.to(torch.float32)}
+        if ab is not None:
+            out.update(_act_leaves(ab, dev))
+        if "b" in node:
+            out["b"] = node["b"]
+        modules.append((out, key))
+        return out
+
+    def walk(node, trail=(), stack=None):
+        if isinstance(node, dict):
+            if _is_quant_parent(node, trail):
+                return quantize(node, trail, stack)
+            name = trail[-1] if trail else ""
+            wk = node.get("wk")
+            cache_dev = (wk["w"].device if role_bits is not None
+                         and name in ("attn", "shared_attn")
+                         and isinstance(wk, dict) and "w" in wk else None)
+            out = {k: walk(v, trail + (k,), stack) for k, v in node.items()}
+            if cache_dev is not None:
+                out["kv_cache"] = _cache_artifact(role_bits, cache_dev)
+            return out
+        if isinstance(node, (list, tuple)):
+            if trail == ("layers",):
+                # the reference stacks layer i of every group along one
+                # axis; tail layers stand alone
+                return [walk(v, trail, ("group", i % len(pattern))
+                             if i < grouped else ("tail", i))
+                        for i, v in enumerate(node)]
+            return [walk(v, trail, stack) for v in node]
+        return node
+
+    out = walk(params)
+    for node, key in modules:
+        codes = node.pop("w_q")
+        rest = {k: node.pop(k) for k in list(node) if k != "w_scale"}
+        if spec.pack_planes:
+            p_cnt = (spec.plane_count if spec.plane_count is not None
+                     else pann_core.weight_storage_bits(peak[key]))
+            cap = (1 << min(int(p_cnt), 7)) - 1
+            codes = torch.clamp(codes, -cap, cap)
+        node["w_q"] = codes
+        node["w_scale"] = node.pop("w_scale")
+        node["w_colsum"] = torch.sum(codes, dim=-2, dtype=torch.int32)
+        if spec.pack_planes:
+            node.update(_planes_artifact(codes, int(p_cnt)))
+        node.update(rest)
+    # the recursive ``walk`` closure is a reference cycle that holds
+    # ``modules``: emptied here, the artifact is freed with its last
+    # caller reference, not at the next cyclic collection
+    modules.clear()
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class WeightStore:
     """One quantized artifact serving a whole ladder: ``store`` holds the
@@ -114,18 +246,6 @@ def _resolve_point(spec, trail) -> tuple[float, Optional[int]]:
     return float(spec), None
 
 
-def _rung_cache_role_bits(spec, cb: Optional[int]) -> Optional[dict]:
-    """Per-role cache bits of one rung: explicit PolicyTree overrides win,
-    ``cb`` fills the rest; None when the rung keeps the fp cache."""
-    policy_cache = pol.tree_cache_bits(spec) \
-        if isinstance(spec, pol.PolicyTree) else {}
-    if not policy_cache and cb is None:
-        return None
-    default_b = cb if cb is not None else max(policy_cache.values())
-    return {role: int(policy_cache.get(role, default_b))
-            for role in pol.CACHE_PATHS}
-
-
 def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
                        spec: Optional[ServingQuantSpec] = None
                        ) -> WeightStore:
@@ -135,6 +255,14 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
     once quantized, which at full width is what keeps the build under the
     card's memory."""
     spec = spec or ServingQuantSpec()
+    _refuse_calib(spec.calib)
+    unused = [f for f in ("policy", "r", "act_bits", "plane_count")
+              if getattr(spec, f) is not None]
+    if unused:
+        raise ValueError(
+            f"build_weight_store takes each rung's point from r_by_rung and "
+            f"packs {LADDER_PLANE_COUNT} planes; the spec's {unused} would "
+            f"be ignored")
     cache_bits = spec.cache_bits
     keys = list(r_by_rung)
     if not keys:
@@ -149,8 +277,10 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
     for key in keys:
         cb = (cache_bits.get(key) if isinstance(cache_bits, Mapping)
               else cache_bits)
-        rung_cache[key] = _rung_cache_role_bits(
-            r_by_rung[key], None if cb is None else int(cb))
+        spec_k = r_by_rung[key]
+        rung_cache[key] = _cache_role_bits(
+            spec_k if isinstance(spec_k, pol.PolicyTree) else None,
+            None if cb is None else int(cb))
     cached = [k for k in keys if rung_cache[k] is not None]
     if cached and len(cached) != len(keys):
         raise ValueError("kv_cache leaves must be all-or-none across rungs")

@@ -64,13 +64,20 @@ def group_layout(cfg: ModelConfig, num_layers: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# Per-layer init / decode (attention + dense MLP layers)
+# Per-layer init / apply / decode (attention + dense MLP layers)
 # ---------------------------------------------------------------------------
+
+# the queue item (ROADMAP A) that ports each other layer kind
+_KIND_ITEM = {"attn_moe": "A4", "mamba": "A5", "mamba_attn": "A5",
+              "rwkv": "A5", "cross_attn": "A6"}
+
 
 def _require_attn(spec: LayerSpec) -> None:
     if spec.kind != "attn":
-        raise ValueError(f"layer kind {spec.kind!r} is not ported yet "
-                         "(attn only)")
+        item = _KIND_ITEM.get(spec.kind)
+        where = f" (ROADMAP {item})" if item else ""
+        raise ValueError(f"layer kind {spec.kind!r} is not ported yet: "
+                         f"attn only{where}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
@@ -108,6 +115,20 @@ def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
     if cfg.post_norm and post_key in p:
         delta = L.apply_norm(delta, p[post_key], cfg.norm)
     return x + delta
+
+
+def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
+                causal: bool = True) -> tuple[Tensor, Tensor]:
+    """Prefill / ``forward`` of one layer. Returns (x, aux_loss); an attn
+    layer's aux loss is 0 (MoE's load-balancing loss comes with A4)."""
+    _require_attn(spec)
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    h = A.attend(h, p["attn"], cfg, window=spec.window, causal=causal)
+    x = _residual(x, h, p, cfg, "post1")
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    h = M.apply_mlp(h, p["mlp"], cfg)
+    x = _residual(x, h, p, cfg, "post2")
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,

@@ -113,6 +113,13 @@ class ServeEngine:
         if cache_bits is not None:
             cfg = dataclasses.replace(
                 cfg, cache_bits=7 if cache_bits == "auto" else cache_bits)
+        if backend is None:
+            raise ValueError(
+                "ServeEngine serves its weight store through a kernel "
+                "backend ('ref' | 'fused' | 'packed'), not backend=None; the "
+                "legacy float dequant is reached through models.model."
+                "forward / decode_step on an artifact with "
+                "cfg.kernel_backend None")
         self.backend = dispatch.parse_backend(backend)
         cfg = dataclasses.replace(cfg, kernel_backend=self.backend)
         self.cfg = cfg

@@ -1,0 +1,175 @@
+"""Prefill attention and ``forward`` of the port against the JAX package on
+the CPU: ``_chunked_attention`` (causal, window, softcap, ``q_offset``,
+several q and kv chunks, the one-chunk fallback), ``forward`` of the four
+reduced dense decoders at quant modes 'none' and 'pann' on fp params
+carried across from the reference, the port's teacher-forced
+``decode_step`` against its own ``forward``, and the refusals of what is
+not ported (each naming its ROADMAP queue item).
+
+The reference's ``forward`` runs under ``jax.disable_jit()``: op by op,
+so a division by a Python scalar stays a division (under jit XLA may turn
+it into a multiply by the reciprocal, which the port never does).
+
+Tolerances: ``_chunked_attention`` within 1e-6 * max|out|; ``forward`` at
+'none' within 1e-5 * max|logit|; at 'pann' within the same bound when no
+activation code flipped between the two sides, else within 2e-2 *
+max|logit| (one flipped code of b~x = 4 levels moves its projection's
+output by up to one activation step), the count of flipped codes printed
+and held to at most 1 in 10^4; decode against forward rtol = atol = 2e-2
+as ``tests/test_models_smoke.py`` holds the reference's.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import QuantConfig as RQuantConfig
+from repro.core import quant as RQ
+from repro.models import attention as RA
+from repro.models import model as RMD
+from repro_torch.configs.base import QuantConfig as TQuantConfig
+from repro_torch.convert import params_from_reference
+from repro_torch.core import quant as TQ
+from repro_torch.models import attention as TA
+from repro_torch.models import model as TMD
+from repro_torch.models import transformer as TT
+from test_torch_dense_variants import port_cfg, ref_cfg, reference_params
+
+ARCHS = ("llama3-8b", "qwen1.5-4b", "gemma2-9b", "stablelm-12b")
+T_LEN = 12
+NONE_BOUND = 1e-5
+FLIP_BOUND = 2e-2
+MAX_FLIP_SHARE = 1e-4
+PANN = dict(mode="pann", r=2.83, act_bits_tilde=4)
+
+# (B, T, S, K, G, hd, causal, window, softcap, q_offset, q_chunk, kv_chunk)
+ATT_CASES = {
+    "causal": (2, 16, 16, 2, 2, 8, True, None, 0.0, 0, 4, 8),
+    "window": (2, 16, 16, 2, 2, 8, True, 5, 0.0, 0, 4, 4),
+    "softcap": (2, 16, 16, 2, 1, 16, True, None, 20.0, 0, 8, 4),
+    "bidirectional": (1, 8, 16, 1, 4, 8, False, None, 0.0, 0, 4, 8),
+    "q_offset": (2, 8, 16, 2, 2, 8, True, 6, 0.0, 8, 4, 4),
+    "one_chunk": (2, 12, 12, 2, 2, 8, True, None, 0.0, 0, 8, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATT_CASES))
+def test_chunked_attention_matches_reference(case):
+    b, t, s, kh, g, hd, causal, window, cap, off, qc, kc = ATT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q = rng.standard_normal((b, t, kh, g, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, kh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, kh, hd)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap_val=cap, q_offset=off,
+              q_chunk=qc, kv_chunk=kc)
+    want = np.asarray(RA._chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    got = TA._chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), **kw).numpy()
+    assert got.shape == want.shape == (b, t, kh, g, hd)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def _tokens(cfg, seed=0, b=2, t=T_LEN):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+
+
+def _capture(monkeypatch, module, log):
+    """Record the activation codes of every affine quantizer call."""
+    orig = module.affine_quant_levels
+
+    def wrapped(x, n, include_zero=False):
+        out = orig(x, n, include_zero=include_zero)
+        log.append(np.asarray(out[0]))
+        return out
+
+    monkeypatch.setattr(module, "affine_quant_levels", wrapped)
+
+
+def reference_forward(arch, qc, tokens):
+    cfg = dataclasses.replace(ref_cfg(arch), quant=RQuantConfig(**qc))
+    params = jax.tree_util.tree_map(jnp.asarray, reference_params(arch))
+    with jax.disable_jit():
+        out = RMD.forward(params, cfg, jnp.asarray(tokens), remat=False)
+    return np.asarray(out.logits)
+
+
+def port_forward(arch, qc, tokens):
+    cfg = dataclasses.replace(port_cfg(arch), quant=TQuantConfig(**qc))
+    params = params_from_reference(reference_params(arch), cfg, "cpu")
+    out = TMD.forward(params, cfg, torch.from_numpy(tokens).long())
+    assert float(out.aux_loss) == 0.0 and out.calib is None
+    return out.logits.numpy()
+
+
+@pytest.mark.parametrize("mode", ["none", "pann"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch, mode, monkeypatch):
+    qc = dict(PANN) if mode == "pann" else dict(mode="none")
+    tokens = _tokens(ref_cfg(arch), seed=len(arch))
+    ref_codes, port_codes = [], []
+    _capture(monkeypatch, RQ, ref_codes)
+    _capture(monkeypatch, TQ, port_codes)
+    want = reference_forward(arch, qc, tokens)
+    got = port_forward(arch, qc, tokens)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    assert len(ref_codes) == len(port_codes)
+    flipped = sum(int((a != b).sum()) for a, b in zip(ref_codes, port_codes))
+    n_codes = sum(a.size for a in ref_codes)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"{arch} {mode}: max|err| / max|logit| = {err:.3g}, "
+          f"{flipped} of {n_codes} activation codes flipped")
+    assert flipped <= MAX_FLIP_SHARE * n_codes
+    bound = NONE_BOUND if flipped == 0 else FLIP_BOUND
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=bound * np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(arch):
+    """Teacher-forced ``decode_step`` reproduces the port's ``forward``
+    logits (fp params, fp cache)."""
+    cfg = port_cfg(arch)
+    params = params_from_reference(reference_params(arch), cfg, "cpu")
+    tokens = torch.from_numpy(_tokens(cfg, seed=3, b=1, t=8)).long()
+    fwd = TMD.forward(params, cfg, tokens).logits
+    state = TMD.init_decode_state(params, cfg, 1, 8)
+    outs = []
+    for t in range(8):
+        lg, state = TMD.decode_step(params, cfg, state, tokens[:, t:t + 1])
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    np.testing.assert_allclose(dec.numpy(), fwd.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("family,item", [("moe", "A4"), ("ssm", "A5"),
+                                         ("hybrid", "A5"), ("vlm", "A6"),
+                                         ("encdec", "A6")])
+def test_forward_refuses_unported_layer_kinds(family, item):
+    cfg = dataclasses.replace(port_cfg("llama3-8b"), family=family)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+        TMD.forward({}, cfg, tokens)
+    spec = TT.group_pattern(cfg)[0]
+    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+        TT.apply_layer(torch.zeros((1, 4, 64)), {}, cfg, spec)
+
+
+def test_forward_refuses_calibration_and_cross_inputs():
+    cfg = port_cfg("llama3-8b")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        TMD.forward({}, cfg, tokens, calib={"attn.wq": (0.0, 1.0)})
+    for kw in ("enc_inputs", "image_embeds"):
+        with pytest.raises(ValueError, match="ROADMAP A6"):
+            TMD.forward({}, cfg, tokens, **{kw: torch.zeros((1, 2, 64))})
+    with pytest.raises(ValueError, match="ROADMAP A6"):
+        TA.attend(torch.zeros((1, 4, 64)), {}, cfg,
+                  kv_src=torch.zeros((1, 2, 64)))

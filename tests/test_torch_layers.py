@@ -75,10 +75,17 @@ def test_unembed_matches_reference_and_refuses_quant_modes():
     assert got.shape == want.shape == (2, 1, 512)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-6 * np.abs(want).max())
+    # the fake-quant modes run through qlinear, as the reference's do; a
+    # mode that is none of the four is refused
     for mode in ("ruq", "ruq_unsigned", "pann"):
-        with pytest.raises(ValueError, match="A3"):
-            TL.unembed(_t(x), {"table": _t(table)},
-                       TQuantConfig(mode=mode))
+        want = np.asarray(RL.unembed(jnp.asarray(x), {"table": jnp.asarray(
+            table)}, RQuantConfig(mode=mode)))
+        got = TL.unembed(_t(x), {"table": _t(table)},
+                         TQuantConfig(mode=mode)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        TL.unembed(_t(x), {"table": _t(table)}, TQuantConfig(mode="lsq"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
