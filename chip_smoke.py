@@ -27,8 +27,10 @@ Phases (any failure raises and the script exits non-zero):
               cluster size it launched. The same B3 checks and timings at
               the dense variants' (B, KH, G, hd): qwen1.5-4b (4, 20, 1,
               128), gemma2-9b (4, 8, 2, 256) with softcap 50, and
-              stablelm-12b (4, 8, 4, 160); and B2 at each variant's decode
-              shapes (M = 4 at plane_shift 0-6, M = 1 at 0 and 5), timed
+              stablelm-12b (4, 8, 4, 160), and dbrx-132b (4, 8, 6, 128):
+              G = 6, one warp a head; and B2 at each variant's and each
+              MoE config's decode shapes (M = 4 at plane_shift 0-6, M = 1
+              at 0 and 5; dbrx's K = 6144 and 100352-wide head), timed
               at M = 4 beside its bound and the fp32 matmul on the
               dequantized weight; gemma2's tied head (an fp32 matmul over
               the embedding table) timed alone. B2 and B1 (fused) at every
@@ -63,8 +65,16 @@ Phases (any failure raises and the script exits non-zero):
               graphed step bit-identical to eager, B2 / B3 launches a
               graphed step 7 L (+ 1 with an untied head) / L, no
               recompile, peak memory under 70 GB.
+4d. moe     — mixtral-8x7b cut to 8 layers and dbrx-132b to 2 (full
+              width; the depth that fits one card with the fp32 experts),
+              each as phase 4c: B2 / B3 launches a graphed step 4 L + 1 /
+              L (the router and the E experts are fp32 matmuls, every
+              expert on every token), every graphed step bit-identical to
+              eager, no recompile, peak under 70 GB; the device ms a step
+              split between the expert matmuls (against their byte
+              bound), B2, B3 and the small kernels.
 5. backends — each served config cut to 2 layers (gemma2: one local and
-              one global layer) served by 'ref', 'fused' and
+              one global layer; mixtral to 1) served by 'ref', 'fused' and
               'packed' engines over ONE weight store: logits and tokens must
               be bit-identical; counts the fused matmul kernel's launches;
               the store is written as a v1 serving artifact
@@ -104,8 +114,14 @@ Phases (any failure raises and the script exits non-zero):
               step an eager ``decode_step``. (c) the legacy paths cut to 2
               layers: --quant none, --quant ruq --power_bits 8, --quant
               pann --power_bits 4 --backend "" (fp params through the
-              fake-quant projections). Every serve: the reference's
-              summary keys, finite logits, peak memory under 70 GB.
+              fake-quant projections). (d) 7a on mixtral-8x7b at 8
+              layers: logits and the load-balance ``aux_loss``
+              bit-identical across the backends. (e) mixtral at 8 layers
+              through the single-point CLI, --quant pann --power_bits 4 on
+              'packed' and 'ref': every step's logits bit-identical. Every
+              serve: the reference's summary keys, finite logits, peak
+              memory under 70 GB. TF32 must stay off for the fp32 matmuls
+              (PyTorch's defaults, asserted at the start and the end).
 
 The build phase also counts the tensor-core instructions (wgmma's GMMA,
 mma.sync's IMMA) in the SASS of the pann_matmul, pann_matmul_packed and
@@ -142,6 +158,21 @@ L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
 SLEEP_CYCLES = 400_000_000         # ~0.2 s of GPU clock: host enqueues ahead
 PROFILE_STEPS = 2
 PROFILE_ATTEMPTS = 3               # profiles of a serve whose counts differ
+# the MoE configs served at full width, each cut in depth to fit one card
+# with its fp32 experts (5.64 GB a mixtral layer, 12.68 GB a dbrx layer);
+# the full depth needs sharding across cards
+MOE_LAYERS = {"mixtral-8x7b": 8, "dbrx-132b": 2}
+MOE_ARCHS = tuple(MOE_LAYERS)
+
+
+def served_config(arch: str, **kwargs):
+    """``arch``'s config as the script serves it: full width, and a MoE
+    config at its MOE_LAYERS depth."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch, **kwargs)
+    if arch in MOE_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS[arch])
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -552,11 +583,14 @@ def _check_attention(a, s, bits, softcap: float = 0.0) -> float:
 
 
 # (config, B, KH, G, hd, softcap) of each served configuration's attention:
-# llama3-8b's (the main path) first, then the dense variants'
+# llama3-8b's (the main path) first, then the dense variants', then dbrx's
+# (G = 6: each head gets 8 // 6 = 1 of the block's 8 warps); mixtral's is
+# llama3-8b's
 ATT_SERVE_SHAPES = (("llama3-8b", BATCH, 8, 4, 128, 0.0),
                     ("qwen1.5-4b", BATCH, 20, 1, 128, 0.0),
                     ("gemma2-9b", BATCH, 8, 2, 256, 50.0),
-                    ("stablelm-12b", BATCH, 8, 4, 160, 0.0))
+                    ("stablelm-12b", BATCH, 8, 4, 160, 0.0),
+                    ("dbrx-132b", BATCH, 8, 6, 128, 0.0))
 ATT_S = (48, 1000, 4096)   # the serve's cache, a ragged one, a long one
 
 # (B, KH, G, hd, S, bits) checked beside the served shapes: G = 8 at
@@ -572,9 +606,8 @@ def _attention_rows(gen, arch, b, kh, g, hd, softcap) -> list:
     the serve's cache bits (full cache, no window) beside its bound and
     SDPA on the dequantized K/V; one row per S."""
     import torch.nn.functional as F
-    from repro_torch import configs
     from repro_torch.kernels import pann_attention as pa
-    per_step = configs.get_config(arch).num_layers
+    per_step = served_config(arch).num_layers
     out = []
     for s in ATT_S:
         err = 0.0
@@ -655,9 +688,10 @@ VARIANTS = ("qwen1.5-4b", "gemma2-9b", "stablelm-12b")
 
 def _serve_shapes(cfg) -> list:
     """((K, N), launches a decode step, modules) of every B2 shape of one
-    decode step of ``cfg``; a tied head is a float matmul, not B2."""
+    decode step of ``cfg``; a tied head is a float matmul, not B2, and so
+    are the MoE router and experts (fp32 in the store)."""
     by: dict = {}
-    for name, k, n in _projections(cfg)[:-1]:
+    for name, k, n in _projections(cfg)[:4 if cfg.moe else -1]:
         by.setdefault((k, n), []).append(name)
     rows = [((k, n), len(names) * cfg.num_layers, ",".join(names))
             for (k, n), names in by.items()]
@@ -667,20 +701,21 @@ def _serve_shapes(cfg) -> list:
 
 
 def check_variant_matmuls() -> dict:
-    """B2 at each dense variant's decode shapes, bit for bit against its
+    """B2 at each dense variant's and each MoE config's decode shapes (the
+    attention projections and the head; K = 6144 and the 100352-wide head
+    at dbrx), bit for bit against its
     plain version at M = BATCH (plane_shift 0-6) and M = 1 (EXTRA_SHIFTS),
     timed at M = BATCH and plane_shift 0 (the top rung) beside its bound
     and the fp32 matmul on the dequantized weight; a tied head's fp32
     matmul over the embedding table (what the serve runs) timed alone.
     Operands from a generator of their own. Returns {config: report}."""
-    from repro_torch import configs
     from repro_torch.kernels import pann_matmul as pm
     from repro_torch.kernels import pann_matmul_packed as pk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     out = {}
-    for arch in VARIANTS:
-        cfg = configs.get_config(arch)
+    for arch in VARIANTS + MOE_ARCHS:
+        cfg = served_config(arch)
         err: dict = {}
         rows = []
         for (k, n), per_step, names in _serve_shapes(cfg):
@@ -794,9 +829,11 @@ def _counts() -> dict:
 def _graph_launches(cfg) -> dict:
     """The wrappers' launches of one decode step of an engine serving
     ``cfg`` through the packed backend with a quantized cache: one matmul
-    a projection of every layer, and the lm_head unless the head is tied
-    (a float matmul over the embedding table); one attention a layer."""
-    per_layer = 4 + (3 if cfg.activation in ("swiglu", "geglu") else 2)
+    a projection of every layer (a MoE layer's router and experts are
+    fp32 matmuls), and the lm_head unless the head is tied (a float matmul
+    over the embedding table); one attention a layer."""
+    mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    per_layer = 4 + (0 if cfg.moe else mlp)
     return {"pann_matmul_packed_act": per_layer * cfg.num_layers
             + (0 if cfg.tie_embeddings else 1),
             "decode_attention": cfg.num_layers}
@@ -950,12 +987,13 @@ def _init_params(cfg, seed: int) -> dict:
 def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
                      n_requests: int = REQUESTS,
                      eager_profile: bool = True) -> dict:
-    """Phase 4 (llama3-8b) and 4c (each dense variant): one config at
-    full width served through graphs, held to eager and profiled."""
+    """Phase 4 (llama3-8b), 4c (each dense variant) and 4d (each MoE
+    config at its MOE_LAYERS depth): one config at full width served
+    through graphs, held to eager and profiled."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.serve_engine import ServeEngine
-    cfg = configs.get_config(arch, quant=QuantConfig(mode="none"))
+    cfg = served_config(arch, quant=QuantConfig(mode="none"))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, _init_params(cfg, seed),
@@ -978,8 +1016,9 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
     # is taken again, PROFILE_ATTEMPTS times at most
     want_ops = dict(per_step, epilogue=0)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        names: dict = {}
         profile = profile_steps(functools.partial(_graph_runner, engine),
-                                steps_by_rung)
+                                steps_by_rung, names)
         if profile["device_ms_per_step"] is None:
             raise AssertionError("the profiler recorded no kernel of a graph "
                                  "replay: the step's kernels are not "
@@ -994,6 +1033,9 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         raise AssertionError(f"device kernels per graphed step {got_ops} != "
                              f"{want_ops} in {PROFILE_ATTEMPTS} profiles")
     profile["attempts"] = attempt
+    # the heaviest kernels by name over every profiled step
+    profile["top_kernels_ms"] = dict(sorted(
+        names.items(), key=lambda kv: -kv[1])[:8])
     eager = (profile_steps(functools.partial(_eager_runner, engine),
                            steps_by_rung) if eager_profile else None)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1001,10 +1043,12 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
     responses = served.pop("responses")
     ms = served["ms_per_step"]
+    cut = (f" (of {configs.get_config(arch).num_layers}: the depth that "
+           "fits one card)" if arch in MOE_LAYERS else "")
     out = {
-        "config": f"{arch} full width, {n_layers} layers, random weights "
-                  f"seed {seed}" + ("; q/k/v biases N(0, 0.1^2)"
-                                    if cfg.qkv_bias else ""),
+        "config": f"{arch} full width, {n_layers} layers{cut}, random "
+                  f"weights seed {seed}" + ("; q/k/v biases N(0, 0.1^2)"
+                                            if cfg.qkv_bias else ""),
         "ladder": list(LADDER), "backend": "packed", "cache_bits": CACHE_BITS,
         "max_batch": BATCH, "prompt": PROMPT, "gen": GEN,
         "requests": n_requests, "store_build_s": build_s, **served,
@@ -1021,9 +1065,36 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         "est_gbitflips_per_token": {
             r.uid: r.metadata["est_gbitflips_per_token"] for r in responses},
     }
+    if cfg.moe:
+        out["fp32_matmuls"] = _moe_matmul_report(cfg, profile)
     del engine
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_matmul_report(cfg, profile: dict) -> dict:
+    """A MoE serve's fp32 matmuls (every expert on every token, and the
+    router) against their byte bound: each weight read once a step (the
+    batch's rows and outputs are a few KB); and the device ms a step by
+    part."""
+    e = cfg.moe.num_experts
+    nbytes = 4 * cfg.num_layers * (3 * e * cfg.d_model * cfg.d_ff
+                                   + cfg.d_model * e)
+    ops = 2 * BATCH * cfg.num_layers * (3 * e * cfg.d_model * cfg.d_ff
+                                        + cfg.d_model * e)
+    b_ms, b_by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    by_kind = profile["ms_per_step_by_kind"]
+    ms = by_kind.get("fp32 matmul", 0.0)
+    return {"weight_bytes_per_step": nbytes, "ms_per_step": ms,
+            "launches_per_step": profile["device_ops_per_step_by_kind"].get(
+                "fp32 matmul", 0.0),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms if ms else None,
+            "device_ms_split": {
+                "expert and router matmuls": ms,
+                "B2": by_kind.get("pann_matmul_packed_act", 0.0),
+                "B3": by_kind.get("decode_attention", 0.0),
+                "small kernels": by_kind.get("other PyTorch kernels", 0.0)}}
 
 
 def layerwise_serve() -> dict:
@@ -1073,12 +1144,15 @@ def layerwise_serve() -> dict:
 
 
 # the kernels of a decode step by the names the profiler gives them: the
-# serve's matmuls run the streaming decode kernels (batch <= 8)
+# serve's matmuls run the streaming decode kernels (batch <= 8); cuBLAS's
+# kernels are the fp32 matmuls (MoE experts and router, a tied head)
 KERNEL_KINDS = (("packed_decode_kernel", "pann_matmul_packed_act"),
                 ("planes_decode_kernel", "pann_matmul_act"),
                 ("decode_attention", "decode_attention"),
                 ("tile_kernel", "tile_kernel"),
-                ("epilogue", "epilogue"))
+                ("epilogue", "epilogue"),
+                ("gemm", "fp32 matmul"), ("gemv", "fp32 matmul"),
+                ("splitKreduce", "fp32 matmul"))
 
 
 def _kernel_kind(name: str) -> str:
@@ -1111,9 +1185,11 @@ def _eager_runner(engine, bits: int):
     return run
 
 
-def _profile_rung(run, steps: int = PROFILE_STEPS) -> tuple:
+def _profile_rung(run, steps: int = PROFILE_STEPS,
+                  names: dict | None = None) -> tuple:
     """(device ms by kernel kind, device ops by kind, records lost) of
-    ``steps`` calls of ``run`` (one decode step each), from torch.profiler.
+    ``steps`` calls of ``run`` (one decode step each), from torch.profiler;
+    ``names``, when given, gathers the counted device ms by kernel name.
 
     The profiler can lose the records of the first kernels of a window
     (none in some windows, more in each later window of a process), so
@@ -1152,22 +1228,27 @@ def _profile_rung(run, steps: int = PROFILE_STEPS) -> tuple:
         kind = _kernel_kind(e.name)
         ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
         count[kind] = count.get(kind, 0) + 1
+        if names is not None:
+            names[e.name] = (names.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
     # the guard step launches what a counted step does: what it lacks, the
     # profiler lost
     lost = sum(count.values()) / steps - guard
     return ms, count, lost
 
 
-def profile_steps(runner, steps_by_rung: dict) -> dict:
+def profile_steps(runner, steps_by_rung: dict,
+                  names: dict | None = None) -> dict:
     """Device kernel time per decode step of each rung (PROFILE_STEPS
     steps each, torch.profiler), and the mean over rungs weighted by the
     serve's steps per rung: the device time of the serve's average step,
     by kernel kind. The profiler's own host overhead does not enter the
     device times. ``device_ms_per_step`` is None when the profiler
-    records no device activity on this machine."""
+    records no device activity on this machine. ``names`` gathers the
+    device ms by kernel name over every profiled step."""
     by_rung = {}
     for bits in LADDER:
-        ms, count, lost = _profile_rung(runner(bits))
+        ms, count, lost = _profile_rung(runner(bits), names=names)
         if not ms:
             print("[profile] the profiler recorded no device activity: "
                   "device time per step not measured", flush=True)
@@ -1231,10 +1312,11 @@ def _check_aliasing(ws) -> int:
 
 
 def backends_agree(arch: str = "llama3-8b", seed: int = 1,
-                   n_requests: int = REQUESTS) -> dict:
-    """Phase 5: ``arch`` at full width cut to 2 layers (gemma2: one local
-    and one global layer), one store served by 'ref', 'fused' and
-    'packed', and its v1 artifact."""
+                   n_requests: int = REQUESTS, layers: int = 2) -> dict:
+    """Phase 5: ``arch`` at full width cut to ``layers`` layers (gemma2's
+    2: one local and one global layer; mixtral's 1 carries 5.64 GB of
+    fp32 experts into the artifact), one store served by 'ref', 'fused'
+    and 'packed', and its v1 artifact."""
     import tempfile
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
@@ -1243,7 +1325,7 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
                                           load_artifact, write_artifact)
     cfg = dataclasses.replace(
         configs.get_config(arch, quant=QuantConfig(mode="none")),
-        num_layers=2)
+        num_layers=layers)
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     ws = serving.build_weight_store(
         _init_params(cfg, seed), cfg,
@@ -1306,7 +1388,8 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
                              f"{launches['ref']}")
     cut = ("one local and one global layer" if cfg.local_global_period
            else "the only cut")
-    return {"config": f"{arch} full width cut to 2 layers ({cut}), random "
+    return {"config": f"{arch} full width cut to {layers} layer"
+                      f"{'s' if layers > 1 else ''} ({cut}), random "
                       f"weights seed {seed}",
             "cache_bits": CACHE_BITS, "logits_bit_identical": True,
             "tokens_identical": True, "logits_shape": list(
@@ -1731,10 +1814,12 @@ SINGLE_POINT_KEYS = ("arch", "quant", "backend", "batch", "generated",
                      "prefill_s", "decode_s", "tok_per_s", "sample")
 
 
-def prefill_forward(seed: int = 7) -> dict:
-    """Phase 7a: ``MD.forward`` at (PREFILL_B, PREFILL_T) on the top rung's
-    view of a full-width llama3-8b weight store, through 'ref', 'fused' and
-    'packed': the logits must be bit-identical; each run's wrapper
+def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
+    """Phase 7a (llama3-8b) and 7d (mixtral-8x7b at its MOE_LAYERS depth):
+    ``MD.forward`` at (PREFILL_B, PREFILL_T) on the top rung's view of a
+    full-width weight store, through 'ref', 'fused' and 'packed': the
+    logits must be bit-identical, and so must the MoE load-balance loss
+    ``aux_loss`` (finite; 0 without MoE); each run's wrapper
     launches counted from 0 (one B1 or B2 a projection and the lm_head,
     no B3); forward ms on the host clock of the first (cold) call and of
     the counted call after it, and the device time by kernel kind from
@@ -1742,12 +1827,11 @@ def prefill_forward(seed: int = 7) -> dict:
     are summed over the (M, K, N, P) products the warm-up call of
     'packed' hands B2."""
     from repro_torch.kernels import pann_matmul_packed as pk
-    from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import model as MD
     from repro_torch.models import serving
     from repro_torch.serve_engine import build_ladder
-    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    cfg = served_config(arch, quant=QuantConfig(mode="none"))
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1766,7 +1850,7 @@ def prefill_forward(seed: int = 7) -> dict:
     per_fwd = _graph_launches(cfg)["pann_matmul_packed_act"]
     want_counts = {"ref": {}, "fused": {"pann_matmul_act": per_fwd},
                    "packed": {"pann_matmul_packed_act": per_fwd}}
-    ref_logits = None
+    ref_logits = ref_aux = None
     runs = {}
     products = []           # (M, K, N, P) of every B2 launch of a forward
     launch = pk.pann_matmul_packed_act
@@ -1779,9 +1863,9 @@ def prefill_forward(seed: int = 7) -> dict:
     def forward_ms(c):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = MD.forward(view, c, tokens).logits
+        out = MD.forward(view, c, tokens)
         torch.cuda.synchronize()
-        return logits, (time.perf_counter() - t0) * 1e3
+        return out, (time.perf_counter() - t0) * 1e3
 
     for backend in ("ref", "fused", "packed"):
         c = dataclasses.replace(cfg, kernel_backend=backend)
@@ -1792,7 +1876,9 @@ def prefill_forward(seed: int = 7) -> dict:
         finally:
             pk.pann_matmul_packed_act = launch
         _reset_counts()
-        logits, ms = forward_ms(c)
+        out, ms = forward_ms(c)
+        logits, aux = out.logits, out.aux_loss
+        del out
         counts = _counts()
         want = dict.fromkeys(counts, 0)
         want.update(want_counts[backend])
@@ -1804,14 +1890,19 @@ def prefill_forward(seed: int = 7) -> dict:
                     or not torch.isfinite(logits).all():
                 raise AssertionError(f"forward logits {tuple(logits.shape)}"
                                      " not finite or of the wrong shape")
-            ref_logits = logits
+            if not torch.isfinite(aux) or (float(aux) > 0) != bool(cfg.moe):
+                raise AssertionError(f"forward aux_loss {float(aux)}")
+            ref_logits, ref_aux = logits, aux
         elif not torch.equal(logits, ref_logits):
             d = (logits - ref_logits).abs().max().item()
             raise AssertionError(f"forward on {backend}: logits differ "
                                  f"from ref by {d}")
+        elif not torch.equal(aux, ref_aux):
+            raise AssertionError(f"forward on {backend}: aux_loss "
+                                 f"{float(aux)} != ref's {float(ref_aux)}")
         del logits
         run = {"forward_ms": ms, "cold_forward_ms": cold_ms,
-               "launches": counts,
+               "launches": counts, "aux_loss": float(aux),
                "prefill_tok_per_s": PREFILL_B * PREFILL_T / (ms * 1e-3)}
         if backend != "ref":
             dev_ms, ops, lost = _profile_rung(
@@ -1823,7 +1914,7 @@ def prefill_forward(seed: int = 7) -> dict:
                        device_ops_by_kind=ops, guard_records_lost=lost,
                        kernel_share=kernel / total if total else None)
         runs[backend] = run
-        print(f"[prefill] {backend}: forward {ms:.1f} ms (cold "
+        print(f"[prefill] {arch} {backend}: forward {ms:.1f} ms (cold "
               f"{cold_ms:.1f}), "
               f"{run['prefill_tok_per_s']:.0f} tok/s, launches "
               + json.dumps({k: v for k, v in counts.items() if v})
@@ -1849,16 +1940,18 @@ def prefill_forward(seed: int = 7) -> dict:
                      + run["device_ms_by_kind"].get("epilogue", 0.0))
         run.update(kernel=name, kernel_ms=kernel_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        print(f"[prefill] {name}: {kernel_ms:.1f} ms over {len(products)} "
+        print(f"[prefill] {arch} {name}: {kernel_ms:.1f} ms over "
+              f"{len(products)} "
               f"products, bound {b_ms:.1f} ms ({b_by})", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb >= 70.0:
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
     del ws, view, ref_logits
     torch.cuda.empty_cache()
-    return {"config": f"llama3-8b full width, 32 layers, random weights "
-                      f"seed {seed}; weight store ladder {list(LADDER)}, "
-                      f"packed planes; the top rung's view ({top} bits)",
+    return {"config": f"{arch} full width, {cfg.num_layers} layers, random "
+                      f"weights seed {seed}; weight store ladder "
+                      f"{list(LADDER)}, packed planes; the top rung's view "
+                      f"({top} bits)",
             "B_T": [PREFILL_B, PREFILL_T], "store_build_s": build_s,
             "logits_bit_identical": ["ref", "fused", "packed"],
             "products_MKNP": sorted(set(products)),
@@ -1871,7 +1964,7 @@ def _plane_counts(artifact: dict) -> dict:
     out: dict = {}
     for lp in artifact["layers"]:
         for block in ("attn", "mlp"):
-            for name, node in lp[block].items():
+            for name, node in lp.get(block, {}).items():
                 if isinstance(node, dict) and "w_planes_pos" in node:
                     out.setdefault(f"{block}.{name}", set()).add(
                         node["w_planes_pos"].shape[0])
@@ -2006,6 +2099,47 @@ def single_point() -> dict:
             "runs": runs, "legacy": legacy}
 
 
+def moe_single_point(arch: str = "mixtral-8x7b") -> dict:
+    """Phase 7e: the single-point serve of ``arch`` at full width and its
+    MOE_LAYERS depth, ``launch/serve.py --quant pann --power_bits 4``
+    through 'packed' and 'ref': the attention projections and the head
+    through the artifact's backend, the router and the experts (fp32 in
+    the artifact) through the fake-quant projections; every step's logits
+    of 'packed' bit-identical to those of 'ref', the same sample tokens."""
+    layers = MOE_LAYERS[arch]
+    base = ["--arch", arch, "--layers", str(layers), "--batch", str(BATCH),
+            "--prompt_len", str(PROMPT), "--gen", str(GEN), "--quant",
+            "pann", "--power_bits", "4"]
+    steps = PROMPT + GEN - 1
+    per_step = _graph_launches(served_config(arch))["pann_matmul_packed_act"]
+    runs, logits = {}, {}
+    for backend in ("packed", "ref"):
+        out, logits[backend] = serve_single(base + ["--backend", backend])
+        want = dict.fromkeys(out["launches"], 0)
+        if backend == "packed":
+            want["pann_matmul_packed_act"] = per_step * steps
+        if out["launches"] != want or out["steps"] != steps:
+            raise AssertionError(f"{arch} single point on {backend}: "
+                                 f"launches {out['launches']} over "
+                                 f"{out['steps']} steps != {want}")
+        runs[backend] = out
+        print(f"[single] {arch} --layers {layers} --power_bits 4 --backend "
+              f"{backend}: " + json.dumps({k: out[k] for k in (
+                  "prefill_s", "decode_s", "tok_per_s", "peak_mem_gb",
+                  "wall_s", "sample", "planes")}), flush=True)
+    if not torch.equal(logits["packed"], logits["ref"]):
+        d = (logits["packed"] - logits["ref"]).abs().max().item()
+        raise AssertionError(f"{arch} single point: packed logits differ "
+                             f"from ref by {d}")
+    if runs["packed"]["sample"] != runs["ref"]["sample"]:
+        raise AssertionError(f"{arch} single point: samples differ")
+    del logits
+    return {"config": f"{arch} full width, {layers} layers, random weights "
+                      f"seed 0 (the CLI's --seed); batch, prompt, gen "
+                      f"{BATCH}, {PROMPT}, {GEN}", "steps_per_serve": steps,
+            "logits_bit_identical": ["ref", "packed"], "runs": runs}
+
+
 # ---------------------------------------------------------------------------
 
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
@@ -2029,6 +2163,18 @@ def _kernel_entry(name, source, replaces, rows, launches, count_key,
             "times_are": times_are, "shapes": rows}
 
 
+def _assert_fp32_matmuls() -> None:
+    """fp32 matmuls (the MoE experts and router, the reference's fp32) stay
+    IEEE fp32: TF32 off and the matmul precision "highest", PyTorch's
+    defaults, which nothing in the port may change."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(
+            "TF32 enabled: allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+            f"{torch.get_float32_matmul_precision()!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -2047,8 +2193,7 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"nvcc '{nvcc}' driver {driver} "
           f"python {sys.version.split()[0]}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _assert_fp32_matmuls()
 
     # phase 2: build
     build.build_all()
@@ -2131,8 +2276,31 @@ def main() -> int:
                   v["profile"]["device_ops_per_step_by_kind"]) + ", ms "
               + json.dumps(v["profile"]["ms_per_step_by_kind"]), flush=True)
 
+    # phase 4d: the MoE configs at full width, cut in depth to one card
+    moe = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        t0 = time.perf_counter()
+        m = full_width_serve(arch, seed=10 + i, n_requests=3,
+                             eager_profile=False)
+        m["phase_s"] = time.perf_counter() - t0
+        moe[arch] = m
+        print(f"[moe] {arch}: " + json.dumps(
+            {k: val for k, val in m.items()
+             if k not in ("tokens", "profile", "eager_profile")}),
+            flush=True)
+        print(f"[moe] {arch} graphed step: {m['ms_per_step']:.3f} ms on the "
+              f"host, {m['profile']['device_ms_per_step']:.3f} ms of device "
+              f"kernels (busy share {m['device_busy_share']:.3f}), "
+              f"{m['tok_per_s']:.2f} tok/s, peak {m['peak_mem_gb']:.2f} GB; "
+              "device ms a step by part " + json.dumps(
+                  m["fp32_matmuls"]["device_ms_split"]) + "; kernels per "
+              "graphed step " + json.dumps(
+                  m["profile"]["device_ops_per_step_by_kind"]) + "; top "
+              "kernels " + json.dumps(m["profile"]["top_kernels_ms"]),
+              flush=True)
+
     # phase 5: backends agree, and the v1 artifact round trip, on each
-    # served config cut to 2 layers
+    # served config cut to 2 layers, mixtral to 1
     agree = backends_agree()
     print("[backends] " + json.dumps(agree), flush=True)
     agree_variants = {}
@@ -2140,6 +2308,12 @@ def main() -> int:
         agree_variants[arch] = backends_agree(arch, seed=6 + i, n_requests=3)
         print(f"[backends] {arch} " + json.dumps(agree_variants[arch]),
               flush=True)
+    t0 = time.perf_counter()
+    agree_variants["mixtral-8x7b"] = backends_agree(
+        "mixtral-8x7b", seed=9, n_requests=3, layers=1)
+    agree_variants["mixtral-8x7b"]["phase_s"] = time.perf_counter() - t0
+    print("[backends] mixtral-8x7b " + json.dumps(
+        agree_variants["mixtral-8x7b"]), flush=True)
 
     # phase 6: the unfused path through the kernel API
     unfused = unfused_path(gen)
@@ -2155,6 +2329,13 @@ def main() -> int:
     single = single_point()
     phase7_s = time.perf_counter() - t0
     print(f"[phase7] {phase7_s:.1f} s", flush=True)
+    # 7d and 7e: the same on mixtral-8x7b at its MOE_LAYERS depth
+    t0 = time.perf_counter()
+    moe_prefill = prefill_forward(arch="mixtral-8x7b")
+    moe_single = moe_single_point()
+    phase7_moe_s = time.perf_counter() - t0
+    print(f"[phase7] mixtral-8x7b {phase7_moe_s:.1f} s", flush=True)
+    _assert_fp32_matmuls()
 
     step = "one full-width decode step's launches, cold L2"
     kernels = [
@@ -2214,12 +2395,16 @@ def main() -> int:
     kernels[2]["shapes"] = att_rows
     kernels[2]["checks"] = att_checks
     kernels[2]["head_dims"] = list(pa.HEAD_DIMS)
-    # the dense variants' serves (phase 4c) and phase 3's rows at their
-    # shapes, a decode step's worth (B3 at S = 48, the serve's cache)
-    for arch in VARIANTS:
-        srv = variants[arch]
-        att = [r for r in att_by_config[arch] if r["S"] == PROMPT + GEN]
-        kernels[1].setdefault("variants", {})[arch] = {
+    # the dense variants' and the MoE configs' serves (phases 4c, 4d) and
+    # phase 3's rows at their shapes, a decode step's worth (B3 at S = 48,
+    # the serve's cache; mixtral's attention is llama3-8b's shape)
+    for arch in VARIANTS + MOE_ARCHS:
+        group = "variants" if arch in VARIANTS else "moe"
+        srv = variants[arch] if arch in VARIANTS else moe[arch]
+        att_of = arch if arch in att_by_config else "llama3-8b"
+        att = [r for r in att_by_config[att_of] if r["S"] == PROMPT + GEN]
+        per_step = srv["launches_per_captured_step"]["decode_attention"]
+        kernels[1].setdefault(group, {})[arch] = {
             "launches": srv["launches"]["pann_matmul_packed_act"],
             "per_graphed_step": srv["launches_per_captured_step"][
                 "pann_matmul_packed_act"],
@@ -2227,16 +2412,22 @@ def main() -> int:
                 "ms_per_step", "bound_ms_per_step", "plain_ms_per_step",
                 "library_ms_per_step", "launches_per_step", "max_abs_err",
                 "tied_head")}}
-        kernels[2].setdefault("variants", {})[arch] = {
+        kernels[2].setdefault(group, {})[arch] = {
             "launches": srv["launches"]["decode_attention"],
-            "per_graphed_step": srv["launches_per_captured_step"][
-                "decode_attention"],
+            "per_graphed_step": per_step, "rows_of": att_of,
             "B_KH_G_hd": [att[0][k] for k in ("B", "KH", "G", "hd")],
             "softcap": att[0]["softcap"],
-            **{f"{k}_per_step": sum(r[k] * r["per_step"] for r in att)
+            **{f"{k}_per_step": sum(r[k] * per_step for r in att)
                for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
             "max_abs_err": max(r["max_abs_err"]
-                               for r in att_by_config[arch])}
+                               for r in att_by_config[att_of])}
+    # mixtral's prefill and single point (phases 7d, 7e)
+    kernels[1]["launches_prefill_mixtral"] = moe_prefill["runs"]["packed"][
+        "launches"]["pann_matmul_packed_act"]
+    kernels[0]["launches_prefill_mixtral"] = moe_prefill["runs"]["fused"][
+        "launches"]["pann_matmul_act"]
+    kernels[1]["launches_single_point_mixtral"] = moe_single["runs"][
+        "packed"]["launches"]["pann_matmul_packed_act"]
     one_pass = ("one pass of the unfused path (7 projections and the "
                 "lm_head at M = 4 and 512), cold L2")
     for name, source, replaces in (
@@ -2270,7 +2461,9 @@ def main() -> int:
                                "checked": plane_checked,
                                "timed": plane_rows},
               "prefill": prefill, "single_point": single,
-              "phase7_s": phase7_s}
+              "phase7_s": phase7_s, "moe": moe, "moe_prefill": moe_prefill,
+              "moe_single_point": moe_single,
+              "phase7_moe_s": phase7_moe_s}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,16 +1,17 @@
 """Config registry of the port: ``get_config(arch_id)`` and ``reduced``.
 
-Port of ``repro.configs``. The dense decoders are registered: llama3-8b,
-qwen1.5-4b, stablelm-12b and gemma2-9b. The other six architectures of the
-JAX package (MoE, hybrid, SSM, encoder-decoder, vision) come with their
-model families.
+Port of ``repro.configs``. The dense decoders (llama3-8b, qwen1.5-4b,
+stablelm-12b, gemma2-9b) and the MoE decoders (mixtral-8x7b, dbrx-132b)
+are registered. The other four architectures of the JAX package (hybrid,
+SSM, encoder-decoder, vision) come with their model families.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.configs import gemma2_9b, llama3_8b, qwen1_5_4b, stablelm_12b
+from repro_torch.configs import (dbrx_132b, gemma2_9b, llama3_8b,
+                                 mixtral_8x7b, qwen1_5_4b, stablelm_12b)
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ConvSpec,
                                       ModelConfig, MoEConfig, QuantConfig,
                                       ShapeConfig)
@@ -20,6 +21,8 @@ _REGISTRY = {
     "stablelm-12b": stablelm_12b.config,
     "gemma2-9b": gemma2_9b.config,
     "llama3-8b": llama3_8b.config,
+    "dbrx-132b": dbrx_132b.config,
+    "mixtral-8x7b": mixtral_8x7b.config,
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

@@ -1,5 +1,13 @@
-"""Dense feed-forward block (port of ``repro.models.mlp``'s dense half;
-the MoE experts come with their model families)."""
+"""Feed-forward blocks (port of ``repro.models.mlp``): dense (SwiGLU /
+GeGLU / GELU / ReLU) and Mixture-of-Experts.
+
+MoE, as the reference without a mesh: a top-k softmax router and a scan
+over ALL experts, every expert on every token, its output weighted by the
+token's gate (zero for the experts not selected) and summed in expert
+order. The reference's expert-parallel capacity dispatch
+(``repro.dist.moe_ep``) runs only under an active mesh and comes with
+``dist/`` (ROADMAP A10).
+"""
 from __future__ import annotations
 
 import torch
@@ -34,3 +42,82 @@ def apply_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
         h = _ACT.get(cfg.activation, F.silu)(
             L.project(x, p["w_up"], cfg, "mlp.w_up"))
     return L.project(h, p["w_down"], cfg, "mlp.w_down")
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The router {"w"} (d, E) and the fp32 expert stacks (E, d, ff),
+    (E, d, ff), (E, ff, d), scaled in place (no second copy of a stack)."""
+    e = cfg.moe.num_experts
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def stack(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(scale)
+
+    return {"router": L.init_linear(gen, d, e, device, scale=0.02),
+            "w_gate": stack((e, d, ff), d ** -0.5),
+            "w_up": stack((e, d, ff), d ** -0.5),
+            "w_down": stack((e, ff, d), ff ** -0.5)}
+
+
+def router_topk(logits: torch.Tensor, top_k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Softmax-after-top-k gates (Mixtral convention): (gates, mask), gates
+    (..., E) zero outside the top k, mask = gates > 0 (a gate that
+    underflows to 0 is not routed). The top k are taken in
+    ``jax.lax.top_k``'s order, value descending and ties lowest index first
+    (a stable sort: ``torch.topk`` promises no order for ties), so the
+    softmax sums the same values in the same order."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    probs = torch.softmax(vals[..., :top_k], dim=-1)
+    gates = torch.zeros_like(logits).scatter(-1, idx[..., :top_k], probs)
+    return gates, gates > 0
+
+
+def route(x: torch.Tensor, p: dict, cfg: ModelConfig
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gates, mask, aux_loss): the router's logits in fp32, its top-k
+    gates, and the Switch-style load-balance loss E * sum_e f_e * p_e
+    (f_e the share of tokens routed to e, p_e its mean router
+    probability, both over (B, T))."""
+    e = cfg.moe.num_experts
+    logits = L.apply_linear(x, p["router"], L.module_quant(cfg, "moe.router"),
+                            path="moe.router").to(torch.float32)
+    gates, mask = router_topk(logits, cfg.moe.top_k)
+    probs_full = torch.softmax(logits, dim=-1)
+    f = torch.mean(mask.to(torch.float32), dim=(0, 1))
+    pbar = torch.mean(probs_full, dim=(0, 1))
+    return gates, mask, e * torch.sum(f * pbar)
+
+
+def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One expert's gated FFN, each projection through ``qlinear`` at its
+    ``moe.*`` quant mode (SiLU for both gated activations, as the
+    reference)."""
+    act = F.silu if cfg.activation in ("swiglu", "geglu") else \
+        _ACT.get(cfg.activation, F.silu)
+    h = act(L.qlinear(x, w_gate.to(x.dtype), None,
+                      L.module_quant(cfg, "moe.w_gate"), path="moe.w_gate")) \
+        * L.qlinear(x, w_up.to(x.dtype), None,
+                    L.module_quant(cfg, "moe.w_up"), path="moe.w_up")
+    return L.qlinear(h, w_down.to(x.dtype), None,
+                     L.module_quant(cfg, "moe.w_down"), path="moe.w_down")
+
+
+def apply_moe(x: torch.Tensor, p: dict, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, d) -> (y, aux_loss): every expert on every token,
+    y = carry + gate_e * y_e in expert order 0..E-1. No host sync and no
+    data-dependent shape, so a decode step that runs it can be captured
+    as a CUDA graph."""
+    gates, _, aux = route(x, p, cfg)
+    y = torch.zeros_like(x)
+    for e in range(cfg.moe.num_experts):
+        y_e = expert_ffn(x, p["w_gate"][e], p["w_up"][e], p["w_down"][e], cfg)
+        y = y + gates[..., e, None].to(x.dtype) * y_e
+    return y, aux

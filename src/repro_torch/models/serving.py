@@ -140,9 +140,12 @@ def quantize_params_for_serving(params: Any, cfg,
     ``weight_storage_bits`` taken, as the reference takes it, over the
     module's codes stacked across the layer groups of ``cfg``; codes are
     clipped to the planes' +-(2^P - 1) so ``w_q`` and the planes describe
-    the same weights. ``cache_bits`` (or a policy's cache-role overrides)
-    attaches a ``kv_cache`` dict of level counts to every attention block.
-    There is no ``plane_shift`` leaf: the kernels run at shift 0.
+    the same weights. The MoE router and the stacked experts are no
+    projection parents here (as in the reference) and pass through in
+    fp32, the very tensors handed in. ``cache_bits`` (or a policy's
+    cache-role overrides) attaches a ``kv_cache`` dict of level counts to
+    every attention block. There is no ``plane_shift`` leaf: the kernels
+    run at shift 0.
 
     The caller hands ``params`` over: each fp32 ``w`` is popped out of it
     once quantized."""
@@ -316,8 +319,9 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
         return shared, views
 
     def walk(node, trail=()):
-        """(store_node, {rung key: view_node}); passthrough leaves are the
-        SAME tensor in the store and every view."""
+        """(store_node, {rung key: view_node}); passthrough leaves (norms,
+        the embedding, the MoE router and experts) are the SAME tensor in
+        the store and every view."""
         if isinstance(node, dict):
             if _is_quant_parent(node, trail):
                 return quantize(node, trail)

@@ -3,8 +3,8 @@
 Every architecture is a repeating *group pattern* of layer kinds; the port
 keeps the pattern functions verbatim (``core/costs`` prices layers by them)
 and holds the layers of one model as a plain per-layer list instead of the
-JAX package's group-stacked leaves. Only ``attn`` layers (self-attention +
-dense MLP) are ported so far.
+JAX package's group-stacked leaves. The ``attn`` (self-attention + dense
+MLP) and ``attn_moe`` (self-attention + MoE) layers are ported so far.
 """
 from __future__ import annotations
 
@@ -64,20 +64,21 @@ def group_layout(cfg: ModelConfig, num_layers: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# Per-layer init / apply / decode (attention + dense MLP layers)
+# Per-layer init / apply / decode (attention + dense MLP or MoE layers)
 # ---------------------------------------------------------------------------
 
 # the queue item (ROADMAP A) that ports each other layer kind
-_KIND_ITEM = {"attn_moe": "A4", "mamba": "A5", "mamba_attn": "A5",
-              "rwkv": "A5", "cross_attn": "A6"}
+_KIND_ITEM = {"mamba": "A5", "mamba_attn": "A5", "rwkv": "A5",
+              "cross_attn": "A6"}
+_PORTED = ("attn", "attn_moe")
 
 
 def _require_attn(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
+    if spec.kind not in _PORTED:
         item = _KIND_ITEM.get(spec.kind)
         where = f" (ROADMAP {item})" if item else ""
         raise ValueError(f"layer kind {spec.kind!r} is not ported yet: "
-                         f"attn only{where}")
+                         f"attn and attn_moe only{where}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
@@ -86,8 +87,11 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     d = cfg.d_model
     p = {"norm1": L.init_norm(d, cfg.norm, device),
          "attn": A.init_attention(gen, cfg, device),
-         "norm2": L.init_norm(d, cfg.norm, device),
-         "mlp": M.init_mlp(gen, cfg, device)}
+         "norm2": L.init_norm(d, cfg.norm, device)}
+    if spec.kind == "attn_moe":
+        p["moe"] = M.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = M.init_mlp(gen, cfg, device)
     if cfg.post_norm:       # gemma2: a norm on each sublayer's output
         p["post1"] = L.init_norm(d, cfg.norm, device)
         p["post2"] = L.init_norm(d, cfg.norm, device)
@@ -119,25 +123,35 @@ def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
 
 def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
                 causal: bool = True) -> tuple[Tensor, Tensor]:
-    """Prefill / ``forward`` of one layer. Returns (x, aux_loss); an attn
-    layer's aux loss is 0 (MoE's load-balancing loss comes with A4)."""
+    """Prefill / ``forward`` of one layer. Returns (x, aux_loss): an attn
+    layer's aux loss is 0, an attn_moe layer's its router's load-balance
+    loss. MoE runs the scan over experts, as the reference does without a
+    mesh (its capacity dispatch comes with ``dist/``, ROADMAP A10)."""
     _require_attn(spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h = A.attend(h, p["attn"], cfg, window=spec.window, causal=causal)
     x = _residual(x, h, p, cfg, "post1")
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    h = M.apply_mlp(h, p["mlp"], cfg)
+    if spec.kind == "attn_moe":
+        h, aux = M.apply_moe(h, p["moe"], cfg)
+    else:
+        h = M.apply_mlp(h, p["mlp"], cfg)
     x = _residual(x, h, p, cfg, "post2")
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,
                  spec: LayerSpec) -> tuple[Tensor, Any]:
-    """Single-token decode step of one layer."""
+    """Single-token decode step of one layer (an attn_moe layer runs the
+    scan over experts and drops its aux loss)."""
     _require_attn(spec)
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h, cache = A.decode_attend(h, cache, p["attn"], cfg, window=spec.window)
     x = _residual(x, h, p, cfg, "post1")
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    h = M.apply_mlp(h, p["mlp"], cfg)
+    if spec.kind == "attn_moe":
+        h, _ = M.apply_moe(h, p["moe"], cfg)
+    else:
+        h = M.apply_mlp(h, p["mlp"], cfg)
     return _residual(x, h, p, cfg, "post2"), cache

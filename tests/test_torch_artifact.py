@@ -1,4 +1,6 @@
-"""The v1 serving artifact across the two packages on reduced llama3-8b:
+"""The v1 serving artifact across the two packages on reduced llama3-8b
+and reduced mixtral-8x7b (fp32 router and experts beside the packed
+projections):
 the port loads what the JAX package writes and the JAX package loads what
 the port writes (``repro_torch.serve_engine.artifact`` against
 ``repro.serve_engine.artifact``), and each serves the other's store.
@@ -28,9 +30,14 @@ from repro_torch.models import serving as TSV
 from repro_torch.serve_engine import artifact as TA
 from test_torch_common import (LADDER, port_cfg, ref_cfg, reference_store,
                                tonp)
+from test_torch_moe import _port_decode as moe_port_decode
+from test_torch_moe import port_cfg as moe_port_cfg
+from test_torch_moe import ref_cfg as moe_ref_cfg
+from test_torch_moe import reference_store as moe_reference_store
 from test_torch_slice import REL_BOUND, ref_logits
 
 STEPS = 6
+MOE = "mixtral-8x7b"
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +133,76 @@ def test_port_artifact_loads_in_reference(tmp_path):
     want = RServeEngine(ref_cfg(), weight_store=ws, **kw).generate(
         [RRequest(**r) for r in reqs])
     got = RServeEngine(ref_cfg(), weight_store=loaded, **kw).generate(
+        [RRequest(**r) for r in reqs])
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+
+
+@pytest.fixture(scope="module")
+def moe_written(tmp_path_factory):
+    """A reduced mixtral store (fp32 router and experts beside the packed
+    attention and head) written by the JAX package."""
+    d = str(tmp_path_factory.mktemp("moe_artifact"))
+    RA.write_artifact(d, moe_reference_store(MOE)[0],
+                      meta={"arch": "mixtral-8x7b"})
+    return d
+
+
+def _moe_rows(bits):
+    return np.random.default_rng(bits).integers(0, 512, (2, STEPS)).astype(
+        np.int32)
+
+
+def test_moe_reference_artifact_serves_in_port(moe_written):
+    """The JAX package's MoE artifact, loaded by the port: every leaf equal
+    to the store carried across in memory, the experts and the router the
+    store's own tensors in every view, and every rung's logits bit-identical
+    to the carried store's on 'ref' and 'packed'."""
+    got = TA.load_artifact(moe_written, device="cpu")
+    carried = moe_reference_store(MOE)[1]
+    store = _flat(got.store)
+    experts = [k for k in store if "/moe/" in k]
+    assert len(experts) == 4 * moe_port_cfg(MOE).num_layers
+    assert all(store[k].dtype == torch.float32 for k in experts)
+    for bits in LADDER:
+        a, b = _flat(got.views[bits]), _flat(carried.views[bits])
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+        for k in experts:
+            assert a[k] is store[k]
+        for backend in ("ref", "packed"):
+            cfg = dataclasses.replace(moe_port_cfg(MOE),
+                                      kernel_backend=backend, cache_bits=4)
+            assert np.array_equal(
+                moe_port_decode(got.views[bits], cfg, _moe_rows(bits)),
+                moe_port_decode(carried.views[bits], cfg, _moe_rows(bits)))
+
+
+def test_moe_port_artifact_loads_in_reference(tmp_path):
+    """A MoE store the port writes is byte-identical, leaf for leaf, in the
+    JAX package's loader (experts restacked to (G, E, d, ff)), and the JAX
+    package's engine serves it with the tokens of its own store."""
+    ws, pws = moe_reference_store(MOE)
+    d = TA.write_artifact(str(tmp_path / "port_moe"), pws, moe_port_cfg(MOE))
+    loaded = RA.load_artifact(d)
+    flat = jax.tree_util.tree_leaves_with_path
+    for mine, theirs in [(loaded.store, ws.store)] + [
+            (loaded.views[k], ws.views[k]) for k in LADDER]:
+        a, b = flat(tonp(mine)), flat(tonp(theirs))
+        assert [p for p, _ in a] == [p for p, _ in b]
+        for (p, x), (_, y) in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape, p
+            assert x.tobytes() == y.tobytes(), p
+    kw = dict(ladder_bits=LADDER, max_batch=2, max_len=12, cache_bits=4,
+              backend="ref")
+    rng = np.random.default_rng(10)
+    reqs = [dict(uid=i, prompt=rng.integers(0, 512, 5).astype(np.int32),
+                 max_new_tokens=4, power_budget_bits=b)
+            for i, b in enumerate((2, 6, 4))]
+    cfg = moe_ref_cfg(MOE)
+    want = RServeEngine(cfg, weight_store=ws, **kw).generate(
+        [RRequest(**r) for r in reqs])
+    got = RServeEngine(cfg, weight_store=loaded, **kw).generate(
         [RRequest(**r) for r in reqs])
     assert [r.tokens for r in got] == [r.tokens for r in want]
 

@@ -550,8 +550,9 @@ def test_shared_rows_and_copies_cover_a_head_row(hd):
 
 
 @pytest.mark.parametrize("g,hd", [(1, 16), (4, 16), (8, 16), (1, 128),
-                                  (4, 128), (8, 128), (1, 160), (4, 160),
-                                  (8, 160), (1, 256), (4, 256), (8, 256)])
+                                  (4, 128), (6, 128), (8, 128), (1, 160),
+                                  (4, 160), (8, 160), (1, 256), (4, 256),
+                                  (8, 256)])
 @pytest.mark.parametrize("c", range(1, 9))
 def test_emulated_kernel_is_the_plain_version(c, g, hd):
     """Every live-plane count 1-7, each with one of the (pos, window)
@@ -574,7 +575,7 @@ def test_emulated_kernel_is_the_plain_version(c, g, hd):
 
 @settings(max_examples=30, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), c=st.integers(1, 8),
-       g=st.sampled_from([1, 2, 3, 4, 8]),
+       g=st.sampled_from([1, 2, 3, 4, 6, 8]),
        hd=st.sampled_from([16, 32, 64, 128, 160, 256]),
        s=st.integers(1, 150), bits=st.integers(1, 7),
        pos_frac=st.floats(0, 1), window=st.one_of(st.none(),
