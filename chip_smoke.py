@@ -39,7 +39,16 @@ Phases (any failure raises and the script exits non-zero):
               decode kernel), 64 and 4096 (the tile kernel), plane_shift 0
               and P - 1; both timed at P = 5, M = 4 beside their
               plane-byte bound and the fp32 matmul on the dequantized
-              weight.
+              weight. B2 at zamba2-1.2b's and rwkv6-1.6b's decode shapes
+              the same way (zamba2's ssm.in_proj (2048, 8384), the shared
+              block's (2048, 2048), (2048, 8192), (8192, 2048); rwkv6's
+              decay LoRA (2048, 64) and (64, 2048), (2048, 7168), (7168,
+              2048); both heads), the narrow and partial-tile ones also
+              above 8 rows (M = 9, 64, 512), B3 at zamba2's (4, 32, 1,
+              64); and ``dispatch.serving_linear`` at a width N = 1030
+              that is no multiple of 4 (ROADMAP C8): 'fused' and 'packed'
+              (N padded to 1032 for the kernels, sliced back) bit for bit
+              against 'ref' on every rung view, M = 1 and 4.
 4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
               vocab 128256, random weights from a seed) through the PANN
               ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
@@ -73,8 +82,23 @@ Phases (any failure raises and the script exits non-zero):
               eager, no recompile, peak under 70 GB; the device ms a step
               split between the expert matmuls (against their byte
               bound), B2, B3 and the small kernels.
+4e. recurrent — zamba2-1.2b (38 layers: Mamba2 with a shared attention +
+              MLP block at every 6th layer, 6 groups and a 2-layer tail)
+              and rwkv6-1.6b (24 layers) at full width and depth, each as
+              phase 4c (zamba2 with the 4-bit KV cache, rwkv6 has no
+              attention): every graphed step bit-identical to eager (the
+              recurrent states live in the engine's fixed slots and are
+              written back in place every replay; a stale slot would
+              show here), B2 / B3 launches a graphed step 113 / 6 and 217
+              / 0, no recompile, peak under 70 GB; the device ms of the
+              graphed step by kernel kind, and of one eager step (top
+              rung) split between B2, B3, the dispatch's small kernels,
+              the recurrent blocks' fp ops (scan, conv, wkv recurrence)
+              and the rest (profiler ranges around the blocks).
 5. backends — each served config cut to 2 layers (gemma2: one local and
-              one global layer; mixtral to 1) served by 'ref', 'fused' and
+              one global layer; mixtral to 1; zamba2 to 8: one group and
+              the 2-layer tail, so the shared block and the tail both
+              run) served by 'ref', 'fused' and
               'packed' engines over ONE weight store: logits and tokens must
               be bit-identical; counts the fused matmul kernel's launches;
               the store is written as a v1 serving artifact
@@ -106,7 +130,8 @@ Phases (any failure raises and the script exits non-zero):
               225 B2 on 'packed', 225 B1 on 'fused', nothing else; forward
               ms, prefill tokens/s and the device time by kernel kind
               (profiler). (b) ``repro_torch.launch.serve.main`` in
-              single-point mode at full width, --quant pann --power_bits
+              single-point mode at full width cut to 8 layers
+              (SINGLE_POINT_LAYERS), --quant pann --power_bits
               2 and 4 through 'packed' (the artifact's value-exact P: 5
               and 6 on the square projections, asserted, the rest
               recorded), --power_bits 2 again through 'ref' and 'fused':
@@ -118,7 +143,12 @@ Phases (any failure raises and the script exits non-zero):
               layers: logits and the load-balance ``aux_loss``
               bit-identical across the backends. (e) mixtral at 8 layers
               through the single-point CLI, --quant pann --power_bits 4 on
-              'packed' and 'ref': every step's logits bit-identical. Every
+              'packed' and 'ref': every step's logits bit-identical. (f)
+              7a's ``forward`` on zamba2-1.2b and rwkv6-1.6b at full
+              width and depth (113 and 217 B2 launches), logits
+              bit-identical across the backends, forward ms (no
+              profile: rwkv6's token-by-token wkv recurrence alone is
+              ~400,000 small kernels a forward). Every
               serve: the reference's summary keys, finite logits, peak
               memory under 70 GB. TF32 must stay off for the fp32 matmuls
               (PyTorch's defaults, asserted at the start and the end).
@@ -163,6 +193,11 @@ PROFILE_ATTEMPTS = 3               # profiles of a serve whose counts differ
 # the full depth needs sharding across cards
 MOE_LAYERS = {"mixtral-8x7b": 8, "dbrx-132b": 2}
 MOE_ARCHS = tuple(MOE_LAYERS)
+# the recurrent families, served at full width and depth (phase 4e), and
+# the depth phase 5 cuts each to: zamba2 one group and its 2-layer tail
+# (the shared block and the tail both run), rwkv6 2 layers
+RECURRENT_CUT = {"zamba2-1.2b": 8, "rwkv6-1.6b": 2}
+RECURRENT_ARCHS = tuple(RECURRENT_CUT)
 
 
 def served_config(arch: str, **kwargs):
@@ -247,6 +282,15 @@ LAYER_SHAPES = [((4096, 4096), 2, "wq,wo"), ((4096, 1024), 2, "wk,wv"),
                 ((4096, 14336), 2, "w_gate,w_up"), ((14336, 4096), 1,
                                                      "w_down")]
 HEAD_SHAPE = ((4096, 128256), 1, "lm_head")
+
+
+def _attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that run a decode attention (B3) a step:
+    zamba2's shared block runs at each mamba_attn position, rwkv6 has
+    none."""
+    from repro_torch.models import model as MD
+    return sum(s.kind in ("attn", "attn_moe", "mamba_attn")
+               for s in MD.layer_specs(cfg))
 
 
 def _matmul_operands(gen, m, k, n, planes: int = 7):
@@ -398,20 +442,26 @@ def check_matmuls(gen) -> tuple:
 # B2's tile regime at the serve's widths: a few rows above the decode
 # kernels, a tile and a half, a prefill chunk
 PACKED_TILE_M = (9, 64, 512)
+# the recurrent families' products that llama3-8b's widths do not cover in
+# phase 7's forward: rwkv6's decay LoRA (N = 64 below one 128-column tile,
+# K = 64 one 64-row step) and zamba2's ssm.in_proj (a half tile at N's end)
+RECURRENT_TILE_SHAPES = ((2048, 64), (64, 2048), (2048, 8384))
 
 
 def check_packed_tile_rows() -> tuple:
     """B2 above 8 rows (the tensor-core tile kernel, mode kPacked) against
     its plain version at the serve's projection and lm_head widths, M in
     PACKED_TILE_M, plane_shift in EXTRA_SHIFTS (these launches are not the
-    path's). Operands from a generator of their own, so the later phases
-    see the operands they saw before. Returns (max |err|, checked)."""
+    path's), then at RECURRENT_TILE_SHAPES. Operands from a generator of
+    their own, so the later phases see the operands they saw before.
+    Returns (max |err|, checked)."""
     from repro_torch.kernels import pann_matmul_packed as pk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     err: dict = {}
     checked = []
-    for (k, n), _, _ in LAYER_SHAPES + [HEAD_SHAPE]:
+    shapes = [kn for kn, _, _ in LAYER_SHAPES + [HEAD_SHAPE]]
+    for k, n in shapes + list(RECURRENT_TILE_SHAPES):
         x, _, _, ppk, npk, s, z, n127, gamma, zcol = _matmul_operands(
             gen, max(PACKED_TILE_M), k, n)
         for m in PACKED_TILE_M:
@@ -584,13 +634,14 @@ def _check_attention(a, s, bits, softcap: float = 0.0) -> float:
 
 # (config, B, KH, G, hd, softcap) of each served configuration's attention:
 # llama3-8b's (the main path) first, then the dense variants', then dbrx's
-# (G = 6: each head gets 8 // 6 = 1 of the block's 8 warps); mixtral's is
-# llama3-8b's
+# (G = 6: each head gets 8 // 6 = 1 of the block's 8 warps), then zamba2's
+# shared block (G = 1 at hd 64); mixtral's is llama3-8b's, rwkv6 has none
 ATT_SERVE_SHAPES = (("llama3-8b", BATCH, 8, 4, 128, 0.0),
                     ("qwen1.5-4b", BATCH, 20, 1, 128, 0.0),
                     ("gemma2-9b", BATCH, 8, 2, 256, 50.0),
                     ("stablelm-12b", BATCH, 8, 4, 160, 0.0),
-                    ("dbrx-132b", BATCH, 8, 6, 128, 0.0))
+                    ("dbrx-132b", BATCH, 8, 6, 128, 0.0),
+                    ("zamba2-1.2b", BATCH, 32, 1, 64, 0.0))
 ATT_S = (48, 1000, 4096)   # the serve's cache, a ragged one, a long one
 
 # (B, KH, G, hd, S, bits) checked beside the served shapes: G = 8 at
@@ -607,7 +658,7 @@ def _attention_rows(gen, arch, b, kh, g, hd, softcap) -> list:
     SDPA on the dequantized K/V; one row per S."""
     import torch.nn.functional as F
     from repro_torch.kernels import pann_attention as pa
-    per_step = served_config(arch).num_layers
+    per_step = _attention_layers(served_config(arch))
     out = []
     for s in ATT_S:
         err = 0.0
@@ -686,24 +737,50 @@ def _other_attention_checks(gen) -> list:
 VARIANTS = ("qwen1.5-4b", "gemma2-9b", "stablelm-12b")
 
 
+def _recurrent_shapes(cfg) -> list:
+    """((K, N), launches a decode step, modules) of zamba2's Mamba2
+    projections and shared block, or of rwkv6's time and channel mix."""
+    d, ff, layers = cfg.d_model, cfg.d_ff, cfg.num_layers
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * d
+        width = (2 * d_inner + 2 * cfg.ssm_state
+                 + d_inner // cfg.ssm_head_dim)
+        shared = _attention_layers(cfg)
+        hd = cfg.resolved_head_dim
+        return [((d, width), layers, "ssm.in_proj"),
+                ((d_inner, d), layers, "ssm.out_proj"),
+                ((d, cfg.num_heads * hd), 4 * shared,
+                 "shared attn.wq,wk,wv,wo"),
+                ((d, ff), shared, "shared mlp.w_up"),
+                ((ff, d), shared, "shared mlp.w_down")]
+    return [((d, d), 5 * layers, "tm.wr,wk,wv,wg,wo"),
+            ((d, 64), layers, "tm.decay_a"), ((64, d), layers, "tm.decay_b"),
+            ((d, ff), layers, "cm.wk"), ((ff, d), layers, "cm.wv")]
+
+
 def _serve_shapes(cfg) -> list:
     """((K, N), launches a decode step, modules) of every B2 shape of one
     decode step of ``cfg``; a tied head is a float matmul, not B2, and so
     are the MoE router and experts (fp32 in the store)."""
-    by: dict = {}
-    for name, k, n in _projections(cfg)[:4 if cfg.moe else -1]:
-        by.setdefault((k, n), []).append(name)
-    rows = [((k, n), len(names) * cfg.num_layers, ",".join(names))
-            for (k, n), names in by.items()]
+    if cfg.family in ("hybrid", "ssm"):
+        rows = _recurrent_shapes(cfg)
+    else:
+        by: dict = {}
+        for name, k, n in _projections(cfg)[:4 if cfg.moe else -1]:
+            by.setdefault((k, n), []).append(name)
+        rows = [((k, n), len(names) * cfg.num_layers, ",".join(names))
+                for (k, n), names in by.items()]
     if not cfg.tie_embeddings:
         rows.append(((cfg.d_model, cfg.padded_vocab), 1, "lm_head"))
     return rows
 
 
 def check_variant_matmuls() -> dict:
-    """B2 at each dense variant's and each MoE config's decode shapes (the
-    attention projections and the head; K = 6144 and the 100352-wide head
-    at dbrx), bit for bit against its
+    """B2 at each dense variant's, each MoE config's and each recurrent
+    config's decode shapes (the attention projections and the head; K =
+    6144 and the 100352-wide head at dbrx; zamba2's Mamba2 and shared-block
+    projections, rwkv6's mixing matrices and N = 64 / K = 64 decay LoRA),
+    bit for bit against its
     plain version at M = BATCH (plane_shift 0-6) and M = 1 (EXTRA_SHIFTS),
     timed at M = BATCH and plane_shift 0 (the top rung) beside its bound
     and the fp32 matmul on the dequantized weight; a tied head's fp32
@@ -714,7 +791,7 @@ def check_variant_matmuls() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     out = {}
-    for arch in VARIANTS + MOE_ARCHS:
+    for arch in VARIANTS + MOE_ARCHS + RECURRENT_ARCHS:
         cfg = served_config(arch)
         err: dict = {}
         rows = []
@@ -786,6 +863,53 @@ def check_variant_matmuls() -> dict:
     return out
 
 
+# a serving projection whose width is no multiple of the kernels' 4 columns
+# (ROADMAP C8: seamless-m4t-medium's head is 256,206 wide)
+RAGGED_KN = (2048, 1030)
+
+
+def check_ragged_dispatch() -> dict:
+    """C8: ``dispatch.serving_linear`` on a (2048, 1030) module of a weight
+    store (ladder LADDER, packed planes) at every rung view and M = 1 and
+    BATCH: 'fused' and 'packed' hand their kernels N padded to 1032 and
+    slice the result back, bit for bit against 'ref' (these launches are
+    not the path's). Returns the checked cases and the launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import build_ladder
+    k, n = RAGGED_KN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    ladder = build_ladder(LADDER, d=float(k))
+    ws = serving.build_weight_store(
+        {"lm_head": {"w": torch.randn((k, n), generator=gen, device="cuda")
+                     * k ** -0.5}}, served_config("llama3-8b"),
+        {op.bits: (op.r, op.b_x_tilde) for op in ladder},
+        serving.ServingQuantSpec(pack_planes=True))
+    before = _counts()
+    cases = 0
+    for bits, view in ws.views.items():
+        p = view["lm_head"]
+        for m in (1, BATCH):
+            x = torch.randn((m, 1, k), generator=gen, device="cuda")
+            want = dispatch.serving_linear(x, p, "ref")
+            for backend in ("fused", "packed"):
+                got = dispatch.serving_linear(x, p, backend)
+                if got.shape != (m, 1, n) or not torch.equal(got, want):
+                    raise AssertionError(
+                        f"serving_linear N={n} {backend} rung {bits} M={m}:"
+                        f" {tuple(got.shape)}, max |diff| "
+                        f"{(got - want).abs().max().item()} (must be 0)")
+                cases += 1
+    launched = {key: v - before[key] for key, v in _counts().items()
+                if v != before[key]}
+    if launched != {"pann_matmul_act": cases // 2,
+                    "pann_matmul_packed_act": cases // 2}:
+        raise AssertionError(f"ragged N launches {launched}")
+    return {"K": k, "N": n, "N_padded": n + (-n) % 4, "cases": cases,
+            "launches": launched, "max_abs_err": 0.0}
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serving through the port's entry points
 # ---------------------------------------------------------------------------
@@ -830,13 +954,18 @@ def _graph_launches(cfg) -> dict:
     """The wrappers' launches of one decode step of an engine serving
     ``cfg`` through the packed backend with a quantized cache: one matmul
     a projection of every layer (a MoE layer's router and experts are
-    fp32 matmuls), and the lm_head unless the head is tied (a float matmul
-    over the embedding table); one attention a layer."""
+    fp32 matmuls; a mamba layer has 2, a mamba_attn layer 2 and the shared
+    block's, an rwkv layer 9), and the lm_head unless the head is tied (a
+    float matmul over the embedding table); one attention a layer that
+    attends."""
+    from repro_torch.models import model as MD
     mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
-    per_layer = 4 + (0 if cfg.moe else mlp)
-    return {"pann_matmul_packed_act": per_layer * cfg.num_layers
+    per_kind = {"attn": 4 + mlp, "attn_moe": 4, "mamba": 2,
+                "mamba_attn": 2 + 4 + mlp, "rwkv": 9}
+    return {"pann_matmul_packed_act": sum(
+                per_kind[s.kind] for s in MD.layer_specs(cfg))
             + (0 if cfg.tie_embeddings else 1),
-            "decode_attention": cfg.num_layers}
+            "decode_attention": _attention_layers(cfg)}
 
 
 def _check_capture_counts(engine, counts: dict, per_step: dict) -> None:
@@ -976,30 +1105,45 @@ def _seed_biases(params: dict, seed: int) -> None:
             b.copy_(torch.randn(b.shape, generator=gen, device="cuda") * 0.1)
 
 
+def _seed_recurrent(params: dict, seed: int) -> None:
+    """Nonzero rwkv bonus (u) and Mamba2 conv bias, N(0, 0.1^2) from
+    ``seed``: init makes them zero, and a zero would check nothing."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2000 + seed)
+    for lp in params["layers"]:
+        for t in ([lp["tm"]["bonus"]] if "tm" in lp else []) + \
+                ([lp["ssm"]["conv_b"]] if "ssm" in lp else []):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.1)
+
+
 def _init_params(cfg, seed: int) -> dict:
     from repro_torch.models import model as MD
     params = MD.init_params(cfg, seed=seed, device="cuda")
     if cfg.qkv_bias:
         _seed_biases(params, seed)
+    if cfg.family in ("hybrid", "ssm"):
+        _seed_recurrent(params, seed)
     return params
 
 
 def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
                      n_requests: int = REQUESTS,
                      eager_profile: bool = True) -> dict:
-    """Phase 4 (llama3-8b), 4c (each dense variant) and 4d (each MoE
-    config at its MOE_LAYERS depth): one config at full width served
-    through graphs, held to eager and profiled."""
+    """Phase 4 (llama3-8b), 4c (each dense variant), 4d (each MoE config
+    at its MOE_LAYERS depth) and 4e (each recurrent config): one config at
+    full width served through graphs, held to eager and profiled. An
+    attention-free config (rwkv6) is served without a KV cache."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.serve_engine import ServeEngine
     cfg = served_config(arch, quant=QuantConfig(mode="none"))
+    cache_bits = None if cfg.is_attention_free else CACHE_BITS
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, _init_params(cfg, seed),
                          ladder_bits=LADDER, max_batch=BATCH,
                          max_len=PROMPT + GEN, backend="packed",
-                         cache_bits=CACHE_BITS, device="cuda")
+                         cache_bits=cache_bits, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     served = serve_graphed(engine, _requests(cfg, seed=seed, n=n_requests),
@@ -1038,6 +1182,8 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         names.items(), key=lambda kv: -kv[1])[:8])
     eager = (profile_steps(functools.partial(_eager_runner, engine),
                            steps_by_rung) if eager_profile else None)
+    split = (recurrent_split(engine, profile)
+             if cfg.family in ("hybrid", "ssm") else None)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb >= 70.0:
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
@@ -1049,7 +1195,8 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         "config": f"{arch} full width, {n_layers} layers{cut}, random "
                   f"weights seed {seed}" + ("; q/k/v biases N(0, 0.1^2)"
                                             if cfg.qkv_bias else ""),
-        "ladder": list(LADDER), "backend": "packed", "cache_bits": CACHE_BITS,
+        "ladder": list(LADDER), "backend": "packed",
+        "cache_bits": cache_bits,
         "max_batch": BATCH, "prompt": PROMPT, "gen": GEN,
         "requests": n_requests, "store_build_s": build_s, **served,
         "graphs": engine.graphs_captured,
@@ -1067,6 +1214,8 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
     }
     if cfg.moe:
         out["fp32_matmuls"] = _moe_matmul_report(cfg, profile)
+    if split is not None:
+        out["device_ms_split"] = split
     del engine
     torch.cuda.empty_cache()
     return out
@@ -1278,6 +1427,121 @@ def profile_steps(runner, steps_by_rung: dict,
             "by_rung": by_rung}
 
 
+# profiler ranges of ``recurrent_split``: (module, function, range) around
+# the recurrent blocks, every serving projection and the decode attention
+SPLIT_RANGES = (("models.ssm", "decode_ssm", "recurrent block"),
+                ("models.rwkv", "apply_time_mix", "recurrent block"),
+                ("models.rwkv", "apply_channel_mix", "recurrent block"),
+                ("kernels.dispatch", "serving_linear", "projection"),
+                ("kernels.dispatch", "decode_attention", "attention"))
+NESTED_PROJECTION = "projection in a recurrent block"
+
+
+def recurrent_split(engine, graph_profile: dict) -> dict:
+    """Phase 4e: where a recurrent config's decode step spends its device
+    time. Over graph replays the profiler sees kernels but no host op to
+    attribute a small kernel to, so one eager step of the top rung (the
+    kernels a graph captures) runs under ``record_function`` ranges
+    around the recurrent blocks (``ssm.decode_ssm``,
+    ``rwkv.apply_time_mix``, ``rwkv.apply_channel_mix``), every
+    ``dispatch.serving_linear`` and ``dispatch.decode_attention``, after
+    an uncounted guard step and a marker kernel (as ``_profile_rung``).
+    B2 and B3 are the step's kernels by name (device timestamps after the
+    marker); every other kernel is attributed to the range whose host op
+    launched it: the projections' small kernels (the dispatch's quantizer
+    and epilogue ops), the recurrent fp ops (scan, conv, gates, the wkv
+    recurrence: the recurrent ranges less the projections inside them),
+    the attention's (the query's quantizer), and the rest (norms,
+    residuals, the cache write, the head's argmax, the state copies).
+    Kernels the profiler links to no host op are reported apart. Returns
+    the eager step's split (ms) and the graphed step's by kind."""
+    import importlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    depth = [0]
+
+    def ranged(fn, name):
+        recurrent = name == "recurrent block"
+
+        def run(*args, **kwargs):
+            label = (NESTED_PROJECTION if name == "projection" and depth[0]
+                     else name)
+            with record_function(label):
+                depth[0] += recurrent
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    depth[0] -= recurrent
+        return run
+
+    saved = []
+    for mod_name, attr, name in SPLIT_RANGES:
+        mod = importlib.import_module(f"repro_torch.{mod_name}")
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, ranged(getattr(mod, attr), name))
+    try:
+        run = _eager_runner(engine, max(LADDER))
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            with record_function("counted step"):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    events = prof.events()
+    labels = {name for _, _, name in SPLIT_RANGES} | {NESTED_PROJECTION,
+                                                     "counted step"}
+    # the device timeline also carries a span for each host range
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in labels]
+    mark = [e.time_range.start for e in kernels if "spin_kernel" in e.name]
+    if len(mark) != 1:
+        raise AssertionError(f"profiler recorded {len(mark)} marker "
+                             "kernels (spin_kernel), expected 1")
+    step = [e for e in kernels if e.time_range.start > mark[0]]
+    total = sum(e.time_range.elapsed_us() for e in step) / 1e3
+    b2, b3 = (sum(e.time_range.elapsed_us() for e in step
+                  if _kernel_kind(e.name) == kind) / 1e3
+              for kind in ("pann_matmul_packed_act", "decode_attention"))
+    big = ("pann_matmul_packed_act", "decode_attention")
+
+    def small_ms(ev) -> float:
+        """Device ms of the non-B2/B3 kernels ``ev``'s host ops launched."""
+        own = sum(k.duration for k in ev.kernels
+                  if _kernel_kind(k.name) not in big) / 1e3
+        return own + sum(small_ms(c) for c in ev.cpu_children)
+
+    start = next(e for e in events
+                 if e.name == "counted step").time_range.start
+    ranges: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in labels \
+                and e.time_range.start >= start:
+            ranges[e.name] = ranges.get(e.name, 0.0) + small_ms(e)
+    nested = ranges.get(NESTED_PROJECTION, 0.0)
+    split = {"B2": b2, "B3": b3,
+             "projection small kernels": ranges.get("projection", 0.0)
+             + nested,
+             "recurrent fp ops": ranges.get("recurrent block", 0.0) - nested,
+             "attention small kernels": ranges.get("attention", 0.0)}
+    split["other small kernels"] = (ranges.get("counted step", 0.0)
+                                    - sum(split.values()) + b2 + b3)
+    split["not linked to a host op"] = total - sum(split.values())
+    return {"eager_step_ms": total, "eager_step_kernels": len(step),
+            "eager_step_ms_by_part": split,
+            "recurrent_share_of_eager_step": split["recurrent fp ops"]
+            / total if total else None,
+            "graphed_step_ms_by_kind": graph_profile["ms_per_step_by_kind"],
+            "graphed_step_ms": graph_profile["device_ms_per_step"]}
+
+
 def _teacher_forced(views: dict, cfg, rows) -> torch.Tensor:
     """(rungs, B, T, V) eager logits of teacher-forcing ``rows`` (B, T)
     through every rung's view."""
@@ -1315,8 +1579,9 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
                    n_requests: int = REQUESTS, layers: int = 2) -> dict:
     """Phase 5: ``arch`` at full width cut to ``layers`` layers (gemma2's
     2: one local and one global layer; mixtral's 1 carries 5.64 GB of
-    fp32 experts into the artifact), one store served by 'ref', 'fused'
-    and 'packed', and its v1 artifact."""
+    fp32 experts into the artifact; zamba2's 8: one group and its 2-layer
+    tail), one store served by 'ref', 'fused' and 'packed', and its v1
+    artifact. An attention-free config (rwkv6) has no KV cache."""
     import tempfile
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
@@ -1326,11 +1591,12 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
     cfg = dataclasses.replace(
         configs.get_config(arch, quant=QuantConfig(mode="none")),
         num_layers=layers)
+    cache_bits = None if cfg.is_attention_free else CACHE_BITS
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     ws = serving.build_weight_store(
         _init_params(cfg, seed), cfg,
         {op.bits: (op.r, op.b_x_tilde) for op in ladder},
-        serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+        serving.ServingQuantSpec(pack_planes=True, cache_bits=cache_bits))
     # the v1 artifact: written off the card, mapped and copied back
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -1347,7 +1613,7 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
     for backend in ("ref", "fused", "packed"):
         eng = ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
                           max_batch=BATCH, max_len=PROMPT + GEN,
-                          backend=backend, cache_bits=CACHE_BITS,
+                          backend=backend, cache_bits=cache_bits,
                           device="cuda")
         _reset_counts()
         eng.warmup()
@@ -1387,11 +1653,12 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
         raise AssertionError(f"ref backend launched kernels: "
                              f"{launches['ref']}")
     cut = ("one local and one global layer" if cfg.local_global_period
+           else "one group and the 2-layer tail" if cfg.family == "hybrid"
            else "the only cut")
     return {"config": f"{arch} full width cut to {layers} layer"
                       f"{'s' if layers > 1 else ''} ({cut}), random "
                       f"weights seed {seed}",
-            "cache_bits": CACHE_BITS, "logits_bit_identical": True,
+            "cache_bits": cache_bits, "logits_bit_identical": True,
             "tokens_identical": True, "logits_shape": list(
                 logits["ref"].shape), "launches": launches,
             "artifact": {"blob_bytes": blob_bytes, "write_load_s": artifact_s,
@@ -1814,8 +2081,10 @@ SINGLE_POINT_KEYS = ("arch", "quant", "backend", "batch", "generated",
                      "prefill_s", "decode_s", "tok_per_s", "sample")
 
 
-def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
-    """Phase 7a (llama3-8b) and 7d (mixtral-8x7b at its MOE_LAYERS depth):
+def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
+                    profiled: bool = True) -> dict:
+    """Phase 7a (llama3-8b), 7d (mixtral-8x7b at its MOE_LAYERS depth) and
+    7f (zamba2-1.2b and rwkv6-1.6b, ``profiled`` False):
     ``MD.forward`` at (PREFILL_B, PREFILL_T) on the top rung's view of a
     full-width weight store, through 'ref', 'fused' and 'packed': the
     logits must be bit-identical, and so must the MoE load-balance loss
@@ -1823,9 +2092,9 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
     launches counted from 0 (one B1 or B2 a projection and the lm_head,
     no B3); forward ms on the host clock of the first (cold) call and of
     the counted call after it, and the device time by kernel kind from
-    the profiler (one guard forward, one counted). B1's and B2's bounds
-    are summed over the (M, K, N, P) products the warm-up call of
-    'packed' hands B2."""
+    the profiler (one guard forward, one counted); unless ``profiled`` is
+    False: then the one (cold) call is counted and timed. B1's and B2's bounds are summed over the (M, K, N, P) products
+    the warm-up call of 'packed' hands B2."""
     from repro_torch.kernels import pann_matmul_packed as pk
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import model as MD
@@ -1869,14 +2138,18 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
 
     for backend in ("ref", "fused", "packed"):
         c = dataclasses.replace(cfg, kernel_backend=backend)
+        _reset_counts()
         if backend == "packed":
             pk.pann_matmul_packed_act = launch_seen
         try:
-            cold_ms = forward_ms(c)[1]
+            out, cold_ms = forward_ms(c)
         finally:
             pk.pann_matmul_packed_act = launch
-        _reset_counts()
-        out, ms = forward_ms(c)
+        ms = cold_ms
+        if profiled:        # a warm call, counted and timed on its own
+            del out
+            _reset_counts()
+            out, ms = forward_ms(c)
         logits, aux = out.logits, out.aux_loss
         del out
         counts = _counts()
@@ -1904,7 +2177,7 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
         run = {"forward_ms": ms, "cold_forward_ms": cold_ms,
                "launches": counts, "aux_loss": float(aux),
                "prefill_tok_per_s": PREFILL_B * PREFILL_T / (ms * 1e-3)}
-        if backend != "ref":
+        if backend != "ref" and profiled:
             dev_ms, ops, lost = _profile_rung(
                 lambda: MD.forward(view, c, tokens), steps=1)
             total = sum(dev_ms.values())
@@ -1918,7 +2191,7 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
               f"{cold_ms:.1f}), "
               f"{run['prefill_tok_per_s']:.0f} tok/s, launches "
               + json.dumps({k: v for k, v in counts.items() if v})
-              + ("" if backend == "ref" else
+              + ("" if "device_ms" not in run else
                  f", device {run['device_ms']:.1f} ms, tile + epilogue "
                  f"share {run['kernel_share']:.3f}, by kind "
                  + json.dumps(run["device_ms_by_kind"])), flush=True)
@@ -1936,11 +2209,12 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b") -> dict:
              sum(2 * p * k * n for _, k, n, p in products))):
         b_ms, b_by = bound_ms(small + plane_bytes, ops)
         run = runs[backend]
-        kernel_ms = (run["device_ms_by_kind"].get("tile_kernel", 0.0)
-                     + run["device_ms_by_kind"].get("epilogue", 0.0))
+        by_kind = run.get("device_ms_by_kind")
+        kernel_ms = (None if by_kind is None else by_kind.get(
+            "tile_kernel", 0.0) + by_kind.get("epilogue", 0.0))
         run.update(kernel=name, kernel_ms=kernel_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        print(f"[prefill] {arch} {name}: {kernel_ms:.1f} ms over "
+        print(f"[prefill] {arch} {name}: {kernel_ms} ms over "
               f"{len(products)} "
               f"products, bound {b_ms:.1f} ms ({b_by})", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2022,8 +2296,16 @@ def serve_single(argv: list) -> dict:
                 peak_mem_gb=peak_gb, wall_s=wall, planes=planes), logits
 
 
+# phase 7b's depth: llama3-8b's single point at full width, cut to 8 of its
+# 32 layers to keep the script inside its time limit (each layer's
+# value-exact plane count is the same at any depth: the codes' peak is
+# 19-21 at --power_bits 2 and 36-40 at 4 in every layer)
+SINGLE_POINT_LAYERS = 8
+
+
 def single_point() -> dict:
-    """Phase 7b: the single-point serve at full-width llama3-8b, --quant
+    """Phase 7b: the single-point serve at full-width llama3-8b cut to
+    SINGLE_POINT_LAYERS layers, --quant
     pann at --power_bits 2 through 'ref', 'packed' and 'fused' and at
     --power_bits 4 through 'ref' and 'packed' (the artifact's value-exact
     P = 5 and 6 on the square projections): every step's logits of
@@ -2034,14 +2316,16 @@ def single_point() -> dict:
     base = ["--arch", "llama3-8b", "--batch", str(BATCH), "--prompt_len",
             str(PROMPT), "--gen", str(GEN)]
     steps = PROMPT + GEN - 1
-    per_step = _graph_launches(configs.get_config("llama3-8b"))[
+    per_step = _graph_launches(dataclasses.replace(
+        configs.get_config("llama3-8b"), num_layers=SINGLE_POINT_LAYERS))[
         "pann_matmul_packed_act"]
     runs, ref_logits = {}, {}
     for bits, backend, want_p in ((2, "ref", None), (2, "packed", 5),
                                   (2, "fused", None), (4, "ref", None),
                                   (4, "packed", 6)):
-        out, logits = serve_single(base + ["--quant", "pann", "--power_bits",
-                                           str(bits), "--backend", backend])
+        out, logits = serve_single(base + [
+            "--layers", str(SINGLE_POINT_LAYERS), "--quant", "pann",
+            "--power_bits", str(bits), "--backend", backend])
         kernel = {"packed": "pann_matmul_packed_act",
                   "fused": "pann_matmul_act"}.get(backend)
         want = dict.fromkeys(out["launches"], 0)
@@ -2092,8 +2376,9 @@ def single_point() -> dict:
         print(f"[single] legacy {argv} (2 layers): " + json.dumps(
             {k: out[k] for k in ("quant", "prefill_s", "decode_s",
                                  "tok_per_s", "sample")}), flush=True)
-    return {"config": "llama3-8b full width, random weights seed 0 (the "
-                      "CLI's --seed); batch, prompt, gen "
+    return {"config": "llama3-8b full width cut to "
+                      f"{SINGLE_POINT_LAYERS} layers, random weights seed 0 "
+                      "(the CLI's --seed); batch, prompt, gen "
                       f"{BATCH}, {PROMPT}, {GEN}; legacy paths cut to 2 "
                       "layers", "steps_per_serve": steps,
             "runs": runs, "legacy": legacy}
@@ -2182,6 +2467,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels import pann_attention as pa
+    start = time.perf_counter()
 
     # phase 1: device
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2227,6 +2513,9 @@ def main() -> int:
     att_by_config, att_checks = check_attention(gen)
     att_rows = att_by_config["llama3-8b"]
     variant_mm = check_variant_matmuls()
+    ragged = check_ragged_dispatch()
+    print("[kernels] serving_linear at a ragged N (C8): " + json.dumps(
+        ragged), flush=True)
     print(f"[kernels] all bit-identical to their plain versions "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, rows in mm_rows.items():
@@ -2299,8 +2588,31 @@ def main() -> int:
               "kernels " + json.dumps(m["profile"]["top_kernels_ms"]),
               flush=True)
 
+    # phase 4e: the recurrent families at full width and depth
+    recurrent = {}
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        t0 = time.perf_counter()
+        r = full_width_serve(arch, seed=12 + i, n_requests=3,
+                             eager_profile=False)
+        r["phase_s"] = time.perf_counter() - t0
+        recurrent[arch] = r
+        print(f"[recurrent] {arch}: " + json.dumps(
+            {k: val for k, val in r.items()
+             if k not in ("tokens", "profile", "eager_profile")}),
+            flush=True)
+        print(f"[recurrent] {arch} graphed step: {r['ms_per_step']:.3f} ms "
+              f"on the host, {r['profile']['device_ms_per_step']:.3f} ms of "
+              f"device kernels (busy share {r['device_busy_share']:.3f}), "
+              f"{r['tok_per_s']:.2f} tok/s, peak {r['peak_mem_gb']:.2f} GB; "
+              "kernels per graphed step " + json.dumps(
+                  r["profile"]["device_ops_per_step_by_kind"]) + ", ms "
+              + json.dumps(r["profile"]["ms_per_step_by_kind"])
+              + "; an eager step's device ms by part " + json.dumps(
+                  r["device_ms_split"].get("eager_step_ms_by_part")),
+              flush=True)
+
     # phase 5: backends agree, and the v1 artifact round trip, on each
-    # served config cut to 2 layers, mixtral to 1
+    # served config cut to 2 layers, mixtral to 1, zamba2 to 8
     agree = backends_agree()
     print("[backends] " + json.dumps(agree), flush=True)
     agree_variants = {}
@@ -2314,6 +2626,13 @@ def main() -> int:
     agree_variants["mixtral-8x7b"]["phase_s"] = time.perf_counter() - t0
     print("[backends] mixtral-8x7b " + json.dumps(
         agree_variants["mixtral-8x7b"]), flush=True)
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        t0 = time.perf_counter()
+        agree_variants[arch] = backends_agree(
+            arch, seed=14 + i, n_requests=3, layers=RECURRENT_CUT[arch])
+        agree_variants[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"[backends] {arch} " + json.dumps(agree_variants[arch]),
+              flush=True)
 
     # phase 6: the unfused path through the kernel API
     unfused = unfused_path(gen)
@@ -2335,6 +2654,15 @@ def main() -> int:
     moe_single = moe_single_point()
     phase7_moe_s = time.perf_counter() - t0
     print(f"[phase7] mixtral-8x7b {phase7_moe_s:.1f} s", flush=True)
+    # 7f: forward of the recurrent families at full width and depth
+    recurrent_prefill = {}
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        t0 = time.perf_counter()
+        recurrent_prefill[arch] = prefill_forward(seed=16 + i, arch=arch,
+                                                  profiled=False)
+        recurrent_prefill[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"[phase7] {arch} {recurrent_prefill[arch]['phase_s']:.1f} s",
+              flush=True)
     _assert_fp32_matmuls()
 
     step = "one full-width decode step's launches, cold L2"
@@ -2398,9 +2726,10 @@ def main() -> int:
     # the dense variants' and the MoE configs' serves (phases 4c, 4d) and
     # phase 3's rows at their shapes, a decode step's worth (B3 at S = 48,
     # the serve's cache; mixtral's attention is llama3-8b's shape)
-    for arch in VARIANTS + MOE_ARCHS:
-        group = "variants" if arch in VARIANTS else "moe"
-        srv = variants[arch] if arch in VARIANTS else moe[arch]
+    served = {**{a: ("variants", variants[a]) for a in VARIANTS},
+              **{a: ("moe", moe[a]) for a in MOE_ARCHS},
+              **{a: ("recurrent", recurrent[a]) for a in RECURRENT_ARCHS}}
+    for arch, (group, srv) in served.items():
         att_of = arch if arch in att_by_config else "llama3-8b"
         att = [r for r in att_by_config[att_of] if r["S"] == PROMPT + GEN]
         per_step = srv["launches_per_captured_step"]["decode_attention"]
@@ -2412,6 +2741,11 @@ def main() -> int:
                 "ms_per_step", "bound_ms_per_step", "plain_ms_per_step",
                 "library_ms_per_step", "launches_per_step", "max_abs_err",
                 "tied_head")}}
+        if not per_step:        # rwkv6: no attention
+            kernels[2].setdefault(group, {})[arch] = {
+                "launches": srv["launches"]["decode_attention"],
+                "per_graphed_step": 0}
+            continue
         kernels[2].setdefault(group, {})[arch] = {
             "launches": srv["launches"]["decode_attention"],
             "per_graphed_step": per_step, "rows_of": att_of,
@@ -2428,6 +2762,16 @@ def main() -> int:
         "launches"]["pann_matmul_act"]
     kernels[1]["launches_single_point_mixtral"] = moe_single["runs"][
         "packed"]["launches"]["pann_matmul_packed_act"]
+    # the recurrent families' forward (phase 7f) and the ragged N (phase 3)
+    for k, name, backend in ((kernels[0], "pann_matmul_act", "fused"),
+                             (kernels[1], "pann_matmul_packed_act",
+                              "packed")):
+        k["launches_prefill_recurrent"] = {
+            arch: recurrent_prefill[arch]["runs"][backend]["launches"][name]
+            for arch in RECURRENT_ARCHS}
+        k["ragged_n"] = {key: ragged[key] for key in ("K", "N", "N_padded",
+                                                      "cases")}
+        k["launches_ragged_n"] = ragged["launches"][name]
     one_pass = ("one pass of the unfused path (7 projections and the "
                 "lm_head at M = 4 and 512), cold L2")
     for name, source, replaces in (
@@ -2463,7 +2807,11 @@ def main() -> int:
               "prefill": prefill, "single_point": single,
               "phase7_s": phase7_s, "moe": moe, "moe_prefill": moe_prefill,
               "moe_single_point": moe_single,
-              "phase7_moe_s": phase7_moe_s}
+              "phase7_moe_s": phase7_moe_s, "recurrent": recurrent,
+              "recurrent_prefill": recurrent_prefill, "ragged_n": ragged,
+              "wall_s": time.perf_counter() - start}
+    print(f"[time] {report['wall_s']:.1f} s from the device check to the "
+          "report", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

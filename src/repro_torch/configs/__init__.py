@@ -1,9 +1,10 @@
 """Config registry of the port: ``get_config(arch_id)`` and ``reduced``.
 
 Port of ``repro.configs``. The dense decoders (llama3-8b, qwen1.5-4b,
-stablelm-12b, gemma2-9b) and the MoE decoders (mixtral-8x7b, dbrx-132b)
-are registered. The other four architectures of the JAX package (hybrid,
-SSM, encoder-decoder, vision) come with their model families.
+stablelm-12b, gemma2-9b), the MoE decoders (mixtral-8x7b, dbrx-132b), the
+hybrid zamba2-1.2b and the SSM rwkv6-1.6b are registered. The other two
+architectures of the JAX package (encoder-decoder, vision) come with their
+model families.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.configs import (dbrx_132b, gemma2_9b, llama3_8b,
-                                 mixtral_8x7b, qwen1_5_4b, stablelm_12b)
+                                 mixtral_8x7b, qwen1_5_4b, rwkv6_1_6b,
+                                 stablelm_12b, zamba2_1_2b)
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ConvSpec,
                                       ModelConfig, MoEConfig, QuantConfig,
                                       ShapeConfig)
@@ -23,6 +25,8 @@ _REGISTRY = {
     "llama3-8b": llama3_8b.config,
     "dbrx-132b": dbrx_132b.config,
     "mixtral-8x7b": mixtral_8x7b.config,
+    "zamba2-1.2b": zamba2_1_2b.config,
+    "rwkv6-1.6b": rwkv6_1_6b.config,
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

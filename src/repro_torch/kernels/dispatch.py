@@ -32,6 +32,7 @@ from repro_torch.kernels import pann_attention as _pa
 from repro_torch.kernels import pann_matmul as _pm
 from repro_torch.kernels import pann_matmul_packed as _pk
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ops import _N_MULT, _pad_to
 
 Tensor = torch.Tensor
 
@@ -103,6 +104,17 @@ def _gamma_zcol(p: dict, s: Tensor, z: Tensor) -> tuple[Tensor, Tensor]:
     return gamma, zcol
 
 
+def _pad_columns(pos: Tensor, neg: Tensor, gamma: Tensor,
+                 zcol: Tensor) -> tuple:
+    """The B1/B2 operands with N zero-padded up to the kernels' multiple
+    of 4 (each output column is computed on its own, so the real columns
+    are unchanged and the padded ones are sliced away); a no-op, no copy,
+    for every width served so far."""
+    return (_pad_to(pos, _N_MULT, 2).contiguous(),
+            _pad_to(neg, _N_MULT, 2).contiguous(),
+            _pad_to(gamma, _N_MULT, 0), _pad_to(zcol, _N_MULT, 0))
+
+
 def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
                    n_lvl: Tensor, gamma: Tensor, zcol: Tensor,
                    name: str) -> Tensor:
@@ -114,19 +126,24 @@ def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
     shift = (_scalar(p["plane_shift"], xf) if "plane_shift" in p
              else xf.new_zeros(()))
     qparams = torch.stack([s, z, n_lvl, shift])
+    n = w_q.shape[-1]
     if name == "fused":
         n_planes = (p["w_planes_pos"].shape[-3] if "w_planes_pos" in p
                     else INT8_PLANES)
         pos = bitplane_decompose(torch.clamp(w_q, min=0), n_planes)
         neg = bitplane_decompose(torch.clamp(-w_q.to(torch.int32), min=0),
                                  n_planes)
-        return _pm.pann_matmul_act(xf, pos, neg, qparams, gamma, zcol)
+        pos, neg, gamma, zcol = _pad_columns(pos, neg, gamma, zcol)
+        return _pm.pann_matmul_act(xf, pos, neg, qparams, gamma,
+                                   zcol)[:, :n]
     if name == "packed":
         pp, pn = p["w_planes_pos"], p["w_planes_neg"]
         k_full = pp.shape[-2] * 8       # pack_planes padded K up to 8
         if xf.shape[1] != k_full:
             xf = F.pad(xf, (0, k_full - xf.shape[1]))
-        return _pk.pann_matmul_packed_act(xf, pp, pn, qparams, gamma, zcol)
+        pp, pn, gamma, zcol = _pad_columns(pp, pn, gamma, zcol)
+        return _pk.pann_matmul_packed_act(xf, pp, pn, qparams, gamma,
+                                          zcol)[:, :n]
     q = quant.affine_encode(xf, s, z, n_lvl)
     return _pm.matmul_epilogue(q, masked_codes(w_q, shift), s, gamma, zcol)
 

@@ -4,9 +4,10 @@
 
 Parameters are a plain dict: {"embed": {"table"}, "layers": [one dict per
 layer], "final_norm": {"scale"[, "bias"]}, "lm_head": {"w"}}; a config with
-tied embeddings has no "lm_head" and unembeds through the table. A weight
-store's views and a single-point serving artifact have the same structure
-with quantized projection leaves.
+tied embeddings has no "lm_head" and unembeds through the table, and a
+hybrid config (zamba2) adds "shared_attn", the attention + MLP block every
+mamba_attn layer runs. A weight store's views and a single-point serving
+artifact have the same structure with quantized projection leaves.
 """
 from __future__ import annotations
 
@@ -58,6 +59,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.padded_vocab,
                                           dev, scale=0.02)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = T.init_shared_attn(gen, cfg, dev)
     return params
 
 
@@ -101,19 +104,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
                          "(ROADMAP A6)")
     specs = layer_specs(cfg)
     for spec in specs:
-        T._require_attn(spec)
+        T._require_ported(spec)
     x = L.embed(tokens, params["embed"], _dtype(cfg))
     if cfg.scale_embed:
         x = x * embed_scale(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared_attn")
     for spec, lp in zip(specs, params["layers"]):
-        x, a = T.apply_layer(x, lp, cfg, spec)
+        x, a = T.apply_layer(x, lp, cfg, spec, shared=shared)
         aux = aux + a
     return ForwardOut(logits=_head(x, params, cfg), aux_loss=aux)
 
 
 class DecodeState(NamedTuple):
-    caches: list           # one cache per layer
+    caches: list           # one cache (or recurrent state) per layer
     position: Tensor       # () int32
 
 
@@ -136,16 +140,19 @@ def embed_scale(cfg: ModelConfig) -> float:
 
 def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
                 tokens: Tensor) -> tuple[Tensor, DecodeState]:
-    """tokens: (B, 1) -> (logits (B, 1, V), new state). Caches are updated
-    in place (``models.attention``)."""
+    """tokens: (B, 1) -> (logits (B, 1, V), new state). Attention caches
+    are updated in place (``models.attention``); the recurrent layers'
+    states (``ssm.SSMState``, ``rwkv.RWKVState``) come back as new
+    tensors in the new state."""
     dtype = _dtype(cfg)
     x = L.embed(tokens, params["embed"], dtype)
     if cfg.scale_embed:
         x = x * embed_scale(cfg)
+    shared = params.get("shared_attn")
     new_caches: list[Any] = []
     for spec, lp, cache in zip(layer_specs(cfg), params["layers"],
                                state.caches):
-        x, c = T.decode_layer(x, cache, lp, cfg, spec)
+        x, c = T.decode_layer(x, cache, lp, cfg, spec, shared=shared)
         new_caches.append(c)
     return _head(x, params, cfg), DecodeState(
         caches=new_caches, position=state.position + 1)

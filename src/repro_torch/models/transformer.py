@@ -3,8 +3,11 @@
 Every architecture is a repeating *group pattern* of layer kinds; the port
 keeps the pattern functions verbatim (``core/costs`` prices layers by them)
 and holds the layers of one model as a plain per-layer list instead of the
-JAX package's group-stacked leaves. The ``attn`` (self-attention + dense
-MLP) and ``attn_moe`` (self-attention + MoE) layers are ported so far.
+JAX package's group-stacked leaves. Ported layer kinds: ``attn``
+(self-attention + dense MLP), ``attn_moe`` (self-attention + MoE),
+``mamba`` (Mamba2), ``mamba_attn`` (Mamba2, then zamba2's shared
+attention + MLP block) and ``rwkv`` (RWKV-6 time mix + channel mix);
+``cross_attn`` comes with the encoder-decoder and vision configs.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
@@ -64,30 +69,37 @@ def group_layout(cfg: ModelConfig, num_layers: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# Per-layer init / apply / decode (attention + dense MLP or MoE layers)
+# Per-layer init / apply / decode
 # ---------------------------------------------------------------------------
 
 # the queue item (ROADMAP A) that ports each other layer kind
-_KIND_ITEM = {"mamba": "A5", "mamba_attn": "A5", "rwkv": "A5",
-              "cross_attn": "A6"}
-_PORTED = ("attn", "attn_moe")
+_KIND_ITEM = {"cross_attn": "A6"}
+_PORTED = ("attn", "attn_moe", "mamba", "mamba_attn", "rwkv")
 
 
-def _require_attn(spec: LayerSpec) -> None:
+def _require_ported(spec: LayerSpec) -> None:
     if spec.kind not in _PORTED:
         item = _KIND_ITEM.get(spec.kind)
         where = f" (ROADMAP {item})" if item else ""
         raise ValueError(f"layer kind {spec.kind!r} is not ported yet: "
-                         f"attn and attn_moe only{where}")
+                         f"{', '.join(_PORTED)} only{where}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> dict:
-    _require_attn(spec)
+    _require_ported(spec)
     d = cfg.d_model
-    p = {"norm1": L.init_norm(d, cfg.norm, device),
-         "attn": A.init_attention(gen, cfg, device),
-         "norm2": L.init_norm(d, cfg.norm, device)}
+    p = {"norm1": L.init_norm(d, cfg.norm, device)}
+    if spec.kind in ("mamba", "mamba_attn"):
+        p["ssm"] = S.init_ssm(gen, cfg, device)
+        return p
+    if spec.kind == "rwkv":
+        p["tm"] = R.init_rwkv_time_mix(gen, cfg, device)
+        p["norm2"] = L.init_norm(d, cfg.norm, device)
+        p["cm"] = R.init_rwkv_channel_mix(gen, cfg, device)
+        return p
+    p["attn"] = A.init_attention(gen, cfg, device)
+    p["norm2"] = L.init_norm(d, cfg.norm, device)
     if spec.kind == "attn_moe":
         p["moe"] = M.init_moe(gen, cfg, device)
     else:
@@ -98,13 +110,32 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     return p
 
 
+def init_shared_attn(gen: torch.Generator, cfg: ModelConfig,
+                     device) -> dict:
+    """zamba2: one attention + MLP block shared by every mamba_attn
+    position."""
+    return {"norm1": L.init_norm(cfg.d_model, cfg.norm, device),
+            "attn": A.init_attention(gen, cfg, device),
+            "norm2": L.init_norm(cfg.d_model, cfg.norm, device),
+            "mlp": M.init_mlp(gen, cfg, device)}
+
+
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device) -> Any:
-    """The layer's cache of ``max_len`` positions. A windowed layer whose
-    window is shorter than ``max_len`` is refused: the reference sizes its
-    cache at the window and drops the writes past it, and a ring buffer is
-    not ported yet (ROADMAP C2)."""
-    _require_attn(spec)
+    """The layer's decode state: an attention layer's cache of ``max_len``
+    positions, a mamba layer's ``SSMState`` (a mamba_attn layer's paired
+    with the shared block's cache), an rwkv layer's ``RWKVState``. A
+    windowed layer whose window is shorter than ``max_len`` is refused: the
+    reference sizes its cache at the window and drops the writes past it,
+    and a ring buffer is not ported yet (ROADMAP C2)."""
+    _require_ported(spec)
+    if spec.kind in ("mamba", "mamba_attn"):
+        ssm = S.init_ssm_state(cfg, batch, dtype, device)
+        if spec.kind == "mamba_attn":
+            return (ssm, A.init_cache(cfg, batch, max_len, dtype, device))
+        return ssm
+    if spec.kind == "rwkv":
+        return R.init_rwkv_state(cfg, batch, dtype, device)
     if spec.window and spec.window < max_len:
         raise ValueError(
             f"windowed layer: window {spec.window} < max_len {max_len}; a "
@@ -122,13 +153,32 @@ def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
 
 
 def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
+                shared: Optional[dict] = None,
                 causal: bool = True) -> tuple[Tensor, Tensor]:
-    """Prefill / ``forward`` of one layer. Returns (x, aux_loss): an attn
-    layer's aux loss is 0, an attn_moe layer's its router's load-balance
-    loss. MoE runs the scan over experts, as the reference does without a
-    mesh (its capacity dispatch comes with ``dist/``, ROADMAP A10)."""
-    _require_attn(spec)
+    """Prefill / ``forward`` of one layer. Returns (x, aux_loss): the aux
+    loss is an attn_moe layer's router load-balance loss, else 0. MoE runs
+    the scan over experts, as the reference does without a mesh (its
+    capacity dispatch comes with ``dist/``, ROADMAP A10). ``shared`` is
+    zamba2's shared block, which every mamba_attn layer runs."""
+    _require_ported(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind in ("mamba", "mamba_attn"):
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        x = x + S.apply_ssm(h, p["ssm"], cfg)
+        if spec.kind == "mamba_attn":
+            assert shared is not None, "mamba_attn needs the shared block"
+            h = L.apply_norm(x, shared["norm1"], cfg.norm)
+            x = x + A.attend(h, shared["attn"], cfg, causal=causal)
+            h = L.apply_norm(x, shared["norm2"], cfg.norm)
+            x = x + M.apply_mlp(h, shared["mlp"], cfg)
+        return x, aux
+    if spec.kind == "rwkv":
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        y, _, _ = R.apply_time_mix(h, p["tm"], cfg)
+        x = x + y
+        h = L.apply_norm(x, p["norm2"], cfg.norm)
+        y, _ = R.apply_channel_mix(h, p["cm"], cfg)
+        return x + y, aux
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h = A.attend(h, p["attn"], cfg, window=spec.window, causal=causal)
     x = _residual(x, h, p, cfg, "post1")
@@ -142,10 +192,38 @@ def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
 
 
 def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,
-                 spec: LayerSpec) -> tuple[Tensor, Any]:
+                 spec: LayerSpec, *, shared: Optional[dict] = None
+                 ) -> tuple[Tensor, Any]:
     """Single-token decode step of one layer (an attn_moe layer runs the
-    scan over experts and drops its aux loss)."""
-    _require_attn(spec)
+    scan over experts and drops its aux loss). Attention writes its K/V
+    into ``cache`` in place; a recurrent layer returns NEW state tensors
+    (``SSMState``, ``RWKVState``), which a caller holding fixed buffers
+    copies back (``ServeEngine``)."""
+    _require_ported(spec)
+    if spec.kind in ("mamba", "mamba_attn"):
+        ssm_state, kv = cache if spec.kind == "mamba_attn" else (cache, None)
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        y, ssm_state = S.decode_ssm(h, ssm_state, p["ssm"], cfg)
+        x = x + y
+        if spec.kind == "mamba":
+            return x, ssm_state
+        assert shared is not None, "mamba_attn needs the shared block"
+        h = L.apply_norm(x, shared["norm1"], cfg.norm)
+        y, kv = A.decode_attend(h, kv, shared["attn"], cfg)
+        x = x + y
+        h = L.apply_norm(x, shared["norm2"], cfg.norm)
+        return x + M.apply_mlp(h, shared["mlp"], cfg), (ssm_state, kv)
+    if spec.kind == "rwkv":
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        y, wkv, last_tm = R.apply_time_mix(h, p["tm"], cfg, state=cache)
+        x = x + y
+        h = L.apply_norm(x, p["norm2"], cfg.norm)
+        y, last_cm = R.apply_channel_mix(h, p["cm"], cfg,
+                                         prev=cache.shift_cm)
+        return x + y, R.RWKVState(
+            wkv=wkv, shift_tm=last_tm.to(cache.shift_tm.dtype),
+            shift_cm=last_cm.to(cache.shift_cm.dtype),
+            length=cache.length + 1)
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h, cache = A.decode_attend(h, cache, p["attn"], cfg, window=spec.window)
     x = _residual(x, h, p, cfg, "post1")

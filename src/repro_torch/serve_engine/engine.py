@@ -12,12 +12,12 @@ The compiled decode step. The JAX package traces ``decode_step`` once per
 engine (``jax.jit``) and proves after traffic that nothing retraced. The
 port's counterpart is a CUDA graph: ``warmup()`` captures, for every rung
 and every decode-state *slot*, one graph of the whole step (the model, the
-copy of the new cache lengths and position back into the slot, and the
-greedy token written into the slot's token buffer), and every decode step
-of ``generate``, ``prefill_wave`` and ``decode_stream`` on the card is a
-replay of one of them. A graph replays fixed pointers, so a slot owns its
-decode state and token buffer for the engine's life and starting a wave
-zeroes them in place. Nothing is captured after warmup
+copy of the new cache lengths, position and recurrent states back into
+the slot, and the greedy token written into the slot's token buffer), and
+every decode step of ``generate``, ``prefill_wave`` and ``decode_stream``
+on the card is a replay of one of them. A graph replays fixed pointers,
+so a slot owns its decode state and token buffer for the engine's life
+and starting a wave zeroes them in place. Nothing is captured after warmup
 (``assert_no_recompile``); a step whose graph warmup did not capture
 raises, it never runs eagerly on the card. The CPU has no graphs: a CPU
 engine runs the same slot step eagerly.
@@ -68,6 +68,14 @@ class Lane:
     slot: Slot
     generated: list          # [(max_batch, 1), ...] greedy tokens
     steps_left: int
+
+
+def _tensors(tree) -> list:
+    """The tensors of a decode state (nested tuples, NamedTuples and
+    lists), in order."""
+    if isinstance(tree, Tensor):
+        return [tree]
+    return [t for node in tree for t in _tensors(node)]
 
 
 class ServeEngine:
@@ -200,24 +208,24 @@ class ServeEngine:
     def _reset(slot: Slot) -> None:
         """Zero the slot in place: it then equals a fresh
         ``init_decode_state`` (and a zero token buffer) bit for bit."""
-        for cache in slot.state.caches:
-            for t in cache:
-                t.zero_()
-        slot.state.position.zero_()
+        for t in _tensors(slot.state):
+            t.zero_()
         slot.tok.zero_()
 
     def _slot_step(self, bits: int, slot: Slot) -> Tensor:
         """One decode step of ``slot`` at rung ``bits``, in place: the
         model (``MD.decode_step``, which writes the new token's K/V into
-        the slot's caches), the new cache lengths and position copied back
-        into the slot, and the greedy token over the first ``vocab_size``
-        logits written into the slot's token buffer. Returns the logits.
-        This is the work one graph replays."""
+        the slot's caches), every other leaf of the new state (cache
+        lengths, the position, the recurrent layers' states) copied back
+        into the slot's buffers, and the greedy token over the first
+        ``vocab_size`` logits written into the slot's token buffer. Returns
+        the logits. This is the work one graph replays."""
         logits, new = MD.decode_step(self.variants[bits], self.cfg,
                                      slot.state, slot.tok)
-        for cache, out in zip(slot.state.caches, new.caches):
-            cache.length.copy_(out.length)
-        slot.state.position.copy_(new.position)
+        for old, out in zip(_tensors(slot.state), _tensors(new),
+                            strict=True):
+            if out is not old:
+                old.copy_(out)
         slot.tok.copy_(self._greedy(logits))
         return logits
 

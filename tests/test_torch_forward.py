@@ -5,7 +5,8 @@ reduced dense decoders at quant modes 'none' and 'pann' on fp params
 carried across from the reference, the port's teacher-forced
 ``decode_step`` against its own ``forward``, and the refusals of what is
 not ported (each naming its ROADMAP queue item; MoE is ported, see
-``test_torch_moe``).
+``test_torch_moe``, and so are the SSM and hybrid families, see
+``test_torch_recurrent_serve``).
 
 The reference's ``forward`` runs under ``jax.disable_jit()``: op by op,
 so a division by a Python scalar stays a division (under jit XLA may turn
@@ -150,8 +151,7 @@ def test_decode_matches_forward(arch):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("family,item", [("ssm", "A5"), ("hybrid", "A5"),
-                                         ("vlm", "A6"), ("encdec", "A6")])
+@pytest.mark.parametrize("family,item", [("vlm", "A6"), ("encdec", "A6")])
 def test_forward_refuses_unported_layer_kinds(family, item):
     cfg = dataclasses.replace(port_cfg("llama3-8b"), family=family)
     tokens = torch.zeros((1, 4), dtype=torch.long)

@@ -57,3 +57,16 @@ def test_nothing_builds_at_import():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     from repro_torch.kernels import build
     assert build._libs == {}
+
+
+@pytest.mark.parametrize("module", ["models/ssm.py", "models/rwkv.py",
+                                    "configs/zamba2_1_2b.py",
+                                    "configs/rwkv6_1_6b.py"])
+def test_recurrent_modules_are_checked(module):
+    """The recurrent families' modules are among the files checked above
+    and import only torch, numpy, the standard library and the port."""
+    path = PORT / module
+    assert path in _port_files()
+    allowed = {"torch", "numpy", "repro_torch", "__future__", "typing",
+               "dataclasses"}
+    assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
