@@ -122,7 +122,16 @@ Phases (any failure raises and the script exits non-zero):
               repeats the checks (uncounted) at ragged M, K and N, on
               extreme operands (7 planes of +-127 weights, codes of 127,
               K = 14336) and, for B1 and B2 above 8 rows, at plane_shift
-              0-7.
+              0-7. Then B6's decode regime at every M = 1..8 (the pass's
+              (K, N), ragged (K, N), the extremes; one wrapper launch a
+              call; phase 3 counts the device kernels of such calls with
+              the profiler: one a call, no epilogue), each
+              M timed over the pass's launches beside its byte bound and
+              torch._int_mm on the codes zero-padded to 32 rows; and B7 at
+              M = 1, 4, 8, 131, 512, the pass's and ragged K, fp32 and
+              bf16, bits 2..8, an all-negative and an all-zero row and an
+              x not 16-byte aligned, each M timed over the pass's launches
+              beside the time of a one-element torch op.
 7. prefill and single point — (a) a full-width llama3-8b weight store
               (ladder 2,4,6, packed planes, seed 7): ``MD.forward`` on the
               top rung's view at (B, T) = (2, 2048) through 'ref', 'fused'
@@ -1297,6 +1306,8 @@ def layerwise_serve() -> dict:
 # kernels are the fp32 matmuls (MoE experts and router, a tied head)
 KERNEL_KINDS = (("packed_decode_kernel", "pann_matmul_packed_act"),
                 ("planes_decode_kernel", "pann_matmul_act"),
+                ("signed_decode_kernel", "unsigned_matmul"),
+                ("quantize_act_kernel", "quantize_act"),
                 ("decode_attention", "decode_attention"),
                 ("tile_kernel", "tile_kernel"),
                 ("epilogue", "epilogue"),
@@ -1335,7 +1346,7 @@ def _eager_runner(engine, bits: int):
 
 
 def _profile_rung(run, steps: int = PROFILE_STEPS,
-                  names: dict | None = None) -> tuple:
+                  names: dict | None = None, guard_run=None) -> tuple:
     """(device ms by kernel kind, device ops by kind, records lost) of
     ``steps`` calls of ``run`` (one decode step each), from torch.profiler;
     ``names``, when given, gathers the counted device ms by kernel name.
@@ -1346,13 +1357,14 @@ def _profile_rung(run, steps: int = PROFILE_STEPS,
     a counted step is reported as ``guard_step_records_lost``. A marker
     kernel (``torch.cuda._sleep``'s ``spin_kernel``) follows it on the
     same stream, and only the kernels that start after the marker are
-    counted: device timestamps against device timestamps."""
+    counted: device timestamps against device timestamps. ``guard_run``,
+    when given, is run in place of the guard step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        (guard_run or run)()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -1788,11 +1800,13 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
             raise AssertionError("torch._int_mm differs from the integers")
         lib_name = "torch._int_mm (int8 codes x int8 w_q)"
         lib = time_ms(lambda: torch._int_mm(xq, w_q), 10)
+        b6_lib, b6_lib_name = lib, lib_name
     else:
         w_deq = w_q.float() * gamma[None, :]
         lib_name = "fp32 torch.matmul on the dequantized weight"
         lib = time_ms(lambda: torch.matmul(x, w_deq), 10)
         del w_deq
+        b6_lib, b6_lib_name = int_mm_padded_ms(xq, w_q), INT_MM_PADDED
     out_b = 4 * (m * n + n + m)          # y, gamma, s_x
     products = 2 * m * k * n
     # 'planes' multiplies each live plane, pos and neg apart: 2 P_live
@@ -1833,7 +1847,8 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
         ("unsigned_matmul", None,
          lambda: um.unsigned_matmul(xq, w_q, sx, gamma),
          lambda: um.unsigned_matmul_plain(xq, w_q, sx, gamma),
-         (m * k + k * n + out_b, products, INT8_OPS_PER_S), lib, lib_name),
+         (m * k + k * n + out_b, products, INT8_OPS_PER_S), b6_lib,
+         b6_lib_name),
         # B2 beside the pass (not one of its launches): B1 on packed planes
         ("pann_matmul_packed_act", None,
          lambda: pk.pann_matmul_packed_act(*act_packed),
@@ -1850,7 +1865,30 @@ def _time_unfused(x, packed, w, out, names, per_pass) -> list:
                      "plain_ms": time_ms(plain, PLAIN_ITERS),
                      "library_ms": lib_ms, "library": lname,
                      "bound_ms": b_ms, "bound_by": b_by})
+        if kernel == "unsigned_matmul" and lname != lib_name:
+            rows[-1].update(library_fp32_ms=lib, library_fp32=lib_name)
     return rows
+
+
+# torch._int_mm takes more than 16 rows: B6's library yardstick at decode
+# runs it on the codes zero-padded to INT_MM_ROWS rows
+INT_MM_ROWS = 32
+INT_MM_PADDED = (f"torch._int_mm (int8 codes zero-padded to {INT_MM_ROWS} "
+                 "rows x int8 w_q)")
+
+
+def int_mm_padded_ms(xq, w_q) -> float:
+    """torch._int_mm on the codes xq (M <= 16 rows) zero-padded to
+    INT_MM_ROWS rows (the pad made before the timing), held equal to the
+    integers on the first M rows."""
+    from repro_torch.kernels import ref
+    m, k = xq.shape
+    xp = torch.zeros((INT_MM_ROWS, k), dtype=torch.int8, device=xq.device)
+    xp[:m] = xq
+    if not torch.equal(torch._int_mm(xp, w_q)[:m], ref.int_matmul(xq, w_q)):
+        raise AssertionError("torch._int_mm (padded) differs from the "
+                             "integers")
+    return time_ms(lambda: torch._int_mm(xp, w_q), 10)
 
 
 def _pack(gen, k: int, n: int, r: float) -> tuple:
@@ -2011,6 +2049,191 @@ def tile_shift_parity(gen, err: dict) -> list:
     return checked
 
 
+# B6's decode regime (M <= 8) beyond the pass's M = 4: every M at the
+# pass's (K, N), ragged (K, N) (a K that is no multiple of 4 or 32, a
+# partial 128-column tile, K % 16 != 0: the code panel's byte loads) and
+# the extremes at the path's deepest K
+DECODE_M_MAX = 8
+B6_RAGGED = ((130, 72), (4100, 136), (520, 1028))
+B6_EXTREME = (14336, 1024)
+
+
+def b6_decode_sweep(gen, projections, err: dict) -> dict:
+    """B6 at M = 1..8: bit for bit against its plain version at the pass's
+    (K, N) (random int8 weights in [-127, 127], codes in [0, 127]), at
+    B6_RAGGED and with |w| = 127 against codes of 127 at B6_EXTREME; one
+    wrapper launch a call (``b6_kernels_per_call`` checks the device
+    kernels); one timed row a M, the pass's launches summed, beside the
+    bound and torch._int_mm on the codes padded to INT_MM_ROWS rows (timed
+    once a shape: it does not depend on M). These launches are not the
+    path's."""
+    from repro_torch.kernels import unsigned_matmul as um
+    t0 = time.perf_counter()
+    per_pass: dict = {}
+    for _, k, n in projections:
+        per_pass[(k, n)] = per_pass.get((k, n), 0) + 1
+    shapes = list(per_pass) + list(B6_RAGGED)
+    weights = {kn: torch.randint(-127, 128, kn, generator=gen, device="cuda",
+                                 dtype=torch.int8) for kn in shapes}
+    k, n = B6_EXTREME
+    weights["extreme"] = (127 * (torch.randint(
+        0, 2, (k, n), generator=gen, device="cuda") * 2 - 1)).to(torch.int8)
+    scales = {kn: torch.rand((w.shape[1],), generator=gen, device="cuda")
+              * 1e-3 for kn, w in weights.items()}
+    checked, rows, lib = 0, [], {}
+    for m in range(1, DECODE_M_MAX + 1):
+        row = {"M": m, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "shapes": {}}
+        for key, w in weights.items():
+            kk = w.shape[0]
+            if key == "extreme":
+                xq = torch.full((m, kk), 127, dtype=torch.int8,
+                                device="cuda")
+            else:
+                xq = torch.randint(0, 128, (m, kk), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+            sx = torch.rand((m, 1), generator=gen, device="cuda") + 0.5
+            before = um.launches
+            y = um.unsigned_matmul(xq, w, sx, scales[key])
+            if um.launches != before + 1:
+                raise AssertionError("unsigned_matmul: not one launch a call")
+            _agree("unsigned_matmul", y, um.unsigned_matmul_plain(
+                xq, w, sx, scales[key]), err)
+            checked += 1
+            if key not in per_pass:
+                continue
+            nn = w.shape[1]
+            ms = time_ms(lambda: um.unsigned_matmul(xq, w, sx, scales[key]),
+                         10)
+            b_ms, _ = bound_ms(m * kk + kk * nn + 4 * (m * nn + nn + m),
+                               2 * m * kk * nn)
+            if key not in lib:
+                lib[key] = int_mm_padded_ms(xq, w)
+            cnt = per_pass[key]
+            row["shapes"][f"{kk}x{nn}"] = {"ms": ms, "bound_ms": b_ms,
+                                           "library_ms": lib[key],
+                                           "per_pass": cnt}
+            row["ms"] += cnt * ms
+            row["bound_ms"] += cnt * b_ms
+            row["library_ms"] += cnt * lib[key]
+        rows.append(row)
+    del weights
+    return {"rows": rows, "cases_checked": checked,
+            "shapes": [list(kn) for kn in shapes] + [list(B6_EXTREME)],
+            "library": INT_MM_PADDED, "seconds": time.perf_counter() - t0}
+
+
+GUARD_KERNELS = 2000
+
+
+def b6_kernels_per_call(seed: int = 21) -> dict:
+    """The device kernels of B6 calls at M = 1..DECODE_M_MAX at (4096,
+    4096), from the profiler: one decode kernel a call, no epilogue and
+    nothing else. The profiler loses the records of a window's first
+    kernels, more in each later window of a process, so the window opens
+    with GUARD_KERNELS one-element ops, the marker and the calls; phase 3
+    runs this, before the serves' windows. Operands from a generator of
+    its own."""
+    from repro_torch.kernels import unsigned_matmul as um
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    k = n = 4096
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    sw = torch.rand((n,), generator=gen, device="cuda")
+    calls = [(torch.randint(0, 128, (m, k), generator=gen, device="cuda",
+                            dtype=torch.int8),
+              torch.rand((m, 1), generator=gen, device="cuda") + 0.5)
+             for m in range(1, DECODE_M_MAX + 1)]
+    one = torch.zeros(1, device="cuda")
+
+    def guard():
+        for _ in range(GUARD_KERNELS):
+            one.add_(1.0)
+
+    def run():
+        for xq, sx in calls:
+            um.unsigned_matmul(xq, w, sx, sw)
+    run()                   # the decode scratch at its largest
+    for _ in range(PROFILE_ATTEMPTS):
+        _, kinds, _ = _profile_rung(run, steps=1, guard_run=guard)
+        if kinds:
+            break
+    if kinds != {"unsigned_matmul": DECODE_M_MAX}:
+        raise AssertionError(f"B6 at M = 1..{DECODE_M_MAX}: device kernels "
+                             f"{kinds}, expected one decode kernel a call")
+    return {"K": k, "N": n, "calls": DECODE_M_MAX, "device_kernels": kinds}
+
+
+B7_M = (1, 4, 8, 131, 512)
+B7_RAGGED_K = (4100, 130)     # K * 4 % 16 == 0 and != 0; bf16 both ragged
+
+
+def b7_sweep(gen, projections, err: dict) -> dict:
+    """B7 bit for bit against its plain version at M in B7_M, K of the pass
+    and ragged, fp32 and bf16, bits 2..8, row 0 all negative and row 2 all
+    zero (scale 1e-12 / qmax, codes 0), and x whose base is 1-3 fp32
+    elements past a 16-byte boundary; one launch a call. One timed row a
+    M: the pass's launches at PATH_BITS, fp32, beside the bound, the plain
+    version and the time of a one-element torch op (the launch floor of
+    this timing). These launches are not the path's."""
+    from repro_torch.kernels import quantize_act as qa
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    per_pass: dict = {}
+    for _, k, _ in projections:
+        per_pass[k] = per_pass.get(k, 0) + 1
+    checked = 0
+
+    def agree(x, bits):
+        nonlocal checked
+        before = qa.launches
+        q, s = qa.quantize_act(x, bits=bits)
+        if qa.launches != before + 1:
+            raise AssertionError("quantize_act: not one launch a call")
+        qr, sr = ref.quantize_act_ref(x, bits)
+        _agree("quantize_act", q, qr, err)
+        _agree("quantize_act", s, sr, err)
+        checked += 1
+    for m in B7_M:
+        for k in list(per_pass) + list(B7_RAGGED_K):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            x[0] = -x[0].abs() - 1.0
+            if m > 2:
+                x[2] = 0.0
+            for dtype in (torch.float32, torch.bfloat16):
+                for bits in range(2, 9):
+                    agree(x.to(dtype), bits)
+    buf = torch.randn(4 * 4096 + 3, generator=gen, device="cuda")
+    for off in (1, 2, 3):
+        agree(buf[off:off + 4 * 4096].view(4, 4096), PATH_BITS)
+    one = torch.zeros(1, device="cuda")
+    floor = time_ms(lambda: one.add_(1.0), 10)
+    rows = []
+    for m in B7_M:
+        row = {"M": m, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "floor_ms": floor, "shapes": {}}
+        for k, cnt in per_pass.items():
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            ms = time_ms(lambda: qa.quantize_act(x, bits=PATH_BITS), 10)
+            plain = time_ms(lambda: ref.quantize_act_ref(x, PATH_BITS),
+                            PLAIN_ITERS)
+            b_ms, _ = bound_ms(4 * m * k + m * k + 4 * m, 4 * m * k,
+                               FP32_OPS_PER_S)
+            row["shapes"][str(k)] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "per_pass": cnt,
+                "plan": list(qa.cluster_plan(m, k, 4, qa.sm_count(0)))}
+            row["ms"] += cnt * ms
+            row["plain_ms"] += cnt * plain
+            row["bound_ms"] += cnt * b_ms
+        rows.append(row)
+    return {"rows": rows, "cases_checked": checked, "M": list(B7_M),
+            "K": list(per_pass) + list(B7_RAGGED_K),
+            "bits": list(range(2, 9)),
+            "floor_ms": floor, "seconds": time.perf_counter() - t0}
+
+
 def unfused_path(gen) -> dict:
     """Phase 6: one pass of the unfused path over a layer's projections and
     the lm_head at each M, weights N(0, 0.02) packed at the serve ladder's
@@ -2059,6 +2282,8 @@ def unfused_path(gen) -> dict:
     ragged_parity(gen, r_top, err)
     extremes_parity(gen, err)
     shifts = tile_shift_parity(gen, err)
+    b6_decode = b6_decode_sweep(gen, projections, err)
+    b7 = b7_sweep(gen, projections, err)
     return {"config": "llama3-8b full-width projections (7 of a layer and "
                       "the lm_head), random N(0, 0.02) weights packed at "
                       "the top rung R, N(0, 1) activations, seed 0",
@@ -2067,7 +2292,7 @@ def unfused_path(gen) -> dict:
             "ragged_shapes_checked": [list(s) for s in RAGGED],
             "extremes_checked": list(EXTREME),
             "tile_shift_shapes_checked": shifts,
-            "max_abs_err": err,
+            "max_abs_err": err, "b6_decode": b6_decode, "b7": b7,
             "seconds": time.perf_counter() - t0, "rows": rows}
 
 
@@ -2516,6 +2741,9 @@ def main() -> int:
     ragged = check_ragged_dispatch()
     print("[kernels] serving_linear at a ragged N (C8): " + json.dumps(
         ragged), flush=True)
+    b6_calls = b6_kernels_per_call()
+    print("[kernels] unsigned_matmul at M = 1..8, device kernels (profiler): "
+          + json.dumps(b6_calls), flush=True)
     print(f"[kernels] all bit-identical to their plain versions "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, rows in mm_rows.items():
@@ -2641,6 +2869,12 @@ def main() -> int:
           f"max |err| {unfused['max_abs_err']}", flush=True)
     for r in unfused["rows"]:
         print("[unfused] " + json.dumps(r), flush=True)
+    for key in ("b6_decode", "b7"):
+        sweep = unfused[key]
+        print(f"[unfused] {key}: {sweep['cases_checked']} cases bit-identical "
+              f"({sweep['seconds']:.1f} s)", flush=True)
+        for r in sweep["rows"]:
+            print(f"[unfused] {key} " + json.dumps(r), flush=True)
 
     # phase 7: prefill (forward) and the single-point serve
     t0 = time.perf_counter()
@@ -2790,6 +3024,19 @@ def main() -> int:
             unfused["launches"][name], "per_pass",
             max(unfused["max_abs_err"][name], mm_err.get(name, 0.0)),
             one_pass))
+    # B6 at every decode M and B7 at every M of the sweeps (phase 6)
+    b6, b7 = unfused["b6_decode"], unfused["b7"]
+    kernels[-2]["decode_rows"] = [
+        {key: r[key] for key in ("M", "ms", "bound_ms", "library_ms")}
+        for r in b6["rows"]]
+    kernels[-2]["decode_library"] = b6["library"]
+    kernels[-2]["decode_kernels_per_call"] = b6_calls
+    kernels[-2]["decode_cases_checked"] = b6["cases_checked"]
+    kernels[-1]["m_rows"] = [
+        {key: r[key] for key in ("M", "ms", "plain_ms", "bound_ms")}
+        for r in b7["rows"]]
+    kernels[-1]["floor_ms"] = b7["floor_ms"]
+    kernels[-1]["cases_checked"] = b7["cases_checked"]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

@@ -85,14 +85,8 @@ constexpr float kProbScale = 16384.0f;
 // kernel's static arrays and a margin (the wrapper's DYN_SMEM_BYTES)
 constexpr size_t kDynSmemMax = 232448 - 12 * 1024;
 
-// The cluster barrier; a one-block cluster needs only the block's.
-__device__ __forceinline__ void cluster_barrier(const cg::cluster_group& cl,
-                                                int C) {
-  if (C == 1)
-    __syncthreads();
-  else
-    cl.sync();
-}
+using pann::cluster_barrier;
+using pann::gather;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
@@ -105,16 +99,6 @@ __device__ __forceinline__ double warp_sum(double v) {
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
   return v;
-}
-
-// The value at `local`'s place in the shared memory of each of the C
-// blocks of the cluster, in rank order; the loads are issued together.
-template <class T>
-__device__ __forceinline__ void gather(const cg::cluster_group& cluster,
-                                       T* local, int C, T (&v)[kCMax]) {
-#pragma unroll
-  for (int r = 0; r < kCMax; ++r)
-    v[r] = r < C ? *cluster.map_shared_rank(local, r) : T(0);
 }
 
 // a live-plane count from a device scalar: clamped to [1, P], rounded;

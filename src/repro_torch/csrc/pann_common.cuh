@@ -1,13 +1,15 @@
-// Shared pieces of the integer matmul kernels (pann_matmul.cu,
-// pann_matmul_packed.cu, unsigned_matmul.cu): the row sources (fp32
+// Shared pieces of the integer kernels (pann_matmul.cu,
+// pann_matmul_packed.cu, unsigned_matmul.cu, and the cluster exchanges of
+// pann_attention.cu and quantize_act.cu): the row sources (fp32
 // activations encoded in the kernel, or int8 codes loaded as they are), the
-// decode batch's code panel, the streaming decode blocks of the bit-plane
-// matmuls (M <= kDecodeRows: plane loads that skip L1, byte arithmetic, and
-// the split-K sum and epilogue folded into the same launch), and the
-// split-K epilogue kernel of the launches that keep two kernels. Above
+// streaming decode blocks of the matmuls (M <= kDecodeRows: weight loads
+// that skip L1, byte arithmetic, and the split-K sum and epilogue folded
+// into the same launch), the split-K epilogue kernel of the tile launches,
+// and the thread block cluster's barrier and shared-memory gather. Above
 // kDecodeRows rows every matmul runs on the int8 tensor cores
 // (pann_tc.cuh).
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,23 +60,10 @@ struct CodeRows {  // int8 codes x_q; every plane is live
   __device__ int shift(int) const { return 0; }
 };
 
-// unsigned_matmul.cu's decode kernel: rows [m0, m0 + MT) x columns [k0, k0 +
-// kc) of the codes into the block's shared panel codes[MT][kchunk]; rows
-// past M are 0.
-template <int MT, class Rd>
-__device__ __forceinline__ void load_panel(const Rd& rd, int8_t* codes, int M,
-                                           int m0, int k0, int kc,
-                                           int kchunk) {
-  for (int i = threadIdx.x; i < MT * kc; i += blockDim.x) {
-    int mm = i / kc, kk = i - mm * kc;
-    int m = m0 + mm;
-    codes[mm * kchunk + kk] = m < M ? rd(m, k0 + kk) : int8_t(0);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Streaming decode blocks of the bit-plane matmuls (B1/B4 in pann_matmul.cu,
-// B2/B5 in pann_matmul_packed.cu) at M <= kDecodeRows.
+// Streaming decode blocks of the integer matmuls at M <= kDecodeRows: B1/B4
+// (unpacked planes, pann_matmul.cu), B2/B5 (packed planes,
+// pann_matmul_packed.cu) and B6 (the signed int8 weight, unsigned_matmul.cu).
 //
 // A block is kStreamWarps warps over kStreamCols adjacent columns: lane l
 // owns columns n_blk + 4l .. + 3, so each warp load of a plane row is one
@@ -233,22 +222,6 @@ __device__ __forceinline__ void finish_block(const Finish& f, int* red,
   if (threadIdx.x == 0) f.tickets[tile] = 0;
 }
 
-// Store a thread's MT x 4 int32 partial sums for split ky.
-template <int MT>
-__device__ __forceinline__ void store_partial(int* __restrict__ partial,
-                                              const int (&acc)[MT][kCols],
-                                              int M, int N, int m0, int n0,
-                                              int ky) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m0 + m < M) {
-      int4 v = make_int4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      *reinterpret_cast<int4*>(partial + ((size_t)ky * M + m0 + m) * N + n0) =
-          v;
-    }
-  }
-}
-
 // y = ((sum_k partial - sum_k partial_neg - zcol) * s[m * s_stride]) * gamma
 // in the reference's association; partial_neg and zcol may be null, and
 // s_stride is 0 for a per-tensor scale (B1/B2's qparams[0]) and 1 for
@@ -288,6 +261,29 @@ inline int launch_epilogue(const int* partial, const int* partial_neg,
   epilogue_kernel<<<blocks, threads, 0, stream>>>(
       partial, partial_neg, s, s_stride, gamma, zcol, y, M, N, ksplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters (B3 in pann_attention.cu, B7 in quantize_act.cu).
+
+// The cluster barrier; a one-block cluster needs only the block's.
+__device__ __forceinline__ void cluster_barrier(
+    const cooperative_groups::cluster_group& cl, int C) {
+  if (C == 1)
+    __syncthreads();
+  else
+    cl.sync();
+}
+
+// The value at `local`'s place in the shared memory of each of the C
+// blocks of the cluster, in rank order; the loads are issued together.
+template <class T, int N>
+__device__ __forceinline__ void gather(
+    const cooperative_groups::cluster_group& cluster, T* local, int C,
+    T (&v)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+    v[r] = r < C ? *cluster.map_shared_rank(local, r) : T(0);
 }
 
 }  // namespace pann

@@ -40,40 +40,35 @@ MODES = ("fused", "planes")
 # H100's 132 SMs. Above DECODE_ROWS rows every matmul (B1/B4 here, B2/B5 in
 # pann_matmul_packed, B6 in unsigned_matmul) runs the tensor-core tile
 # kernel (csrc/pann_tc.cuh): a block covers TC_TILE = (rows, columns, K
-# alignment), 128 x 128 outputs over K chunks of whole 64-row steps. Up to
-# DECODE_ROWS rows unsigned_matmul's decode kernel covers 4 or 8 rows x 512
-# columns.
+# alignment), 128 x 128 outputs over K chunks of whole 64-row steps.
 _TARGET_BLOCKS = 2 * 132
 DECODE_ROWS = 8
 _MAX_KCHUNK = 4096
 TC_TILE = (128, 128, 64)
 
-# The streaming decode kernels of the bit-plane matmuls (M <= DECODE_ROWS,
+# The streaming decode kernels of the integer matmuls (M <= DECODE_ROWS,
 # csrc/pann_common.cuh): a block is DECODE_WARPS warps over DECODE_COLS
 # columns, the warps taking K steps of ``step`` rows in turn (4 for the
-# unpacked planes, 8 for the packed ones). Blocks a SM by rows of the row
-# tile (4 or 8), as the kernels' __launch_bounds__ promise.
+# unpacked planes and B6's int8 weight, 8 for the packed planes). Blocks a
+# SM by rows of the row tile (4 or 8), as the kernels' __launch_bounds__
+# promise.
 DECODE_COLS = 128
 DECODE_WARPS = 8
 STEP_PLANES, STEP_PACKED = 4, 8
 BLOCKS_PLANES = {4: 2, 8: 2}
 BLOCKS_PACKED = {4: 3, 8: 2}
+BLOCKS_SIGNED = {4: 4, 8: 2}
 _DECODE_MIN_STEPS = 2       # K steps per warp, at least
 
 
 def split_k(m: int, k: int, n: int) -> tuple[int, int]:
-    """(ksplit, kchunk) of the launch: ksplit * kchunk >= k > (ksplit - 1)
-    * kchunk, kchunk a multiple of 8 (above DECODE_ROWS rows, of TC_TILE's
-    K alignment)."""
-    if m <= DECODE_ROWS:
-        rows, cols, align, cap = (4 if m <= 4 else 8), 512, 8, _MAX_KCHUNK
-    else:
-        (rows, cols, align), cap = TC_TILE, None
+    """(ksplit, kchunk) of a tile launch (m > DECODE_ROWS): ksplit * kchunk
+    >= k > (ksplit - 1) * kchunk, kchunk a multiple of TC_TILE's K
+    alignment."""
+    rows, cols, align = TC_TILE
     tiles = -(-n // cols) * -(-m // rows)
     ksplit = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // 64)))
     kchunk = -(-(-(-k // ksplit)) // align) * align
-    if cap is not None:
-        kchunk = min(kchunk, cap)
     return -(-k // kchunk), kchunk
 
 
@@ -234,7 +229,8 @@ def _codes_launcher():
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -259,28 +255,36 @@ def decode_scratch(x: Tensor, n_acc: int, n_tickets: int) -> tuple:
     return acc, tickets
 
 
+def split_scratch(x: Tensor, n: int, step: int, blocks: dict) -> tuple:
+    """(ksplit, kchunk, partial, acc, tickets) of a matmul of x (M, K) with
+    N columns: up to DECODE_ROWS rows the streaming decode kernel's split
+    (K steps of ``step`` rows, ``blocks`` a SM by row tile, see
+    ``decode_split``) and its zeroed sums and tickets, partial None; above
+    it the tile kernel's split (``split_k``) and its (ksplit, M, N) int32
+    partial sums, acc and tickets None."""
+    m, k = x.shape
+    if m <= DECODE_ROWS:
+        slots = sm_count(x.device.index) * blocks[4 if m <= 4 else 8]
+        ksplit, kchunk = decode_split(k, n, step, slots)
+        acc, tickets = decode_scratch(x, m * n, -(-n // DECODE_COLS))
+        return ksplit, kchunk, None, acc, tickets
+    ksplit, kchunk = split_k(m, k, n)
+    partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
+    return ksplit, kchunk, partial, None, None
+
+
 def launch_product(launcher, what: str, x: Tensor, planes: tuple,
                    scale: Tensor, gamma: Tensor, zcol, *extra,
                    step: int = STEP_PLANES,
                    blocks: dict = BLOCKS_PLANES) -> Tensor:
-    """Allocate y and the split-K scratch and call one C entry point of the
-    bit-plane matmuls: up to DECODE_ROWS rows the streaming decode kernel
-    (K steps of ``step`` rows, ``blocks`` a SM by row tile, see
-    ``decode_split``; one launch), above it the tensor-core tile kernel
-    (see ``split_k``) and the epilogue kernel; raises on a CUDA error."""
+    """Allocate y and the split-K scratch (``split_scratch``) and call one C
+    entry point of the bit-plane matmuls: up to DECODE_ROWS rows the
+    streaming decode kernel (one launch), above it the tensor-core tile
+    kernel and the epilogue kernel; raises on a CUDA error."""
     m, k = x.shape
     p, _, n = planes[0].shape
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m <= DECODE_ROWS:
-        slots = _sm_count(x.device.index) * blocks[4 if m <= 4 else 8]
-        ksplit, kchunk = decode_split(k, n, step, slots)
-        partial = None
-        acc, tickets = decode_scratch(x, m * n, -(-n // DECODE_COLS))
-    else:
-        ksplit, kchunk = split_k(m, k, n)
-        partial = torch.empty((ksplit, m, n), dtype=torch.int32,
-                              device=x.device)
-        acc = tickets = None
+    ksplit, kchunk, partial, acc, tickets = split_scratch(x, n, step, blocks)
     ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,
                                    partial, acc, tickets)]
     err = launcher(*ptrs, m, k, n, p, ksplit, kchunk, *extra,

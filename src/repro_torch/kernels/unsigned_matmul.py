@@ -5,17 +5,20 @@ the paper's Sec. 4, Eq. 5-6):
     W+ = max(W, 0), W- = max(-W, 0)
 
 on int8 codes x_q >= 0 and signed int8 weight codes in [-127, 127].
-``unsigned_matmul`` launches the CUDA kernel (``csrc/unsigned_matmul.cu``:
-a CUDA-core decode kernel up to 8 rows, the tensor-core tile kernel of
-``csrc/pann_tc.cuh`` above) on CUDA tensors and runs
-``unsigned_matmul_plain`` on CPU tensors.
+``unsigned_matmul`` launches the CUDA kernel (``csrc/unsigned_matmul.cu``)
+on CUDA tensors: up to 8 rows one launch of the streaming decode block of
+``csrc/pann_common.cuh`` (W+ and W- split in registers, two ``__dp4a``
+products, the split-K sum and the scales in the same launch), above 8 rows
+the tensor-core tile kernel of ``csrc/pann_tc.cuh`` and the epilogue
+kernel. CPU tensors run ``unsigned_matmul_plain``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.pann_matmul import DECODE_ROWS, split_k
+from repro_torch.kernels.pann_matmul import (BLOCKS_SIGNED, STEP_PLANES,
+                                             split_scratch)
 from repro_torch.kernels.ref import int_matmul
 
 Tensor = torch.Tensor
@@ -57,7 +60,7 @@ def _check(x_q: Tensor, w_q: Tensor, s_x: Tensor, s_w: Tensor) -> None:
 
 def _launcher():
     return build.entry("unsigned_matmul", "unsigned_matmul_launch",
-                       (build.P,) * 6 + (build.I,) * 5 + (build.P,))
+                       (build.P,) * 8 + (build.I,) * 5 + (build.P,))
 
 
 def unsigned_matmul(x_q: Tensor, w_q: Tensor, s_x: Tensor, s_w: Tensor
@@ -72,16 +75,12 @@ def unsigned_matmul(x_q: Tensor, w_q: Tensor, s_x: Tensor, s_w: Tensor
     _check(x_q, w_q, s_x, s_w)
     m, k = x_q.shape
     n = w_q.shape[1]
-    ksplit, kchunk = split_k(m, k, n)
+    ksplit, kchunk, partial, acc, tickets = split_scratch(
+        x_q, n, STEP_PLANES, BLOCKS_SIGNED)
     y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
-    # up to DECODE_ROWS rows the W+ sums of every split, then the W- sums;
-    # above, the tile kernel's differences
-    sides = 2 if m <= DECODE_ROWS else 1
-    partial = torch.empty((sides, ksplit, m, n), dtype=torch.int32,
-                          device=x_q.device)
-    ptrs = [build.ptr(t) for t in (x_q, w_q, s_x, s_w, y, partial)]
-    err = _launcher()(*ptrs, m, k, n, ksplit, kchunk,
-                      build.stream_of(x_q))
+    ptrs = [build.ptr(t) for t in (x_q, w_q, s_x, s_w, y, partial, acc,
+                                   tickets)]
+    err = _launcher()(*ptrs, m, k, n, ksplit, kchunk, build.stream_of(x_q))
     build.check(err, "unsigned_matmul")
     global launches
     launches += 1

@@ -1,9 +1,11 @@
 """The integer arithmetic of the streaming decode kernels that B1
 ``pann_matmul_act`` / B4 ``pann_matmul`` (unpacked planes,
-``src/repro_torch/csrc/pann_matmul.cu``) and B2 ``pann_matmul_packed_act`` /
+``src/repro_torch/csrc/pann_matmul.cu``), B2 ``pann_matmul_packed_act`` /
 B5 ``pann_matmul_packed`` (packed planes, ``csrc/pann_matmul_packed.cu``)
-run at M <= 8, emulated in numpy step for step as the kernels do it, on the
-CPU (the kernels themselves run only on the card):
+and B6 ``unsigned_matmul`` (the signed int8 weight,
+``csrc/unsigned_matmul.cu``) run at M <= 8, emulated in numpy step for step
+as the kernels do it, on the CPU (the kernels themselves run only on the
+card):
 
 - B2's rebuild: the 32-bit plane words (byte c = column c, bit j = row j),
   the 8 x 8 bit transpose in each byte lane by three swap stages, the
@@ -14,6 +16,10 @@ CPU (the kernels themselves run only on the card):
   transpose) in 'fused' mode, and 'planes' mode's one product per live
   plane and sign on the pre-scaled plane bytes, the negative side through
   the negated codes (``neg_bytes``);
+- B6's rebuild: the 32-bit words of 4 weight rows, the ``__byte_perm``
+  4 x 4 transpose to K-major words, ``split_word``'s W+ and W- words, two
+  u8 ``__dp4a`` lanes in K order into acc_pos and acc_neg (the s8 form
+  reading the same values), and the one subtraction a lane;
 - the grid: ``decode_split``, the warps' K steps, the zero-padded ragged
   last step, and the one-launch split-K finish (integer atomics into a
   buffer, tickets, the last block's read-and-zero and epilogue) in every
@@ -22,9 +28,11 @@ CPU (the kernels themselves run only on the card):
   M = 1..8.
 
 All of it is held against ``kernels.pann_matmul.rebuild_weight`` /
-``int_product``, the plain versions and the JAX package's oracle
-``repro.kernels.ref.pann_matmul_ref``, for P = 1..7, every plane_shift,
-|w| = 127, codes of +-127 and ragged K. Tolerance: bit-identical (0).
+``int_product``, ``kernels.unsigned_matmul.unsigned_matmul_plain``, the
+plain versions and the JAX package's oracles
+``repro.kernels.ref.pann_matmul_ref`` / ``unsigned_matmul_ref``, for P =
+1..7, every plane_shift, |w| = 127, codes of +-127 (B6: codes 0..127) and
+ragged K and N. Tolerance: bit-identical (0).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +44,7 @@ from hypothesis import strategies as st
 from repro.kernels import ref as rref
 from repro_torch.kernels import pann_matmul as tpm
 from repro_torch.kernels import pann_matmul_packed as tpk
+from repro_torch.kernels import unsigned_matmul as tum
 
 H = np.uint32(0x80808080)
 SMS = 132                      # the H100's SM count, as the wrapper reads it
@@ -82,6 +91,16 @@ def neg_bytes(q):
     return (H - (q & ~H)) ^ (~q & H)
 
 
+def split_word(w):
+    """pann_tc.cuh's split_word: one = 1 in each negative byte, s = 0xFF there, |w| =
+    (w ^ s) + one per byte; W+ = |w| & ~s, W- = |w| & s."""
+    w = u32(w)
+    one = (w >> np.uint32(7)) & np.uint32(0x01010101)
+    s = (one * np.uint32(0xFF)).astype(np.uint32)
+    mag = ((w ^ s) + one).astype(np.uint32)
+    return mag & ~s, mag & s
+
+
 def swap_bits(a, b, s: int, mask: int):
     """One swap stage of the bit transpose (swap_bits<S, Mask>)."""
     m, ms = np.uint32(mask), np.uint32((mask << s) & 0xFFFFFFFF)
@@ -112,6 +131,14 @@ def dp4a(a, b, c):
     out = c + (sbytes(a) * sbytes(b)).sum(-1)
     assert np.abs(out).max(initial=0) < 2 ** 31
     return out
+
+
+def ubytes(w) -> np.ndarray:
+    """(..., 4) int64 unsigned bytes of uint32 words, byte i last."""
+    w = np.ascontiguousarray(u32(w)).astype("<u4")
+    return w.view(np.uint8).reshape(*w.shape, 4).astype(np.int64)
+
+
 
 
 def words(rows: np.ndarray) -> np.ndarray:
@@ -241,20 +268,49 @@ def planes_step(pos, neg, rows, lo, panel, acc, mode):
                 acc[m, :, c] = dp4a(nq, cn[c], acc[m, :, c])
 
 
+def signed_step_words(w, rows):
+    """B6: the lane's 4 row words of the int8 weight (0 past kend: row -1)
+    -> pann::transpose4 -> split_word: the K-major W+ and W- words of
+    columns c = 0..3 (byte i = row i)."""
+    zero = u32(np.zeros(w.shape[1] // 4))
+    col = transpose4(*[words(w[r]) if r >= 0 else zero for r in rows])
+    return [split_word(c) for c in col]
+
+
+def signed_step(w, rows, panel, acc):
+    """acc (2, MT, N/4, 4): acc_pos, acc_neg += one B6 step of 4 rows;
+    panel (MT, 4) int8 codes in [0, 127]. Lane (m, c) of each side is one
+    u8 __dp4a of the row's code word and the column's K-major word; every
+    operand byte is in [0, 127], so the s8 form reads the same values."""
+    halves = signed_step_words(w, rows)
+    qb = ubytes(words(panel)[:, 0])                    # (MT, 4)
+    for side in range(2):
+        wb = np.stack([ubytes(halves[c][side]) for c in range(4)], 1)
+        assert qb.max(initial=0) <= 127 and wb.max(initial=0) <= 127
+        np.testing.assert_array_equal(
+            wb, sbytes(np.stack([halves[c][side] for c in range(4)], 1)))
+        # (MT, 1, 1, 4) x (N/4, 4 columns, 4 rows): sum over the 4 rows
+        acc[side] += (qb[:, None, None, :] * wb[None]).sum(-1)
+    assert acc.max(initial=0) < 2 ** 31
+
+
 # ---------------------------------------------------------------------------
 # a whole launch: blocks, warps, steps and the finish
 # ---------------------------------------------------------------------------
 
-def decode_launch(q, planes, lo: int, step: int, rng, mode="fused"):
-    """The int32 sums of a decode launch, block by block as the kernel runs
-    it; the blocks of a column tile arrive in a random order and finish
-    through the atomics buffer and the tickets (ksplit > 1) or directly
-    (ksplit == 1). Returns (sums (M, N), the blocks' K rows, buffers)."""
+def decode_launch(q, n: int, step: int, blocks: dict, step_fn, rng,
+                  sides: int = 1):
+    """The int32 sums of a decode launch with N columns, block by block as
+    the kernel runs it: ``step_fn(rows, panel, acc)`` adds one K step of
+    ``step`` rows (row indices, -1 past the chunk's end) to a warp's
+    accumulators acc (sides, MT, N/4, 4); with two sides (B6's acc_pos and
+    acc_neg) each lane subtracts once. The blocks of a column tile arrive in
+    a random order and finish through the atomics buffer and the tickets
+    (ksplit > 1) or directly (ksplit == 1). Returns (sums (M, N), the
+    blocks' K rows, buffers)."""
     m, k = q.shape
-    pos, neg = planes
-    n = pos.shape[2]
     mt = 4 if m <= 4 else 8
-    ksplit, kchunk = tpm.decode_split(k, n, step, SMS * blocks_of(step)[mt])
+    ksplit, kchunk = tpm.decode_split(k, n, step, SMS * blocks[mt])
     tiles = -(-n // tpm.DECODE_COLS)
     acc_buf = np.zeros((m, n), np.int64)      # the wrapper's zeroed acc
     tickets = np.zeros(tiles, np.int64)
@@ -271,20 +327,14 @@ def decode_launch(q, planes, lo: int, step: int, rng, mode="fused"):
             panel[:, :kc] = qt[:, k0:k0 + kc]
             block = np.zeros((mt, n // 4, 4), np.int64)
             for warp in range(tpm.DECODE_WARPS):
-                acc = np.zeros_like(block)
+                acc = np.zeros((sides, mt, n // 4, 4), np.int64)
                 for s in range(warp, steps, tpm.DECODE_WARPS):
-                    cols = panel[:, step * s:step * s + step]
-                    if step == tpm.STEP_PACKED:
-                        packed_step(pos, neg, (k0 + 8 * s) // 8, lo, cols,
-                                    acc)
-                        rows = np.arange(k0 + 8 * s, k0 + 8 * s + 8)
-                    else:
-                        rows = np.arange(k0 + 4 * s, k0 + 4 * s + 4)
-                        rows[rows >= k0 + kc] = -1
-                        planes_step(pos, neg, rows, lo, cols, acc, mode)
+                    rows = np.arange(k0 + step * s, k0 + step * s + step)
+                    rows[rows >= k0 + kc] = -1
+                    step_fn(rows, panel[:, step * s:step * s + step], acc)
                     if m0 == 0:
                         covered[rows[rows >= 0]] += 1
-                block += acc                   # the shared-memory sums
+                block += acc[0] if sides == 1 else acc[0] - acc[1]
             sums = block.reshape(mt, n)[:min(mt, m - m0)]
             rows_out = slice(m0, m0 + sums.shape[0])
             if ksplit == 1:
@@ -301,13 +351,32 @@ def decode_launch(q, planes, lo: int, step: int, rng, mode="fused"):
 
 
 def packed_launch(q, pos, neg, lo, seed=0):
-    return decode_launch(q, (pack(pos), pack(neg)), lo, tpm.STEP_PACKED,
+    ppk, npk = pack(pos), pack(neg)
+
+    def step_fn(rows, panel, acc):
+        packed_step(ppk, npk, rows[0] // 8, lo, panel, acc[0])
+
+    return decode_launch(q, pos.shape[2], tpm.STEP_PACKED,
+                         tpm.BLOCKS_PACKED, step_fn,
                          np.random.default_rng(seed))
 
 
 def planes_launch(q, pos, neg, lo, mode, seed=0):
-    return decode_launch(q, (pos, neg), lo, tpm.STEP_PLANES,
-                         np.random.default_rng(seed), mode)
+    def step_fn(rows, panel, acc):
+        planes_step(pos, neg, rows, lo, panel, acc[0], mode)
+
+    return decode_launch(q, pos.shape[2], tpm.STEP_PLANES,
+                         tpm.BLOCKS_PLANES, step_fn,
+                         np.random.default_rng(seed))
+
+
+def signed_launch(q, w, seed=0):
+    """B6 at M <= 8: K steps of 4 rows, BLOCKS_SIGNED blocks a SM."""
+    def step_fn(rows, panel, acc):
+        signed_step(w, rows, panel, acc)
+
+    return decode_launch(q, w.shape[1], tpm.STEP_PLANES, tpm.BLOCKS_SIGNED,
+                         step_fn, np.random.default_rng(seed), sides=2)
 
 
 # ---------------------------------------------------------------------------
@@ -529,3 +598,117 @@ def test_packed_and_planes_launch_property(n_planes, m, data):
                           neg[:, :8 * k8 - 3], shift, mode, seed)[0],
             int_product(q[:, :8 * k8 - 3], pos[:, :8 * k8 - 3],
                         neg[:, :8 * k8 - 3], shift, mode))
+
+
+# ---------------------------------------------------------------------------
+# B6 unsigned_matmul at M <= 8
+# ---------------------------------------------------------------------------
+
+def signed_weights(rng, k: int, n: int) -> np.ndarray:
+    """int8 weights in [-127, 127], +-127 forced into the first row."""
+    w = rng.integers(-127, 128, size=(k, n))
+    w[0, ::2], w[0, 1::2] = 127, -127
+    return w.astype(np.int8)
+
+
+def test_signed_step_words_are_w_plus_and_w_minus():
+    """B6's words of one step (4 rows x 32 columns) read back as bytes are
+    max(w, 0) and max(-w, 0), K-major (byte i = row i), at every int8 of
+    [-127, 127] and a ragged step (rows past kend give 0)."""
+    rng = np.random.default_rng(0)
+    vals = np.arange(-127, 128)
+    for r in range(4):
+        w = rng.integers(-127, 128, size=(4, vals.size + 1)).astype(np.int8)
+        w[r, :vals.size] = vals
+        w = w[:, :vals.size - vals.size % 4]
+        for rows in ([0, 1, 2, 3], [0, 1, -1, -1]):
+            halves = signed_step_words(w, np.array(rows))
+            live = (np.array(rows) >= 0)[:, None]
+            for side, want in ((0, np.maximum(w, 0)), (1, np.maximum(-w, 0))):
+                got = np.stack([ubytes(halves[c][side]) for c in range(4)])
+                # (column c, quad, row i) -> (row i, column 4 quad + c)
+                got = got.transpose(2, 1, 0).reshape(4, -1)
+                np.testing.assert_array_equal(got, np.where(live, want, 0))
+
+
+# (K, N) at which B6's decode is emulated: ragged K (no multiple of 4 or of
+# the 32-row chunk alignment) and ragged N (a partial 128-column tile)
+SIGNED_CASES = [(96, 136), (130, 72), (37, 8), (1030, 16)]
+
+
+@pytest.mark.parametrize("k,n", SIGNED_CASES)
+@pytest.mark.parametrize("m", range(1, tpm.DECODE_ROWS + 1))
+def test_signed_launch_matches_plain_and_oracle(m, k, n):
+    """B6's decode launch: sums equal x_q @ w, every K row once, buffers
+    left zero; y = (sum * s_x) * s_w (the finish's __fmul_rn order) equals
+    unsigned_matmul_plain and the JAX oracle bit for bit. The last row of
+    codes is all zero."""
+    rng = np.random.default_rng(m * 1000 + k + n)
+    w = signed_weights(rng, k, n)
+    q = rand_codes(rng, m, k)
+    if m > 1:
+        q[-1] = 0
+    got, covered, (acc, tickets) = signed_launch(q, w, seed=m)
+    np.testing.assert_array_equal(got, q.astype(np.int64) @ w)
+    assert (covered == 1).all() and not acc.any() and not tickets.any()
+    sx = (rng.random((m, 1)) + 0.5).astype(np.float32)
+    sw = (rng.random(n) * 1e-3).astype(np.float32)
+    y = (got.astype(np.int32).astype(np.float32) * sx) * sw[None, :]
+    t = torch.from_numpy
+    want = tum.unsigned_matmul_plain(t(q), t(w), t(sx), t(sw)).numpy()
+    np.testing.assert_array_equal(y, want)
+    np.testing.assert_array_equal(y, np.asarray(rref.unsigned_matmul_ref(
+        jnp.asarray(q), jnp.asarray(w), jnp.asarray(sx), jnp.asarray(sw))))
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 8])
+def test_signed_extremes(m):
+    """|w| = 127 with random signs against codes of 127 at K = 14336 (the
+    path's deepest K): the largest sums acc_pos and acc_neg meet, 127^2 K =
+    231,231,744 in a column of all +127 (and of all -127)."""
+    rng = np.random.default_rng(7)
+    k, n = 14336, 8
+    w = (127 * (rng.integers(0, 2, size=(k, n)) * 2 - 1)).astype(np.int8)
+    w[:, 0], w[:, 1] = 127, -127
+    q = np.full((m, k), 127, np.int8)
+    got = signed_launch(q, w)[0]
+    want = q.astype(np.int64) @ w
+    assert want[0, 0] == 127 * 127 * k and want[0, 1] == -127 * 127 * k
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m", range(1, tpm.DECODE_ROWS + 1))
+@pytest.mark.parametrize("k,n", CARD_SHAPES + [(520, 1028), (37, 8)])
+def test_signed_decode_split_covers_every_row_once(k, n, m):
+    """B6's split at BLOCKS_SIGNED blocks a SM: whole-warp chunks of 4-row
+    steps, panel and sums inside 48 KB of shared memory, no more blocks
+    than slots unless one split already overfills them, and every K row
+    covered once by the warps' steps."""
+    mt = 4 if m <= 4 else 8
+    slots = SMS * tpm.BLOCKS_SIGNED[mt]
+    ksplit, kchunk = tpm.decode_split(k, n, tpm.STEP_PLANES, slots)
+    assert kchunk % (tpm.DECODE_WARPS * tpm.STEP_PLANES) == 0
+    assert mt * (4 * tpm.DECODE_COLS + kchunk) <= 48 * 1024
+    assert ksplit * kchunk >= k > (ksplit - 1) * kchunk
+    assert ksplit == 1 or -(-n // tpm.DECODE_COLS) * ksplit <= slots
+    seen = np.zeros(k, np.int64)
+    for y in range(ksplit):
+        kc = min(kchunk, k - y * kchunk)
+        assert kc > 0
+        for warp in range(tpm.DECODE_WARPS):
+            for s in range(warp, -(-kc // 4), tpm.DECODE_WARPS):
+                rows = np.arange(y * kchunk + 4 * s, y * kchunk + 4 * s + 4)
+                seen[rows[rows < y * kchunk + kc]] += 1
+    assert (seen == 1).all()
+
+
+@settings(deadline=None, max_examples=20, derandomize=True)
+@given(m=st.integers(1, 8), k=st.integers(1, 300), n4=st.integers(1, 40),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_signed_launch_property(m, k, n4, seed):
+    rng = np.random.default_rng(seed)
+    w = signed_weights(rng, k, 4 * n4)
+    q = rand_codes(rng, m, k)
+    got, covered, (acc, tickets) = signed_launch(q, w, seed)
+    np.testing.assert_array_equal(got, q.astype(np.int64) @ w)
+    assert (covered == 1).all() and not acc.any() and not tickets.any()

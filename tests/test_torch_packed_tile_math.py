@@ -41,8 +41,9 @@ from repro_torch.core import quant
 from repro_torch.kernels import pann_matmul as tpm
 from repro_torch.kernels import pann_matmul_packed as tpk
 from repro_torch.kernels import unsigned_matmul as tum
-from test_torch_decode_math import (pack, planes_of, rand_weights, sub_bytes,
-                                    transpose_bits, transpose4, u32, words)
+from test_torch_decode_math import (pack, planes_of, rand_weights,
+                                    split_word, sub_bytes, transpose_bits,
+                                    transpose4, u32, words)
 from test_torch_tile_math import (TILE_N, code_tile, read_tile, split_words,
                                   store_tile, tile_off, wgmma_read)
 
@@ -181,16 +182,6 @@ def test_packed_store_rotation_spreads_a_warp():
 # ---------------------------------------------------------------------------
 # kSplit: the W+ / W- tiles
 # ---------------------------------------------------------------------------
-
-def split_word(w):
-    """split_word: one = 1 in each negative byte, s = 0xFF there, |w| =
-    (w ^ s) + one per byte; W+ = |w| & ~s, W- = |w| & s."""
-    w = u32(w)
-    one = (w >> np.uint32(7)) & np.uint32(0x01010101)
-    s = (one * np.uint32(0xFF)).astype(np.uint32)
-    mag = ((w ^ s) + one).astype(np.uint32)
-    return mag & ~s, mag & s
-
 
 def test_split_word_every_byte():
     """Every int8 in [-127, 127] in every byte position of a word, beside
