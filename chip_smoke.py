@@ -48,7 +48,18 @@ Phases (any failure raises and the script exits non-zero):
               64); and ``dispatch.serving_linear`` at a width N = 1030
               that is no multiple of 4 (ROADMAP C8): 'fused' and 'packed'
               (N padded to 1032 for the kernels, sliced back) bit for bit
-              against 'ref' on every rung view, M = 1 and 4.
+              against 'ref' on every rung view, M = 1 and 4. The encode
+              path (``[encode]`` lines): B2 and B1 ('fused') at the stems'
+              (M, K, N) = (8192, 240, 1024), (4096, 3072, 1024), (6400,
+              588 -> 592 packed, 8192), the encoder's (4096, 1024, 1024)
+              and vision's cross K/V (6400, 8192, 1024), plane_shift 0
+              and 5, timed beside their bound and the fp32 matmul; B3 at
+              seamless's (4, 16, 1, 64) and vision's (4, 8, 8, 128)
+              (G = 8, one warp a head) as the other served shapes; and
+              ``dispatch.serving_conv`` on 'ref', 'fused', 'packed' bit
+              for bit against ``serving_conv_oracle`` (a float64
+              convolution of the codes) at both full-width stems on every
+              rung view.
 4. serve    — full-width llama3-8b (32 layers, d=4096, GQA 32/8, d_ff=14336,
               vocab 128256, random weights from a seed) through the PANN
               ladder 2,4,6 with backend 'packed' and a 4-bit KV cache:
@@ -68,9 +79,11 @@ Phases (any failure raises and the script exits non-zero):
               against weight bits), served through graphs and held to
               eager the same way; reports each rung's cache bits and
               Gbit-flips per token.
-4c. variants — qwen1.5-4b, gemma2-9b and stablelm-12b at full width
-              (random weights, qwen's q/k/v biases overwritten with
-              nonzero values), each as phase 4 with 3 requests: every
+4c. variants — qwen1.5-4b, gemma2-9b and stablelm-12b at full width,
+              cut to 8 layers (VARIANT_LAYERS) to keep the script inside
+              its time limit (random weights, qwen's q/k/v biases
+              overwritten with nonzero values), each as phase 4 with 3
+              requests: every
               graphed step bit-identical to eager, B2 / B3 launches a
               graphed step 7 L (+ 1 with an untied head) / L, no
               recompile, peak memory under 70 GB.
@@ -95,10 +108,27 @@ Phases (any failure raises and the script exits non-zero):
               rung) split between B2, B3, the dispatch's small kernels,
               the recurrent blocks' fp ops (scan, conv, wkv recurrence)
               and the rest (profiler ranges around the blocks).
+4f. encdec  — seamless-m4t-medium (12 + 12 layers, d 1024, a two-conv
+              speech stem over (4096, 1, 80) features -> 1024 encoder
+              positions) at full width and depth and llama-3.2-vision-90b
+              (d 8192, GQA 64/8) at full width cut to 10 layers (two
+              groups of 5, two cross-attention layers; a 14x14/s14
+              patchify over 560x560x3 -> 1600 image tokens), random
+              weights with xgate, conv and layernorm biases seeded
+              nonzero, each as phase 4c; every wave starts with a new raw
+              input (``data.pipeline.frontend_raw_stub``) run eagerly
+              through the stem, the encoder and the cross K/V
+              projections, written into the slot's buffers in place; its
+              ms and B2 launches (98 and 5 a wave) are reported apart
+              from the step's (B2 / B3 a graphed step 97 / 12 and 75 /
+              10); every graphed step bit-identical to an eager replay
+              from a state built by ``MD.init_decode_state`` off the
+              wave's raw input.
 5. backends — each served config cut to 2 layers (gemma2: one local and
               one global layer; mixtral to 1; zamba2 to 8: one group and
               the 2-layer tail, so the shared block and the tail both
-              run) served by 'ref', 'fused' and
+              run; seamless to 2 + 2 layers, vision to 5: one cross
+              layer) served by 'ref', 'fused' and
               'packed' engines over ONE weight store: logits and tokens must
               be bit-identical; counts the fused matmul kernel's launches;
               the store is written as a v1 serving artifact
@@ -139,8 +169,9 @@ Phases (any failure raises and the script exits non-zero):
               225 B2 on 'packed', 225 B1 on 'fused', nothing else; forward
               ms, prefill tokens/s and the device time by kernel kind
               (profiler). (b) ``repro_torch.launch.serve.main`` in
-              single-point mode at full width cut to 8 layers
-              (SINGLE_POINT_LAYERS), --quant pann --power_bits
+              single-point mode at full width cut to 4 layers
+              (SINGLE_POINT_LAYERS), --quant pann
+              --power_bits
               2 and 4 through 'packed' (the artifact's value-exact P: 5
               and 6 on the square projections, asserted, the rest
               recorded), --power_bits 2 again through 'ref' and 'fused':
@@ -148,19 +179,31 @@ Phases (any failure raises and the script exits non-zero):
               step an eager ``decode_step``. (c) the legacy paths cut to 2
               layers: --quant none, --quant ruq --power_bits 8, --quant
               pann --power_bits 4 --backend "" (fp params through the
-              fake-quant projections). (d) 7a on mixtral-8x7b at 8
-              layers: logits and the load-balance ``aux_loss``
-              bit-identical across the backends. (e) mixtral at 8 layers
-              through the single-point CLI, --quant pann --power_bits 4 on
+              fake-quant projections). (d) 7a on mixtral-8x7b at 4
+              layers (MOE_PREFILL_LAYERS): logits and
+              the load-balance ``aux_loss`` bit-identical across the
+              backends. (e) mixtral at 4 layers through the single-point
+              CLI, --quant pann --power_bits 4 on
               'packed' and 'ref': every step's logits bit-identical. (f)
               7a's ``forward`` on zamba2-1.2b and rwkv6-1.6b at full
               width and depth (113 and 217 B2 launches), logits
               bit-identical across the backends, forward ms (no
               profile: rwkv6's token-by-token wkv recurrence alone is
-              ~400,000 small kernels a forward). Every
-              serve: the reference's summary keys, finite logits, peak
-              memory under 70 GB. TF32 must stay off for the fp32 matmuls
-              (PyTorch's defaults, asserted at the start and the end).
+              ~400,000 small kernels a forward). (g) 7a's ``forward``
+              on seamless-m4t-medium at full width and depth, (B, T) =
+              (2, 256), over raw (2, 4096, 1, 80) features (195 B2:
+              stem, encoder, decoder, head), logits bit-identical across
+              the backends. Every serve: the reference's summary keys,
+              finite logits, peak memory under 70 GB.
+8. encode   — ``EncodeEngine`` on seamless (full) and vision (10 layers):
+              8 raw items over budgets cycling the ladder, waves of 4 on
+              'packed' (one B2 a stem layer and an encoder projection),
+              items/s and each rung's Gbit-flips an item,
+              ``assert_no_recompile``; engines on 'ref' and 'fused' over
+              the same store give bit-identical encoded states.
+
+TF32 must stay off for the fp32 matmuls (PyTorch's defaults, asserted at
+the start and the end). A ``[time]`` line marks the end of each phase.
 
 The build phase also counts the tensor-core instructions (wgmma's GMMA,
 mma.sync's IMMA) in the SASS of the pann_matmul, pann_matmul_packed and
@@ -202,20 +245,41 @@ PROFILE_ATTEMPTS = 3               # profiles of a serve whose counts differ
 # the full depth needs sharding across cards
 MOE_LAYERS = {"mixtral-8x7b": 8, "dbrx-132b": 2}
 MOE_ARCHS = tuple(MOE_LAYERS)
+# phase 7d/7e's depth of mixtral: its forward and single point
+MOE_PREFILL_LAYERS = 4
+# phase 4c's depth of the dense variants (of 40, 42 and 40 layers): cut so
+# the script stays inside its time limit with the cross-attending phases
+VARIANT_LAYERS = {"qwen1.5-4b": 8, "gemma2-9b": 8, "stablelm-12b": 8}
 # the recurrent families, served at full width and depth (phase 4e), and
 # the depth phase 5 cuts each to: zamba2 one group and its 2-layer tail
 # (the shared block and the tail both run), rwkv6 2 layers
 RECURRENT_CUT = {"zamba2-1.2b": 8, "rwkv6-1.6b": 2}
 RECURRENT_ARCHS = tuple(RECURRENT_CUT)
+# the cross-attending configs (phase 4f): seamless-m4t-medium at full width
+# and depth (12 + 12 layers), llama-3.2-vision-90b at full width cut to 10
+# layers (two groups of 5, so two cross-attention layers: 44 GB of fp32
+# params; its 100 layers need sharding across cards); phase 5 cuts
+# seamless to 2 + 2 layers and vision to one group of 5
+ENCDEC_LAYERS = {"seamless-m4t-medium": 12, "llama-3.2-vision-90b": 10}
+ENCDEC_ARCHS = tuple(ENCDEC_LAYERS)
+ENCDEC_CUT = {"seamless-m4t-medium": 2, "llama-3.2-vision-90b": 5}
+# phase 5's prompt tokens teacher-forced through every rung, backend and
+# the artifact, and its requests: vision's 'fused' and 'ref' steps rebuild
+# or widen 5.3 G weights a step, so its phase 5 took 322 s at 32 tokens
+# and 3 requests, 197 s at 8 and 3 (NVIDIA H100 80GB HBM3, 700.00 W)
+ENCDEC_P5 = {"seamless-m4t-medium": (PROMPT, 3),
+             "llama-3.2-vision-90b": (8, 1)}
 
 
 def served_config(arch: str, **kwargs):
-    """``arch``'s config as the script serves it: full width, and a MoE
-    config at its MOE_LAYERS depth."""
+    """``arch``'s config as the script serves it: full width, at its
+    depth in MOE_LAYERS, VARIANT_LAYERS or ENCDEC_LAYERS when it has
+    one."""
     from repro_torch import configs
     cfg = configs.get_config(arch, **kwargs)
-    if arch in MOE_LAYERS:
-        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS[arch])
+    layers = {**MOE_LAYERS, **VARIANT_LAYERS, **ENCDEC_LAYERS}.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return cfg
 
 
@@ -295,10 +359,11 @@ HEAD_SHAPE = ((4096, 128256), 1, "lm_head")
 
 def _attention_layers(cfg) -> int:
     """The layers of ``cfg`` that run a decode attention (B3) a step:
-    zamba2's shared block runs at each mamba_attn position, rwkv6 has
+    zamba2's shared block runs at each mamba_attn position, a cross_attn
+    layer's self-attention runs it (its cross-attention is fp), rwkv6 has
     none."""
     from repro_torch.models import model as MD
-    return sum(s.kind in ("attn", "attn_moe", "mamba_attn")
+    return sum(s.kind in ("attn", "attn_moe", "mamba_attn", "cross_attn")
                for s in MD.layer_specs(cfg))
 
 
@@ -644,13 +709,17 @@ def _check_attention(a, s, bits, softcap: float = 0.0) -> float:
 # (config, B, KH, G, hd, softcap) of each served configuration's attention:
 # llama3-8b's (the main path) first, then the dense variants', then dbrx's
 # (G = 6: each head gets 8 // 6 = 1 of the block's 8 warps), then zamba2's
-# shared block (G = 1 at hd 64); mixtral's is llama3-8b's, rwkv6 has none
+# shared block (G = 1 at hd 64), seamless's decoder (G = 1 at hd 64) and
+# vision's (G = 8: one warp a head); mixtral's is llama3-8b's, rwkv6 has
+# none
 ATT_SERVE_SHAPES = (("llama3-8b", BATCH, 8, 4, 128, 0.0),
                     ("qwen1.5-4b", BATCH, 20, 1, 128, 0.0),
                     ("gemma2-9b", BATCH, 8, 2, 256, 50.0),
                     ("stablelm-12b", BATCH, 8, 4, 160, 0.0),
                     ("dbrx-132b", BATCH, 8, 6, 128, 0.0),
-                    ("zamba2-1.2b", BATCH, 32, 1, 64, 0.0))
+                    ("zamba2-1.2b", BATCH, 32, 1, 64, 0.0),
+                    ("seamless-m4t-medium", BATCH, 16, 1, 64, 0.0),
+                    ("llama-3.2-vision-90b", BATCH, 8, 8, 128, 0.0))
 ATT_S = (48, 1000, 4096)   # the serve's cache, a ragged one, a long one
 
 # (B, KH, G, hd, S, bits) checked beside the served shapes: G = 8 at
@@ -767,12 +836,34 @@ def _recurrent_shapes(cfg) -> list:
             ((d, ff), layers, "cm.wk"), ((ff, d), layers, "cm.wv")]
 
 
+def _cross_shapes(cfg) -> list:
+    """((K, N), launches a decode step, modules) of a cross-attending
+    config: every layer's self-attention and MLP, and each cross layer's
+    xattn.wq and xattn.wo (its K and V are projected once a wave)."""
+    from repro_torch.models import model as MD
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    n, cross = cfg.num_layers, sum(s.kind == "cross_attn"
+                                   for s in MD.layer_specs(cfg))
+    mods = [((d, q), n, "wq"), ((d, kv), 2 * n, "wk,wv"), ((q, d), n, "wo"),
+            ((d, q), cross, "xattn.wq"), ((q, d), cross, "xattn.wo"),
+            ((d, cfg.d_ff), 2 * n if cfg.activation in ("swiglu", "geglu")
+             else n, "mlp up"), ((cfg.d_ff, d), n, "w_down")]
+    by: dict = {}
+    for kn, count, name in mods:
+        c, names = by.get(kn, (0, []))
+        by[kn] = (c + count, names + [name])
+    return [(kn, c, ",".join(names)) for kn, (c, names) in by.items()]
+
+
 def _serve_shapes(cfg) -> list:
     """((K, N), launches a decode step, modules) of every B2 shape of one
     decode step of ``cfg``; a tied head is a float matmul, not B2, and so
     are the MoE router and experts (fp32 in the store)."""
     if cfg.family in ("hybrid", "ssm"):
         rows = _recurrent_shapes(cfg)
+    elif cfg.family in ("encdec", "vlm"):
+        rows = _cross_shapes(cfg)
     else:
         by: dict = {}
         for name, k, n in _projections(cfg)[:4 if cfg.moe else -1]:
@@ -800,7 +891,7 @@ def check_variant_matmuls() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     out = {}
-    for arch in VARIANTS + MOE_ARCHS + RECURRENT_ARCHS:
+    for arch in VARIANTS + MOE_ARCHS + RECURRENT_ARCHS + ENCDEC_ARCHS:
         cfg = served_config(arch)
         err: dict = {}
         rows = []
@@ -918,6 +1009,147 @@ def check_ragged_dispatch() -> dict:
     return {"K": k, "N": n, "N_padded": n + (-n) % 4, "cases": cases,
             "launches": launched, "max_abs_err": 0.0}
 
+# the encode path's products above 8 rows (M, K, N, modules): seamless's
+# two stem layers (4 x 2048 and 4 x 1024 positions), vision's patchify
+# (4 x 1600 patches, K = 588, which the packed planes pad to 592), the
+# encoder's projections and the cross K/V at seamless's 4 x 1024 rows,
+# and vision's cross K/V at its 4 x 1600 image tokens
+ENCODE_SHAPES = ((8192, 240, 1024, "seamless conv.s0"),
+                 (4096, 3072, 1024, "seamless conv.s1"),
+                 (6400, 588, 8192, "vision conv.s0"),
+                 (4096, 1024, 1024, "seamless encoder attn, cross wk,wv"),
+                 (6400, 8192, 1024, "vision cross wk,wv"))
+ENCODE_SHIFTS = (0, 5)
+
+
+def check_encode_matmuls(gen) -> tuple:
+    """B1 ('fused') and B2 at the encode path's shapes (ENCODE_SHAPES) bit
+    for bit against their plain versions at plane_shift 0 and 5, B2 on
+    x zero-padded to the packed planes' K as ``dispatch`` pads it; each
+    timed at plane_shift 0 beside its bound and the fp32 matmul on the
+    dequantized weight. Returns (rows, max |err| by kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    err: dict = {}
+    rows = []
+    for m, k, n, names in ENCODE_SHAPES:
+        x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = \
+            _matmul_operands(gen, m, k, n)
+        xk = F.pad(x, (0, ppk.shape[1] * 8 - k))
+        for shift in ENCODE_SHIFTS:
+            qp = torch.stack([s, z, n127, torch.full((), float(shift),
+                                                     device="cuda")])
+            p1 = pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol)
+            _agree("pann_matmul_act",
+                   pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol), p1, err)
+            p2 = pk.pann_matmul_packed_act_plain(xk, ppk, npk, qp, gamma,
+                                                 zcol)
+            _agree("pann_matmul_packed_act",
+                   pk.pann_matmul_packed_act(xk, ppk, npk, qp, gamma, zcol),
+                   p2, err)
+            if not torch.equal(p1, p2):
+                raise AssertionError(f"plain versions disagree at M={m} "
+                                     f"K={k} N={n} shift={shift}")
+            del p1, p2
+        qp = torch.stack([s, z, n127, torch.zeros((), device="cuda")])
+        w_deq = pm.rebuild_weight(pos, neg, qp[3]).float() * gamma[None, :]
+        lib = time_ms(lambda: torch.matmul(x, w_deq), 10)
+        del w_deq
+        small = 4 * (m * k + 2 * n + 4 + m * n)
+        for name, fn, plain, plane_bytes in (
+                ("pann_matmul_act",
+                 lambda: pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol),
+                 lambda: pm.pann_matmul_act_plain(x, pos, neg, qp, gamma,
+                                                  zcol),
+                 2 * 7 * k * n),
+                ("pann_matmul_packed_act",
+                 lambda: pk.pann_matmul_packed_act(xk, ppk, npk, qp, gamma,
+                                                   zcol),
+                 lambda: pk.pann_matmul_packed_act_plain(xk, ppk, npk, qp,
+                                                         gamma, zcol),
+                 2 * 7 * ppk.shape[1] * n)):
+            b_ms, b_by = bound_ms(small + plane_bytes, 2 * m * k * n)
+            ms = time_ms(fn, 10)
+            row = {"kernel": name, "M": m, "K": k, "N": n,
+                   "K_packed": ppk.shape[1] * 8, "modules": names, "ms": ms,
+                   "plain_ms": time_ms(plain, 2), "library_ms": lib,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "share_of_bound": b_ms / ms,
+                   "shifts_checked": list(ENCODE_SHIFTS),
+                   "max_abs_err": err[name]}
+            rows.append(row)
+            print(f"[encode] {name} M={m} K={k} N={n} ({names}): {ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{100 * row['share_of_bound']:.1f} % of bound, library "
+                  f"{lib:.4f} ms, plain {row['plain_ms']:.3f} ms",
+                  flush=True)
+        del x, xk, pos, neg, ppk, npk
+        torch.cuda.empty_cache()
+    return rows, err
+
+
+def check_serving_conv() -> dict:
+    """``dispatch.serving_conv`` on 'ref', 'fused' and 'packed' bit for bit
+    against ``serving_conv_oracle`` (an exact float64 convolution of the
+    codes) at both cross-attending configs' full-width stems, on every
+    rung view of a stem-only weight store (ladder LADDER, packed planes,
+    seeded biases): seamless's s0 over raw (4, 4096, 1, 80) features and
+    s1 over relu(s0), vision's patchify over (4, 560, 560, 3) pixels.
+    These launches are not the path's."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import build_ladder
+    out = {}
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        cfg = served_config(arch, quant=QuantConfig(mode="none"))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(40 + i)
+        params = {"conv_stem": {}}
+        for j, spec in enumerate(cfg.conv_stem):
+            params["conv_stem"][f"s{j}"] = {
+                "w": torch.randn((spec.fan_in, spec.c_out), generator=gen,
+                                 device="cuda") * spec.fan_in ** -0.5,
+                "b": torch.randn((spec.c_out,), generator=gen,
+                                 device="cuda") * 0.1}
+        ladder = build_ladder(LADDER, d=float(cfg.d_model))
+        ws = serving.build_weight_store(
+            params, cfg, {op.bits: (op.r, op.b_x_tilde) for op in ladder},
+            serving.ServingQuantSpec(pack_planes=True))
+        x = Frontend(cfg, 40 + i).raw(BATCH, 0)
+        cases, t0 = 0, time.perf_counter()
+        for j, spec in enumerate(cfg.conv_stem):
+            outs = {}
+            for bits, view in ws.views.items():
+                p = view["conv_stem"][f"s{j}"]
+                want = dispatch.serving_conv_oracle(x, p, spec)
+                if not torch.isfinite(want).all():
+                    raise AssertionError(f"{arch} s{j}: oracle not finite")
+                for backend in ("ref", "fused", "packed"):
+                    got = dispatch.serving_conv(x, p, spec, backend)
+                    if not torch.equal(got, want):
+                        d = (got - want).abs().max().item()
+                        raise AssertionError(
+                            f"serving_conv {arch} s{j} rung {bits} "
+                            f"{backend}: max |diff| {d} (must be 0)")
+                    cases += 1
+                outs[bits] = want
+            if torch.equal(outs[min(outs)], outs[max(outs)]):
+                raise AssertionError(f"{arch} s{j}: rungs agree")
+            x = torch.relu(outs[max(outs)])
+        out[arch] = {"stem": [dataclasses.asdict(sp) for sp in cfg.conv_stem],
+                     "input": [BATCH, *cfg.frontend_hw,
+                               cfg.conv_stem[0].c_in],
+                     "cases": cases, "seconds": time.perf_counter() - t0,
+                     "max_abs_err": 0.0}
+        print(f"[kernels] serving_conv {arch}: {cases} cases bit-identical "
+              f"to the float64 oracle ({out[arch]['seconds']:.1f} s)",
+              flush=True)
+        del ws, params, x, outs
+        torch.cuda.empty_cache()
+    return out
+
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serving through the port's entry points
@@ -964,17 +1196,49 @@ def _graph_launches(cfg) -> dict:
     ``cfg`` through the packed backend with a quantized cache: one matmul
     a projection of every layer (a MoE layer's router and experts are
     fp32 matmuls; a mamba layer has 2, a mamba_attn layer 2 and the shared
-    block's, an rwkv layer 9), and the lm_head unless the head is tied (a
-    float matmul over the embedding table); one attention a layer that
-    attends."""
+    block's, an rwkv layer 9, a cross_attn layer its self-attention's 4,
+    xattn.wq and xattn.wo and the MLP's), and the lm_head unless the head
+    is tied (a float matmul over the embedding table); one attention a
+    layer that self-attends."""
     from repro_torch.models import model as MD
     mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
     per_kind = {"attn": 4 + mlp, "attn_moe": 4, "mamba": 2,
-                "mamba_attn": 2 + 4 + mlp, "rwkv": 9}
+                "mamba_attn": 2 + 4 + mlp, "rwkv": 9,
+                "cross_attn": 4 + 2 + mlp}
     return {"pann_matmul_packed_act": sum(
                 per_kind[s.kind] for s in MD.layer_specs(cfg))
             + (0 if cfg.tie_embeddings else 1),
             "decode_attention": _attention_layers(cfg)}
+
+
+def _frontend_launches(cfg) -> int:
+    """B2 launches of one wave's frontend (``ServeEngine._load_frontend``;
+    also the frontend part of a ``forward``): one a conv-stem layer, an
+    encoder layer's 4 + MLP projections, and each cross_attn layer's K
+    and V."""
+    from repro_torch.models import model as MD
+    mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    return (len(cfg.conv_stem) + cfg.encoder_layers * (4 + mlp)
+            + 2 * sum(s.kind == "cross_attn" for s in MD.layer_specs(cfg)))
+
+
+class Frontend:
+    """``frontend_kwargs_fn`` of a cross-attending config: raw 4-D input
+    from ``data.pipeline.frontend_raw_stub`` with the seed, the next step
+    at every call, each kept (on the card) for the eager replay."""
+
+    def __init__(self, cfg, seed: int):
+        self.cfg, self.seed, self.made = cfg, seed, []
+        self.key = "enc_inputs" if cfg.family == "encdec" else "image_embeds"
+
+    def raw(self, batch: int, step: int) -> torch.Tensor:
+        from repro_torch.data.pipeline import frontend_raw_stub
+        return torch.as_tensor(frontend_raw_stub(self.cfg, batch, step,
+                                                 self.seed), device="cuda")
+
+    def __call__(self, batch: int) -> dict:
+        self.made.append(self.raw(batch, len(self.made)))
+        return {self.key: self.made[-1]}
 
 
 def _check_capture_counts(engine, counts: dict, per_step: dict) -> None:
@@ -1015,10 +1279,13 @@ def _record(engine):
     return log, restore
 
 
-def eager_replay(engine, log) -> dict:
+def eager_replay(engine, log, frontends=None) -> dict:
     """Replay every logged wave eagerly through ``MD.decode_step`` on the
-    engine's views from a fresh decode state: every graphed step's logits
-    must be finite and bit-identical to the eager step's."""
+    engine's views from a fresh decode state (for a cross-attending
+    config built by ``MD.init_decode_state`` off the wave's frontend input,
+    ``frontends`` in wave order, never from the slot's buffers): every
+    graphed step's logits must be finite and bit-identical to the eager
+    step's."""
     from repro_torch.models import model as MD
     current, waves = {}, []
     for entry in log:
@@ -1029,13 +1296,18 @@ def eager_replay(engine, log) -> dict:
             current[entry[1]].append(entry[2:])
     err: dict = {}
     steps = 0
-    for wave in waves:
+    if frontends is not None and len(frontends) != len(waves):
+        raise AssertionError(f"{len(frontends)} frontends for {len(waves)} "
+                             "waves")
+    for i, wave in enumerate(waves):
         if not wave:
             continue
         bits = wave[0][0]
         view = engine.variants[bits]
         state = MD.init_decode_state(view, engine.cfg, engine.max_batch,
-                                     engine.max_len)
+                                     engine.max_len,
+                                     **({} if frontends is None
+                                        else frontends[i]))
         for b, tok, graphed in wave:
             if b != bits:
                 raise AssertionError("a wave switched rung mid-flight")
@@ -1053,11 +1325,33 @@ def eager_replay(engine, log) -> dict:
             "max_abs_err_by_rung": err}
 
 
-def serve_graphed(engine, reqs, vocab: int) -> dict:
+def _timed_frontend(engine, fe: dict) -> None:
+    """Wrap the engine's wave-start frontend (stem, encoder, cross K/V
+    projections, run eagerly between replays): each call's host ms (both
+    ends synchronised) and wrapper launches go into ``fe``."""
+    load = engine._load_frontend
+
+    def timed(bits, slot):
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        load(bits, slot)
+        torch.cuda.synchronize()
+        fe["ms"].append((time.perf_counter() - t0) * 1e3)
+        fe["launches"].append({k: v - before[k] for k, v in _counts().items()
+                               if v != before[k]})
+
+    engine._load_frontend = timed
+
+
+def serve_graphed(engine, reqs, vocab: int, frontend=None) -> dict:
     """Warm the engine up (every graph captured) with the launch counters
     from 0, serve ``reqs`` (timed), prove that nothing was captured or
     launched outside a replay while serving, then serve them again with
-    every step recorded and replay every wave eagerly."""
+    every step recorded and replay every wave eagerly. With a
+    ``Frontend``, each wave's frontend runs eagerly at its start: its
+    launches and ms are reported apart (``frontend``) and taken out of
+    the step's."""
     _reset_counts()
     t0 = time.perf_counter()
     engine.warmup()
@@ -1065,42 +1359,63 @@ def serve_graphed(engine, reqs, vocab: int) -> dict:
     warmup_s = time.perf_counter() - t0
     counts = _counts()
     steps0 = dict(engine.steps_by_rung)
+    fe = {"ms": [], "launches": []}
+    if frontend is not None:
+        _timed_frontend(engine, fe)
     t0 = time.perf_counter()
     responses = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     engine.assert_no_recompile()
-    if _counts() != counts:
+    outside = {k: v - sum(f.get(k, 0) for f in fe["launches"])
+               for k, v in _counts().items()}
+    if outside != counts:
         raise AssertionError(f"a wrapper launched while serving: {counts} "
-                             f"-> {_counts()}: a step ran outside a graph")
+                             f"-> {outside} besides the frontends: a step "
+                             "ran outside a graph")
     steps_by_rung = {b: engine.steps_by_rung[b] - steps0[b]
                      for b in engine.rungs}
     for r in responses:
         if len(r.tokens) != GEN or not all(0 <= t < vocab
                                            for t in r.tokens):
             raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
+    n_made = 0 if frontend is None else len(frontend.made)
     log, restore = _record(engine)
     try:
         again = engine.generate(reqs)
     finally:
         restore()
     engine.assert_no_recompile()
-    if [r.tokens for r in again] != [r.tokens for r in responses]:
+    if frontend is not None:
+        del engine._load_frontend
+    same = [r.tokens for r in again] == [r.tokens for r in responses]
+    if not same and frontend is None:
         raise AssertionError("a second serve of the same requests gave "
                              "other tokens")
     t0 = time.perf_counter()
-    replay = eager_replay(engine, log)
+    replay = eager_replay(engine, log, None if frontend is None else [
+        {frontend.key: t} for t in frontend.made[n_made:]])
     replay["seconds"] = time.perf_counter() - t0
     del log
     steps = sum(steps_by_rung.values())
     n_tok = sum(len(r.tokens) for r in responses)
-    return {"responses": responses, "launches": counts,
-            "warmup_s": warmup_s, "generate_s": wall,
-            "decode_steps": steps, "steps_by_rung": steps_by_rung,
-            "ms_per_step": wall / steps * 1e3,
-            "tok_per_s": n_tok / wall, "generated": n_tok,
-            "compilations_after_warmup": engine.compilations_after_warmup,
-            "eager_replay": replay}
+    fe_s = sum(fe["ms"]) / 1e3
+    out = {"responses": responses, "launches": counts,
+           "warmup_s": warmup_s, "generate_s": wall,
+           "decode_steps": steps, "steps_by_rung": steps_by_rung,
+           "ms_per_step": (wall - fe_s) / steps * 1e3,
+           "tok_per_s": n_tok / wall, "generated": n_tok,
+           "compilations_after_warmup": engine.compilations_after_warmup,
+           "eager_replay": replay}
+    if frontend is not None:
+        # a new frontend every wave: the second serve's tokens may differ
+        out["frontend"] = {
+            "waves": len(fe["ms"]), "ms": fe["ms"],
+            "launches_per_wave": fe["launches"],
+            "seconds_in_generate": fe_s,
+            "second_serve_same_tokens": same,
+            "ms_per_step_is": "(generate_s - the frontends' s) / steps"}
+    return out
 
 
 def _seed_biases(params: dict, seed: int) -> None:
@@ -1125,6 +1440,29 @@ def _seed_recurrent(params: dict, seed: int) -> None:
             t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.1)
 
 
+def _seed_cross(params: dict, seed: int) -> None:
+    """Nonzero cross-attention gates (0.5 + N(0, 0.1^2)), conv-stem biases
+    and layernorm biases (N(0, 0.1^2)) from ``seed``: init makes them
+    zero, and tanh(0) = 0 would make every cross-attention check pass
+    without cross-attending."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3000 + seed)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, name)
+        elif name in ("xgate", "bias", "b"):
+            noise = torch.randn(node.shape, generator=gen, device="cuda")
+            node.copy_(noise * 0.1 + (0.5 if name == "xgate" else 0.0))
+
+    walk({k: params[k] for k in ("layers", "conv_stem", "encoder",
+                                 "enc_norm", "final_norm") if k in params})
+
+
 def _init_params(cfg, seed: int) -> dict:
     from repro_torch.models import model as MD
     params = MD.init_params(cfg, seed=seed, device="cuda")
@@ -1132,6 +1470,8 @@ def _init_params(cfg, seed: int) -> dict:
         _seed_biases(params, seed)
     if cfg.family in ("hybrid", "ssm"):
         _seed_recurrent(params, seed)
+    if cfg.family in ("encdec", "vlm"):
+        _seed_cross(params, seed)
     return params
 
 
@@ -1139,24 +1479,35 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
                      n_requests: int = REQUESTS,
                      eager_profile: bool = True) -> dict:
     """Phase 4 (llama3-8b), 4c (each dense variant), 4d (each MoE config
-    at its MOE_LAYERS depth) and 4e (each recurrent config): one config at
-    full width served through graphs, held to eager and profiled. An
-    attention-free config (rwkv6) is served without a KV cache."""
+    at its MOE_LAYERS depth), 4e (each recurrent config) and 4f (each
+    cross-attending config at its ENCDEC_LAYERS depth, a raw frontend a
+    wave): one config at full width served through graphs, held to eager
+    and profiled. An attention-free config (rwkv6) is served without a KV
+    cache."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.serve_engine import ServeEngine
     cfg = served_config(arch, quant=QuantConfig(mode="none"))
     cache_bits = None if cfg.is_attention_free else CACHE_BITS
+    frontend = (Frontend(cfg, seed) if cfg.family in ("encdec", "vlm")
+                else None)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, _init_params(cfg, seed),
                          ladder_bits=LADDER, max_batch=BATCH,
                          max_len=PROMPT + GEN, backend="packed",
-                         cache_bits=cache_bits, device="cuda")
+                         cache_bits=cache_bits, device="cuda",
+                         frontend_kwargs_fn=frontend)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     served = serve_graphed(engine, _requests(cfg, seed=seed, n=n_requests),
-                           cfg.vocab_size)
+                           cfg.vocab_size, frontend)
+    if frontend is not None:
+        want = _frontend_launches(cfg)
+        got = served["frontend"]["launches_per_wave"]
+        if any(f != {"pann_matmul_packed_act": want} for f in got):
+            raise AssertionError(f"frontend launches {got}, want {want} B2 "
+                                 "a wave")
     n_layers = cfg.num_layers
     per_step = _graph_launches(cfg)
     _check_capture_counts(engine, served["launches"], per_step)
@@ -1198,12 +1549,16 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
     responses = served.pop("responses")
     ms = served["ms_per_step"]
-    cut = (f" (of {configs.get_config(arch).num_layers}: the depth that "
-           "fits one card)" if arch in MOE_LAYERS else "")
+    full = configs.get_config(arch).num_layers
+    cut = (f" (of {full}: the depth that fits one card)"
+           if n_layers != full else "")
     out = {
         "config": f"{arch} full width, {n_layers} layers{cut}, random "
                   f"weights seed {seed}" + ("; q/k/v biases N(0, 0.1^2)"
-                                            if cfg.qkv_bias else ""),
+                                            if cfg.qkv_bias else "")
+                  + ("; xgate 0.5 + N(0, 0.1^2), conv and layernorm biases"
+                     " N(0, 0.1^2); a raw frontend_raw_stub input a wave"
+                     if frontend is not None else ""),
         "ladder": list(LADDER), "backend": "packed",
         "cache_bits": cache_bits,
         "max_batch": BATCH, "prompt": PROMPT, "gen": GEN,
@@ -1225,7 +1580,11 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         out["fp32_matmuls"] = _moe_matmul_report(cfg, profile)
     if split is not None:
         out["device_ms_split"] = split
-    del engine
+    if frontend is not None:
+        out["frontend"]["b2_launches_per_wave"] = _frontend_launches(cfg)
+        out["frontend"]["encoder_layers"] = cfg.encoder_layers
+        out["frontend"]["input_shape"] = list(frontend.made[0].shape)
+    del engine, frontend
     torch.cuda.empty_cache()
     return out
 
@@ -1554,14 +1913,18 @@ def recurrent_split(engine, graph_profile: dict) -> dict:
             "graphed_step_ms": graph_profile["device_ms_per_step"]}
 
 
-def _teacher_forced(views: dict, cfg, rows) -> torch.Tensor:
+def _teacher_forced(views: dict, cfg, rows, frontend=None) -> torch.Tensor:
     """(rungs, B, T, V) eager logits of teacher-forcing ``rows`` (B, T)
-    through every rung's view."""
+    through every rung's view (from ``frontend``'s step 0 input, when
+    given)."""
     from repro_torch.models import model as MD
+    kw = ({} if frontend is None else
+          {frontend.key: frontend.raw(rows.shape[0], 0)})
     per_rung = []
     for bits in LADDER:
         view = views[bits]
-        state = MD.init_decode_state(view, cfg, rows.shape[0], rows.shape[1])
+        state = MD.init_decode_state(view, cfg, rows.shape[0], rows.shape[1],
+                                     **kw)
         steps = []
         for i in range(rows.shape[1]):
             lg, state = MD.decode_step(view, cfg, state, rows[:, i:i + 1])
@@ -1588,22 +1951,29 @@ def _check_aliasing(ws) -> int:
 
 
 def backends_agree(arch: str = "llama3-8b", seed: int = 1,
-                   n_requests: int = REQUESTS, layers: int = 2) -> dict:
+                   n_requests: int = REQUESTS, layers: int = 2,
+                   tf_len: int = PROMPT) -> dict:
     """Phase 5: ``arch`` at full width cut to ``layers`` layers (gemma2's
     2: one local and one global layer; mixtral's 1 carries 5.64 GB of
     fp32 experts into the artifact; zamba2's 8: one group and its 2-layer
-    tail), one store served by 'ref', 'fused' and 'packed', and its v1
-    artifact. An attention-free config (rwkv6) has no KV cache."""
+    tail; seamless's 2 and 2 encoder layers; vision's 5: one group, one
+    cross layer), one store served by 'ref', 'fused' and 'packed', and
+    its v1 artifact; the logits compared are those of teacher-forcing the
+    first ``tf_len`` prompt tokens through every rung. An attention-free
+    config (rwkv6) has no KV cache; a cross-attending one takes a raw
+    frontend a wave. ``seconds`` splits the phase's time."""
     import tempfile
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import serving
     from repro_torch.serve_engine import (ServeEngine, build_ladder,
                                           load_artifact, write_artifact)
-    cfg = dataclasses.replace(
-        configs.get_config(arch, quant=QuantConfig(mode="none")),
-        num_layers=layers)
+    t_start = time.perf_counter()
+    cfg = configs.get_config(arch, quant=QuantConfig(mode="none"))
+    cfg = dataclasses.replace(cfg, num_layers=layers,
+                              encoder_layers=min(cfg.encoder_layers, layers))
     cache_bits = None if cfg.is_attention_free else CACHE_BITS
+    cross = cfg.family in ("encdec", "vlm")
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     ws = serving.build_weight_store(
         _init_params(cfg, seed), cfg,
@@ -1619,32 +1989,73 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
     artifact_s = time.perf_counter() - t0
     aliased = _check_aliasing(loaded)
     reqs = _requests(cfg, seed=seed, n=n_requests)
-    rows = torch.as_tensor(np.stack([reqs[0].prompt] * BATCH).astype(
-        np.int64), device="cuda")
+    rows = torch.as_tensor(np.stack([reqs[0].prompt[:tf_len]] * BATCH)
+                           .astype(np.int64), device="cuda")
+    seconds = {"store_and_artifact": time.perf_counter() - t_start}
+
+    def backend_cfg(backend):       # the config an engine serves with
+        c = dataclasses.replace(cfg, kernel_backend=backend)
+        return (c if cache_bits is None
+                else dataclasses.replace(c, cache_bits=cache_bits))
+
+    # teacher-forced logits of every rung over the first request's prompt
+    # from the artifact's copy first, which then goes (at vision's widths
+    # the copy and a graph pool would not fit beside the store)
+    from_artifact = {b: _teacher_forced(loaded.views, backend_cfg(b), rows,
+                                        Frontend(cfg, seed) if cross
+                                        else None)
+                     for b in ("ref", "fused", "packed")}
+    del loaded
+    torch.cuda.empty_cache()
+    seconds["artifact_logits"] = time.perf_counter() - t_start - sum(
+        seconds.values())
     tokens, logits, launches = {}, {}, {}
     for backend in ("ref", "fused", "packed"):
+        t0 = time.perf_counter()
+        # every engine sees the same frontends, in the same order
+        frontend = Frontend(cfg, seed) if cross else None
         eng = ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
                           max_batch=BATCH, max_len=PROMPT + GEN,
                           backend=backend, cache_bits=cache_bits,
-                          device="cuda")
+                          device="cuda", frontend_kwargs_fn=frontend)
+        fe = {"ms": [], "launches": []}
+        if cross:
+            _timed_frontend(eng, fe)
         _reset_counts()
         eng.warmup()
         res = eng.generate(reqs)
         torch.cuda.synchronize()
         eng.assert_no_recompile()
-        launches[backend] = _counts()
+        seconds[f"{backend}_engine"] = time.perf_counter() - t0
+        launches[backend] = {k: v - sum(f.get(k, 0) for f in fe["launches"])
+                             for k, v in _counts().items()}
         launches[backend]["graphs"] = eng.graphs_captured
         launches[backend]["decode_steps"] = sum(eng.steps_by_rung.values())
+        launches[backend]["frontend_waves"] = len(fe["launches"])
+        if backend != "ref" and any(
+                f != {("pann_matmul_act" if backend == "fused" else
+                       "pann_matmul_packed_act"): _frontend_launches(cfg)}
+                for f in fe["launches"]):
+            raise AssertionError(f"{backend} frontend launches "
+                                 f"{fe['launches']}")
         tokens[backend] = [r.tokens for r in res]
-        # teacher-forced logits of every rung over the first request's
-        # prompt, from the store and from its artifact copy
-        logits[backend] = _teacher_forced(eng.variants, eng.cfg, rows)
-        from_artifact = _teacher_forced(loaded.views, eng.cfg, rows)
-        if not torch.equal(from_artifact, logits[backend]):
-            d = (from_artifact - logits[backend]).abs().max().item()
+        # the engine's graph pool goes before the eager steps below ('ref'
+        # at vision's widths captured 30 GB of int32 temporaries in it);
+        # the timed frontend's closure would keep the engine alive
+        if cross:
+            del eng._load_frontend
+        views, cfg_b = eng.variants, eng.cfg
+        del eng
+        torch.cuda.empty_cache()
+        # the store's teacher-forced logits, held to the artifact's
+        t0 = time.perf_counter()
+        logits[backend] = _teacher_forced(views, cfg_b, rows, frontend)
+        seconds[f"{backend}_logits"] = time.perf_counter() - t0
+        if not torch.equal(from_artifact[backend], logits[backend]):
+            d = (from_artifact[backend] - logits[backend]).abs().max().item()
             raise AssertionError(f"{backend}: the artifact's logits differ "
                                  f"from the store's by {d}")
-        del eng
+        del views
         torch.cuda.empty_cache()
     for backend in ("fused", "packed"):
         if not torch.equal(logits[backend], logits["ref"]):
@@ -1661,16 +2072,19 @@ def backends_agree(arch: str = "llama3-8b", seed: int = 1,
         raise AssertionError(f"fused launch counts {fused} over warmup's "
                              f"{steps} steps")
     if any(v for k, v in launches["ref"].items()
-           if k not in ("decode_steps", "graphs")):
+           if k not in ("decode_steps", "graphs", "frontend_waves")):
         raise AssertionError(f"ref backend launched kernels: "
                              f"{launches['ref']}")
     cut = ("one local and one global layer" if cfg.local_global_period
            else "one group and the 2-layer tail" if cfg.family == "hybrid"
-           else "the only cut")
+           else f"and {cfg.encoder_layers} encoder layers"
+           if cfg.encoder_layers else "one group, one cross layer"
+           if cfg.family == "vlm" else "the only cut")
     return {"config": f"{arch} full width cut to {layers} layer"
                       f"{'s' if layers > 1 else ''} ({cut}), random "
                       f"weights seed {seed}",
             "cache_bits": cache_bits, "logits_bit_identical": True,
+            "teacher_forced_tokens": tf_len, "seconds": seconds,
             "tokens_identical": True, "logits_shape": list(
                 logits["ref"].shape), "launches": launches,
             "artifact": {"blob_bytes": blob_bytes, "write_load_s": artifact_s,
@@ -2301,15 +2715,19 @@ def unfused_path(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 PREFILL_B, PREFILL_T = 2, 2048
+ENCDEC_T = 256                  # phase 7g's tokens over seamless's frontend
 # the reference's single-point summary keys (repro/launch/serve.py)
 SINGLE_POINT_KEYS = ("arch", "quant", "backend", "batch", "generated",
                      "prefill_s", "decode_s", "tok_per_s", "sample")
 
 
 def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
-                    profiled: bool = True) -> dict:
-    """Phase 7a (llama3-8b), 7d (mixtral-8x7b at its MOE_LAYERS depth) and
-    7f (zamba2-1.2b and rwkv6-1.6b, ``profiled`` False):
+                    profiled: bool = True, t_len: int = PREFILL_T,
+                    layers: int | None = None) -> dict:
+    """Phase 7a (llama3-8b), 7d (mixtral-8x7b at ``layers``), 7f
+    (zamba2-1.2b and rwkv6-1.6b, ``profiled`` False) and 7g
+    (seamless-m4t-medium at ``t_len`` 256 with a raw frontend,
+    ``profiled`` False):
     ``MD.forward`` at (PREFILL_B, PREFILL_T) on the top rung's view of a
     full-width weight store, through 'ref', 'fused' and 'packed': the
     logits must be bit-identical, and so must the MoE load-balance loss
@@ -2326,6 +2744,8 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
     from repro_torch.models import serving
     from repro_torch.serve_engine import build_ladder
     cfg = served_config(arch, quant=QuantConfig(mode="none"))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2339,9 +2759,16 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
     view = ws.views[top]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_T),
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, t_len),
                            generator=gen, device="cuda")
+    fe = {}
     per_fwd = _graph_launches(cfg)["pann_matmul_packed_act"]
+    if cfg.family in ("encdec", "vlm"):
+        frontend = Frontend(cfg, seed)
+        fe = {frontend.key: frontend.raw(PREFILL_B, 0)}
+        # a forward projects each cross layer's K and V too, and runs the
+        # stem and the encoder: the frontend's launches
+        per_fwd += _frontend_launches(cfg)
     want_counts = {"ref": {}, "fused": {"pann_matmul_act": per_fwd},
                    "packed": {"pann_matmul_packed_act": per_fwd}}
     ref_logits = ref_aux = None
@@ -2357,7 +2784,7 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
     def forward_ms(c):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = MD.forward(view, c, tokens)
+        out = MD.forward(view, c, tokens, **fe)
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
@@ -2384,7 +2811,7 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
             raise AssertionError(f"forward on {backend}: launches {counts} "
                                  f"!= {want}")
         if ref_logits is None:
-            if logits.shape != (PREFILL_B, PREFILL_T, cfg.padded_vocab) \
+            if logits.shape != (PREFILL_B, t_len, cfg.padded_vocab) \
                     or not torch.isfinite(logits).all():
                 raise AssertionError(f"forward logits {tuple(logits.shape)}"
                                      " not finite or of the wrong shape")
@@ -2401,10 +2828,10 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
         del logits
         run = {"forward_ms": ms, "cold_forward_ms": cold_ms,
                "launches": counts, "aux_loss": float(aux),
-               "prefill_tok_per_s": PREFILL_B * PREFILL_T / (ms * 1e-3)}
+               "prefill_tok_per_s": PREFILL_B * t_len / (ms * 1e-3)}
         if backend != "ref" and profiled:
             dev_ms, ops, lost = _profile_rung(
-                lambda: MD.forward(view, c, tokens), steps=1)
+                lambda: MD.forward(view, c, tokens, **fe), steps=1)
             total = sum(dev_ms.values())
             kernel = dev_ms.get("tile_kernel", 0.0) + dev_ms.get(
                 "epilogue", 0.0)
@@ -2445,13 +2872,18 @@ def prefill_forward(seed: int = 7, arch: str = "llama3-8b",
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb >= 70.0:
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
-    del ws, view, ref_logits
+    del ws, view, ref_logits, fe
     torch.cuda.empty_cache()
     return {"config": f"{arch} full width, {cfg.num_layers} layers, random "
                       f"weights seed {seed}; weight store ladder "
                       f"{list(LADDER)}, packed planes; the top rung's view "
-                      f"({top} bits)",
-            "B_T": [PREFILL_B, PREFILL_T], "store_build_s": build_s,
+                      f"({top} bits)" + (
+                          f"; raw frontend {list(cfg.frontend_hw)} through "
+                          f"the stem" + (f" and {cfg.encoder_layers} "
+                                         "encoder layers"
+                                         if cfg.encoder_layers else "")
+                          if cfg.family in ("encdec", "vlm") else ""),
+            "B_T": [PREFILL_B, t_len], "store_build_s": build_s,
             "logits_bit_identical": ["ref", "fused", "packed"],
             "products_MKNP": sorted(set(products)),
             "runs": runs, "peak_mem_gb": peak_gb}
@@ -2525,7 +2957,7 @@ def serve_single(argv: list) -> dict:
 # 32 layers to keep the script inside its time limit (each layer's
 # value-exact plane count is the same at any depth: the codes' peak is
 # 19-21 at --power_bits 2 and 36-40 at 4 in every layer)
-SINGLE_POINT_LAYERS = 8
+SINGLE_POINT_LAYERS = 4
 
 
 def single_point() -> dict:
@@ -2610,18 +3042,19 @@ def single_point() -> dict:
 
 
 def moe_single_point(arch: str = "mixtral-8x7b") -> dict:
-    """Phase 7e: the single-point serve of ``arch`` at full width and its
-    MOE_LAYERS depth, ``launch/serve.py --quant pann --power_bits 4``
+    """Phase 7e: the single-point serve of ``arch`` at full width and
+    MOE_PREFILL_LAYERS depth, ``launch/serve.py --quant pann --power_bits 4``
     through 'packed' and 'ref': the attention projections and the head
     through the artifact's backend, the router and the experts (fp32 in
     the artifact) through the fake-quant projections; every step's logits
     of 'packed' bit-identical to those of 'ref', the same sample tokens."""
-    layers = MOE_LAYERS[arch]
+    layers = MOE_PREFILL_LAYERS
     base = ["--arch", arch, "--layers", str(layers), "--batch", str(BATCH),
             "--prompt_len", str(PROMPT), "--gen", str(GEN), "--quant",
             "pann", "--power_bits", "4"]
     steps = PROMPT + GEN - 1
-    per_step = _graph_launches(served_config(arch))["pann_matmul_packed_act"]
+    per_step = _graph_launches(dataclasses.replace(
+        served_config(arch), num_layers=layers))["pann_matmul_packed_act"]
     runs, logits = {}, {}
     for backend in ("packed", "ref"):
         out, logits[backend] = serve_single(base + ["--backend", backend])
@@ -2651,6 +3084,93 @@ def moe_single_point(arch: str = "mixtral-8x7b") -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 8: whole-sequence encode under per-item budgets
+# ---------------------------------------------------------------------------
+
+ENCODE_ITEMS = 8
+
+
+def encode_serve(arch: str, seed: int) -> dict:
+    """Phase 8: ``EncodeEngine`` on ``arch`` at its ENCDEC_LAYERS depth
+    (full width; its store quantizes the whole model, as the reference's),
+    ENCODE_ITEMS raw items over budgets cycling the ladder, on 'packed':
+    warmup, the timed encode (items/s), ``assert_no_recompile``, one B2 a
+    stem layer and an encoder projection a wave; then engines on 'ref'
+    and 'fused' over the same store: every encoded state bit-identical.
+    Reports each rung's Gbit-flips an item."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import frontend_raw_stub
+    from repro_torch.models.serving import WeightStore
+    from repro_torch.serve_engine import EncodeEngine, EncodeRequest
+    cfg = served_config(arch, quant=QuantConfig(mode="none"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = EncodeEngine(cfg, _init_params(cfg, seed), ladder_bits=LADDER,
+                          max_batch=BATCH, backend="packed", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    raw = frontend_raw_stub(cfg, ENCODE_ITEMS, 0, seed)
+    reqs = [EncodeRequest(uid=i, item=raw[i],
+                          power_budget_bits=LADDER[i % len(LADDER)])
+            for i in range(ENCODE_ITEMS)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = engine.encode(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.assert_no_recompile()
+    launches = {k: v for k, v in _counts().items() if v}
+    waves = sum(-(-n // BATCH) for n in engine.items_by_rung.values())
+    mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    per_wave = len(cfg.conv_stem) + cfg.encoder_layers * (4 + mlp)
+    if launches != {"pann_matmul_packed_act": per_wave * waves}:
+        raise AssertionError(f"encode launches {launches}, want "
+                             f"{per_wave} B2 a wave over {waves} waves")
+    shape = (cfg.stem_tokens, cfg.d_model)
+    for r in out:
+        if r.encoded.shape != shape or not np.isfinite(r.encoded).all():
+            raise AssertionError(f"item {r.uid}: {r.encoded.shape} not "
+                                 f"{shape} or not finite")
+    ws = WeightStore(store=engine.weight_store, views=engine.variants)
+    for backend in ("ref", "fused"):
+        other = EncodeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
+                             max_batch=BATCH, backend=backend,
+                             device="cuda")
+        for a, b in zip(other.encode(reqs), out):
+            if not np.array_equal(a.encoded, b.encoded):
+                d = float(np.abs(a.encoded - b.encoded).max())
+                raise AssertionError(f"encode {backend} item {a.uid}: "
+                                     f"max |diff| {d} from packed")
+        del other
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 70.0:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB >= 70 GB")
+    report = {
+        "config": f"{arch} full width, {cfg.num_layers} decoder layers, "
+                  f"{cfg.encoder_layers} encoder layers, random weights "
+                  f"seed {seed}; the stem over {list(raw.shape[1:])} items",
+        "items": ENCODE_ITEMS, "budgets": [r.power_budget_bits
+                                           for r in reqs],
+        "backend": "packed", "store_build_s": build_s,
+        "warmup_s": warmup_s, "encode_s": wall,
+        "items_per_s": ENCODE_ITEMS / wall, "waves": waves,
+        "launches": launches, "b2_launches_per_wave": per_wave,
+        "compilations_after_warmup": engine.compilations_after_warmup,
+        "items_by_rung": dict(engine.items_by_rung),
+        "gbitflips_per_item": {op.bits: engine.item_flips(op.bits) / 1e9
+                               for op in engine.ladder},
+        "encoded_shape": list(shape),
+        "bit_identical_on": ["packed", "ref", "fused"],
+        "peak_mem_gb": peak_gb}
+    del engine, ws, out
+    torch.cuda.empty_cache()
+    return report
+
 
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
                   max_abs_err, times_are):
@@ -2693,6 +3213,12 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import pann_attention as pa
     start = time.perf_counter()
+    phase_s: dict = {}
+
+    def mark(phase: str) -> None:
+        """Seconds since the start at the end of ``phase``, printed."""
+        phase_s[phase] = time.perf_counter() - start
+        print(f"[time] {phase} done at {phase_s[phase]:.1f} s", flush=True)
 
     # phase 1: device
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2721,6 +3247,7 @@ def main() -> int:
               "instructions", flush=True)
         if not sass[name]["GMMA"]:   # its tile kernel runs on wgmma
             raise AssertionError(f"{name}: no GMMA line in its SASS")
+    mark("2")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -2744,12 +3271,15 @@ def main() -> int:
     b6_calls = b6_kernels_per_call()
     print("[kernels] unsigned_matmul at M = 1..8, device kernels (profiler): "
           + json.dumps(b6_calls), flush=True)
+    encode_rows, encode_err = check_encode_matmuls(gen)
+    conv = check_serving_conv()
     print(f"[kernels] all bit-identical to their plain versions "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, rows in mm_rows.items():
         for r in rows:
             print(f"[kernels] {name} " + json.dumps(
                 {k: v for k, v in r.items()}), flush=True)
+    mark("3")
 
     # phase 4: full-width serve through the ladder, every step a graph
     serve = full_width_serve()
@@ -2769,11 +3299,13 @@ def main() -> int:
     for uid, toks in serve["tokens"].items():
         print(f"[serve] request {uid} (rung {serve['rung_bits'][uid]}) "
               f"tokens {toks}", flush=True)
+    mark("4")
 
     # phase 4b: full width, layerwise allocation, cache_bits 'auto'
     layerwise = layerwise_serve()
     print("[layerwise] " + json.dumps({k: v for k, v in layerwise.items()
                                        if k != "tokens"}), flush=True)
+    mark("4b")
 
     # phase 4c: the dense variants at full width, every step a graph
     variants = {}
@@ -2792,6 +3324,7 @@ def main() -> int:
               "kernels per graphed step " + json.dumps(
                   v["profile"]["device_ops_per_step_by_kind"]) + ", ms "
               + json.dumps(v["profile"]["ms_per_step_by_kind"]), flush=True)
+    mark("4c")
 
     # phase 4d: the MoE configs at full width, cut in depth to one card
     moe = {}
@@ -2815,6 +3348,7 @@ def main() -> int:
                   m["profile"]["device_ops_per_step_by_kind"]) + "; top "
               "kernels " + json.dumps(m["profile"]["top_kernels_ms"]),
               flush=True)
+    mark("4d")
 
     # phase 4e: the recurrent families at full width and depth
     recurrent = {}
@@ -2838,9 +3372,36 @@ def main() -> int:
               + "; an eager step's device ms by part " + json.dumps(
                   r["device_ms_split"].get("eager_step_ms_by_part")),
               flush=True)
+    mark("4e")
+
+    # phase 4f: the cross-attending configs at full width, a raw frontend
+    # a wave
+    encdec = {}
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        t0 = time.perf_counter()
+        e = full_width_serve(arch, seed=20 + i, n_requests=3,
+                             eager_profile=False)
+        e["phase_s"] = time.perf_counter() - t0
+        encdec[arch] = e
+        print(f"[encdec] {arch}: " + json.dumps(
+            {k: val for k, val in e.items()
+             if k not in ("tokens", "profile", "eager_profile")}),
+            flush=True)
+        fe = e["frontend"]
+        print(f"[encdec] {arch} graphed step: {e['ms_per_step']:.3f} ms on "
+              f"the host, {e['profile']['device_ms_per_step']:.3f} ms of "
+              f"device kernels (busy share {e['device_busy_share']:.3f}), "
+              f"{e['tok_per_s']:.2f} tok/s, peak {e['peak_mem_gb']:.2f} GB; "
+              "kernels per graphed step " + json.dumps(
+                  e["profile"]["device_ops_per_step_by_kind"]) + ", ms "
+              + json.dumps(e["profile"]["ms_per_step_by_kind"])
+              + f"; wave-start frontend {fe['b2_launches_per_wave']} B2, ms "
+              + json.dumps([round(x, 3) for x in fe["ms"]]), flush=True)
+    mark("4f")
 
     # phase 5: backends agree, and the v1 artifact round trip, on each
-    # served config cut to 2 layers, mixtral to 1, zamba2 to 8
+    # served config cut to 2 layers, mixtral to 1, zamba2 to 8, seamless
+    # to 2 + 2, vision to 5
     agree = backends_agree()
     print("[backends] " + json.dumps(agree), flush=True)
     agree_variants = {}
@@ -2861,6 +3422,16 @@ def main() -> int:
         agree_variants[arch]["phase_s"] = time.perf_counter() - t0
         print(f"[backends] {arch} " + json.dumps(agree_variants[arch]),
               flush=True)
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        t0 = time.perf_counter()
+        tf_len, n_requests = ENCDEC_P5[arch]
+        agree_variants[arch] = backends_agree(
+            arch, seed=22 + i, n_requests=n_requests,
+            layers=ENCDEC_CUT[arch], tf_len=tf_len)
+        agree_variants[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"[backends] {arch} " + json.dumps(agree_variants[arch]),
+              flush=True)
+    mark("5")
 
     # phase 6: the unfused path through the kernel API
     unfused = unfused_path(gen)
@@ -2875,6 +3446,7 @@ def main() -> int:
               f"({sweep['seconds']:.1f} s)", flush=True)
         for r in sweep["rows"]:
             print(f"[unfused] {key} " + json.dumps(r), flush=True)
+    mark("6")
 
     # phase 7: prefill (forward) and the single-point serve
     t0 = time.perf_counter()
@@ -2882,12 +3454,17 @@ def main() -> int:
     single = single_point()
     phase7_s = time.perf_counter() - t0
     print(f"[phase7] {phase7_s:.1f} s", flush=True)
-    # 7d and 7e: the same on mixtral-8x7b at its MOE_LAYERS depth
+    mark("7abc")
+
+    # 7d and 7e: the same on mixtral-8x7b at MOE_PREFILL_LAYERS
     t0 = time.perf_counter()
-    moe_prefill = prefill_forward(arch="mixtral-8x7b")
+    moe_prefill = prefill_forward(arch="mixtral-8x7b",
+                                  layers=MOE_PREFILL_LAYERS)
     moe_single = moe_single_point()
     phase7_moe_s = time.perf_counter() - t0
     print(f"[phase7] mixtral-8x7b {phase7_moe_s:.1f} s", flush=True)
+    mark("7de")
+
     # 7f: forward of the recurrent families at full width and depth
     recurrent_prefill = {}
     for i, arch in enumerate(RECURRENT_ARCHS):
@@ -2897,6 +3474,25 @@ def main() -> int:
         recurrent_prefill[arch]["phase_s"] = time.perf_counter() - t0
         print(f"[phase7] {arch} {recurrent_prefill[arch]['phase_s']:.1f} s",
               flush=True)
+    mark("7f")
+
+    # 7g: forward of seamless at full width and depth over raw features
+    t0 = time.perf_counter()
+    encdec_prefill = prefill_forward(seed=24, arch=ENCDEC_ARCHS[0],
+                                     profiled=False, t_len=ENCDEC_T)
+    encdec_prefill["phase_s"] = time.perf_counter() - t0
+    print(f"[phase7] {ENCDEC_ARCHS[0]} {encdec_prefill['phase_s']:.1f} s",
+          flush=True)
+    mark("7g")
+
+    # phase 8: whole-sequence encode waves under per-item budgets
+    encode = {}
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        t0 = time.perf_counter()
+        encode[arch] = encode_serve(arch, seed=26 + i)
+        encode[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"[encode] {arch} " + json.dumps(encode[arch]), flush=True)
+    mark("8")
     _assert_fp32_matmuls()
 
     step = "one full-width decode step's launches, cold L2"
@@ -2962,7 +3558,8 @@ def main() -> int:
     # the serve's cache; mixtral's attention is llama3-8b's shape)
     served = {**{a: ("variants", variants[a]) for a in VARIANTS},
               **{a: ("moe", moe[a]) for a in MOE_ARCHS},
-              **{a: ("recurrent", recurrent[a]) for a in RECURRENT_ARCHS}}
+              **{a: ("recurrent", recurrent[a]) for a in RECURRENT_ARCHS},
+              **{a: ("encdec", encdec[a]) for a in ENCDEC_ARCHS}}
     for arch, (group, srv) in served.items():
         att_of = arch if arch in att_by_config else "llama3-8b"
         att = [r for r in att_by_config[att_of] if r["S"] == PROMPT + GEN]
@@ -3006,6 +3603,17 @@ def main() -> int:
         k["ragged_n"] = {key: ragged[key] for key in ("K", "N", "N_padded",
                                                       "cases")}
         k["launches_ragged_n"] = ragged["launches"][name]
+        # the encode path (phases 3, 4f, 7g, 8): its shapes, the wave-start
+        # frontends, seamless's forward, the encode waves
+        k["encode_shapes"] = [r for r in encode_rows if r["kernel"] == name]
+        k["max_abs_err"] = max(k["max_abs_err"], encode_err[name])
+        k["serving_conv_cases"] = {a: conv[a]["cases"] for a in conv}
+        k["launches_prefill_encdec"] = encdec_prefill["runs"][backend][
+            "launches"][name]
+    kernels[1]["launches_wave_frontend"] = {
+        a: encdec[a]["frontend"]["launches_per_wave"] for a in ENCDEC_ARCHS}
+    kernels[1]["launches_encode"] = {a: encode[a]["launches"]
+                                     for a in ENCDEC_ARCHS}
     one_pass = ("one pass of the unfused path (7 projections and the "
                 "lm_head at M = 4 and 512), cold L2")
     for name, source, replaces in (
@@ -3056,6 +3664,9 @@ def main() -> int:
               "moe_single_point": moe_single,
               "phase7_moe_s": phase7_moe_s, "recurrent": recurrent,
               "recurrent_prefill": recurrent_prefill, "ragged_n": ragged,
+              "encode_matmuls": encode_rows, "serving_conv": conv,
+              "encdec": encdec, "encdec_prefill": encdec_prefill,
+              "encode": encode, "phase_done_at_s": phase_s,
               "wall_s": time.perf_counter() - start}
     print(f"[time] {report['wall_s']:.1f} s from the device check to the "
           "report", flush=True)
@@ -3065,7 +3676,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k not in ("shapes", "unfused_shapes",
-                                                "checks", "planes_checked")}
+                                                "checks", "planes_checked",
+                                                "encode_shapes")}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Port of ``repro.configs``. The dense decoders (llama3-8b, qwen1.5-4b,
 stablelm-12b, gemma2-9b), the MoE decoders (mixtral-8x7b, dbrx-132b), the
-hybrid zamba2-1.2b and the SSM rwkv6-1.6b are registered. The other two
-architectures of the JAX package (encoder-decoder, vision) come with their
-model families.
+hybrid zamba2-1.2b, the SSM rwkv6-1.6b, the encoder-decoder
+seamless-m4t-medium and the vision decoder llama-3.2-vision-90b: every
+architecture of the JAX package.
 """
 from __future__ import annotations
 
@@ -12,8 +12,10 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.configs import (dbrx_132b, gemma2_9b, llama3_8b,
-                                 mixtral_8x7b, qwen1_5_4b, rwkv6_1_6b,
-                                 stablelm_12b, zamba2_1_2b)
+                                 llama_3_2_vision_90b, mixtral_8x7b,
+                                 qwen1_5_4b, rwkv6_1_6b,
+                                 seamless_m4t_medium, stablelm_12b,
+                                 zamba2_1_2b)
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ConvSpec,
                                       ModelConfig, MoEConfig, QuantConfig,
                                       ShapeConfig)
@@ -25,8 +27,10 @@ _REGISTRY = {
     "llama3-8b": llama3_8b.config,
     "dbrx-132b": dbrx_132b.config,
     "mixtral-8x7b": mixtral_8x7b.config,
+    "seamless-m4t-medium": seamless_m4t_medium.config,
     "zamba2-1.2b": zamba2_1_2b.config,
     "rwkv6-1.6b": rwkv6_1_6b.config,
+    "llama-3.2-vision-90b": llama_3_2_vision_90b.config,
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

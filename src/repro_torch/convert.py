@@ -38,28 +38,36 @@ def _first_leaf(node: Any) -> Any:
     return node
 
 
-def _port_layout(tree: dict, cfg=None) -> dict:
-    """Reference layout {"decoder": {"groups": {"layers": [...]}, "tail"},
-    ...} -> port layout {"layers": [...], ...}. The group pattern and the
-    group count are read off the stacked tree; ``cfg``, when given, must
-    agree with them."""
-    dec = tree["decoder"]
-    groups = dec.get("groups", {}).get("layers", [])
+def _unstack_layers(stack: dict, cfg, num_layers, role: str) -> list:
+    """One stacked layer stack {"groups": {"layers": [...]}, "tail"} ->
+    its per-layer list. The group pattern and count are read off the
+    stacked tree; ``cfg``, when given, must agree with them."""
+    groups = stack.get("groups", {}).get("layers", [])
     n_groups = int(_first_leaf(groups).shape[0]) if groups else 0
-    tail = list(dec.get("tail", []))
+    tail = list(stack.get("tail", []))
     if cfg is not None:
-        pattern, want_groups, n_tail = T.group_layout(cfg)
+        pattern, want_groups, n_tail = T.group_layout(cfg, num_layers, role)
         if (len(groups), n_groups, len(tail)) != (
                 len(pattern) if want_groups else 0, want_groups, n_tail):
             raise ValueError(
-                f"stacked tree has {n_groups} groups of {len(groups)} "
-                f"layers and {len(tail)} tail layers; {cfg.name} has "
-                f"{want_groups} of {len(pattern)} and {n_tail}")
-    layers = [_unstack(groups[i], g)
-              for g in range(n_groups) for i in range(len(groups))]
-    layers += tail
+                f"stacked {role} tree has {n_groups} groups of "
+                f"{len(groups)} layers and {len(tail)} tail layers; "
+                f"{cfg.name} has {want_groups} of {len(pattern)} and "
+                f"{n_tail}")
+    return [_unstack(groups[i], g)
+            for g in range(n_groups) for i in range(len(groups))] + tail
+
+
+def _port_layout(tree: dict, cfg=None) -> dict:
+    """Reference layout {"decoder": {"groups": {"layers": [...]}, "tail"},
+    ["encoder": {...}], ...} -> port layout {"layers": [...],
+    ["encoder": {"layers": [...]}], ...}."""
     out = {k: v for k, v in tree.items() if k != "decoder"}
-    out["layers"] = layers
+    out["layers"] = _unstack_layers(tree["decoder"], cfg, None, "decoder")
+    if "encoder" in tree:
+        out["encoder"] = {"layers": _unstack_layers(
+            tree["encoder"], cfg,
+            None if cfg is None else cfg.encoder_layers, "encoder")}
     return out
 
 
@@ -85,25 +93,34 @@ def _stack(nodes: list) -> Any:
     return Stacked(parts=tuple(nodes))
 
 
-def reference_layout(tree: dict, cfg) -> dict:
-    """The reverse of ``_port_layout``: port layout {"layers": [...], ...}
-    -> reference layout, the layers of each position of ``cfg``'s group
-    pattern restacked along a leading group axis (``Stacked`` leaves), the
-    tail layers as they are."""
-    pattern, n_groups, n_tail = T.group_layout(cfg)
-    layers = tree["layers"]
+def _stack_layers(layers: list, cfg, num_layers, role: str) -> dict:
+    """A per-layer list -> the reference's stacked {"groups": {"layers":
+    [...]}, "tail"}: the layers of each position of ``cfg``'s group pattern
+    restacked along a leading group axis (``Stacked`` leaves), the tail
+    layers as they are."""
+    pattern, n_groups, n_tail = T.group_layout(cfg, num_layers, role)
     if len(layers) != n_groups * len(pattern) + n_tail:
-        raise ValueError(f"{len(layers)} layers; {cfg.name} has "
+        raise ValueError(f"{len(layers)} {role} layers; {cfg.name} has "
                          f"{n_groups * len(pattern) + n_tail}")
-    dec: dict = {}
+    out: dict = {}
     if n_groups:
-        dec["groups"] = {"layers": [
+        out["groups"] = {"layers": [
             _stack(layers[i:n_groups * len(pattern):len(pattern)])
             for i in range(len(pattern))]}
     if n_tail:
-        dec["tail"] = list(layers[n_groups * len(pattern):])
+        out["tail"] = list(layers[n_groups * len(pattern):])
+    return out
+
+
+def reference_layout(tree: dict, cfg) -> dict:
+    """The reverse of ``_port_layout``: port layout {"layers": [...],
+    ["encoder": {"layers": [...]}], ...} -> the reference's, each stack
+    restacked (``_stack_layers``)."""
     out = {k: v for k, v in tree.items() if k != "layers"}
-    out["decoder"] = dec
+    out["decoder"] = _stack_layers(tree["layers"], cfg, None, "decoder")
+    if "encoder" in tree:
+        out["encoder"] = _stack_layers(tree["encoder"]["layers"], cfg,
+                                       cfg.encoder_layers, "encoder")
     return out
 
 

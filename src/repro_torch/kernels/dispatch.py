@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.core.pann import bitplane_decompose, masked_codes
 from repro_torch.kernels import pann_attention as _pa
+from repro_torch.kernels import pann_conv as _pc
 from repro_torch.kernels import pann_matmul as _pm
 from repro_torch.kernels import pann_matmul_packed as _pk
 from repro_torch.kernels import ref as _ref
@@ -163,6 +164,59 @@ def serving_linear(x: Tensor, p: dict, backend: str) -> Tensor:
     gamma, zcol = _gamma_zcol(p, s, z)
     y = _dispatch_rows(xf, p, s, z, n_lvl, gamma, zcol, name)
     return y.reshape(*lead, w_q.shape[-1]).to(x.dtype)
+
+
+def _conv_input(x: Tensor, p: dict, spec):
+    """The padded fp32 input of a conv projection and its quantizer:
+    (xpad, s, z, n_lvl, gamma, zcol). The activation scalars come from the
+    padded input tensor, not from the patch rows (the reference's one
+    deliberate divergence from ``serving_linear``: a strided geometry may
+    leave pixels out of every patch, and the quantizer stays a function of
+    the tensor alone)."""
+    xpad = _pc.pad_nhwc(x.to(torch.float32), spec.ph, spec.pw).contiguous()
+    s, z, n_lvl = _act_scalars(xpad.reshape(-1, xpad.shape[-1]), p)
+    gamma, zcol = _gamma_zcol(p, s, z)
+    return xpad, s, z, n_lvl, gamma, zcol
+
+
+def serving_conv(x: Tensor, p: dict, spec, backend: str) -> Tensor:
+    """The serving conv projection: im2col over the serving matmuls.
+    ``x``: (B, H, W, Cin) fp input; ``p``: one rung view's leaves with the
+    kernel flat as a (kh*kw*Cin, Cout) ``w_q``; ``spec``: the static
+    geometry (``configs.base.ConvSpec``). The patch rows go through the
+    same backend branch as a linear's (B1 on 'fused', B2 on 'packed', whose
+    packed planes pad K up to a multiple of 8). Returns (B, Ho, Wo, Cout)
+    in x's dtype."""
+    name = resolve_backend(backend, p)
+    w_q = p["w_q"]
+    if w_q.ndim != 2 or x.ndim != 4:
+        raise ValueError(f"serving_conv wants a (K, N) weight and a "
+                         f"(B, H, W, C) input, got {tuple(w_q.shape)} and "
+                         f"{tuple(x.shape)}")
+    xpad, s, z, n_lvl, gamma, zcol = _conv_input(x, p, spec)
+    patches = _pc.extract_patches(xpad, spec.kh, spec.kw, spec.sh, spec.sw)
+    b, ho, wo, k = patches.shape
+    y = _dispatch_rows(patches.reshape(-1, k), p, s, z, n_lvl, gamma, zcol,
+                       name)
+    return y.reshape(b, ho, wo, w_q.shape[-1]).to(x.dtype)
+
+
+def serving_conv_oracle(x: Tensor, p: dict, spec) -> Tensor:
+    """The integer convolution oracle of ``serving_conv``: the same
+    quantizer and zcol row, but the integer sums run through an exact
+    float64 convolution of the codes (``pann_conv.conv_exact``) instead of
+    im2col and a matmul. Every backend of ``serving_conv`` equals it bit
+    for bit. cuDNN is off for the call, so no FFT or Winograd algorithm
+    can round the float64 sums."""
+    w_q = p["w_q"]
+    xpad, s, z, n_lvl, gamma, zcol = _conv_input(x, p, spec)
+    q = quant.affine_encode(xpad, s, z, n_lvl)
+    shift = (_scalar(p["plane_shift"], xpad) if "plane_shift" in p
+             else xpad.new_zeros(()))
+    with torch.backends.cudnn.flags(enabled=False):
+        y_int = _pc.conv_exact(q, masked_codes(w_q, shift), spec.kh,
+                               spec.kw, spec.sh, spec.sw)
+    return _pm.epilogue(y_int, s, gamma, zcol).to(x.dtype)
 
 
 def cache_planes_active(n_lvl) -> Tensor:

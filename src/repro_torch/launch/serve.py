@@ -1,4 +1,4 @@
-"""Serving CLI (port of ``repro.launch.serve``), two modes.
+"""Serving CLI (port of ``repro.launch.serve``), three modes.
 
 Ladder mode (the default; ``serve_ladder``): plan a ladder of equal-power
 PANN operating points once, quantize into one weight store, then serve
@@ -19,6 +19,16 @@ the other modes serve the fp params through ``qlinear``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --quant pann --power_bits 4
 
+An encoder-decoder or vision config takes its frontend in both modes
+from ``data.pipeline.frontend_stub`` (stub embeddings, as the reference).
+Encode mode (``--encode``; ``serve_encode``): whole-sequence encode waves
+through ``serve_engine.EncodeEngine`` under per-item budgets, each item
+the raw frontend input of ``frontend_raw_stub`` (stub embeddings without
+a conv stem):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --encode --power_ladder 2,4,6
+
 Runs on the card by default (``--device cuda``; raises without one). Prints
 the same ``[serve]`` JSON summaries as the JAX package.
 """
@@ -35,9 +45,11 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import costs, planner
+from repro_torch.data.pipeline import frontend_raw_stub, frontend_stub
 from repro_torch.models import model as MD
 from repro_torch.models import serving
-from repro_torch.serve_engine import Request, ServeEngine
+from repro_torch.serve_engine import (EncodeEngine, EncodeRequest, Request,
+                                      ServeEngine)
 
 
 def _config(args, quant=None):
@@ -62,6 +74,21 @@ def plan_quant(args, total_macs=None) -> QuantConfig:
                            act_bits_tilde=plan.b_x_tilde)
     return QuantConfig(mode=args.quant, weight_bits=args.power_bits,
                        act_bits=args.power_bits)
+
+
+def _frontend_key(cfg):
+    return "enc_inputs" if cfg.family == "encdec" else "image_embeds"
+
+
+def _print_rungs(engine) -> None:
+    total_macs = sum(m.macs for m in engine.profile)
+    for op in engine.ladder:
+        if op.lw is not None:
+            print(f"[serve] {op.describe()}")
+        else:
+            # same unit as the layerwise line: total network Gbit-flips
+            print(f"[serve] rung[{op.bits}b] "
+                  f"{op.plan.describe(total_macs=total_macs)}")
 
 
 def serve_single(args) -> dict:
@@ -97,8 +124,12 @@ def serve_single(args) -> dict:
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=device)
+    kwargs = {}
+    fe = frontend_stub(cfg, args.batch, 0, args.seed)
+    if fe is not None:
+        kwargs[_frontend_key(cfg)] = torch.as_tensor(fe, device=device)
     state = MD.init_decode_state(params, cfg, args.batch,
-                                 args.prompt_len + args.gen)
+                                 args.prompt_len + args.gen, **kwargs)
 
     def sync():
         if device.type == "cuda":
@@ -151,6 +182,11 @@ def serve_ladder(args) -> dict:
     if args.cache_bits:
         cache_bits = "auto" if args.cache_bits == "auto" \
             else int(args.cache_bits)
+    fe_fn = None
+    if cfg.family in ("encdec", "vlm"):
+        def fe_fn(batch):
+            return {_frontend_key(cfg): frontend_stub(cfg, batch, 0,
+                                                      args.seed)}
     engine = ServeEngine(cfg, params, ladder_bits=ladder_bits,
                          max_batch=args.batch,
                          max_len=args.prompt_len + args.gen,
@@ -158,17 +194,10 @@ def serve_ladder(args) -> dict:
                          backend=("packed" if args.backend is None
                                   else args.backend or None),
                          cache_bits=cache_bits,
-                         device=device)
+                         device=device, frontend_kwargs_fn=fe_fn)
     del params
     engine.warmup()
-    total_macs = sum(m.macs for m in engine.profile)
-    for op in engine.ladder:
-        if op.lw is not None:
-            print(f"[serve] {op.describe()}")
-        else:
-            # same unit as the layerwise line: total network Gbit-flips
-            print(f"[serve] rung[{op.bits}b] "
-                  f"{op.plan.describe(total_macs=total_macs)}")
+    _print_rungs(engine)
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=i,
@@ -196,6 +225,51 @@ def serve_ladder(args) -> dict:
         "generated": n_tok,
         "wall_s": round(dt, 3),
         "tok_per_s": round(n_tok / max(dt, 1e-9), 1),
+    }
+    print("[serve] " + json.dumps(summary))
+    return summary
+
+
+def serve_encode(args) -> dict:
+    """Item serving through ``EncodeEngine``: the same ladder and one
+    weight store, per-item power budgets cycled over the requests."""
+    ladder_bits = [int(b) for b in (args.power_ladder or "2,4,6").split(",")]
+    budgets = ([int(b) for b in args.budgets.split(",")] if args.budgets
+               else ladder_bits)
+    cfg = _config(args, quant=QuantConfig(mode="none"))
+    device = MD.resolve_device(args.device)
+    params = MD.init_params(cfg, seed=args.seed, device=device)
+    engine = EncodeEngine(cfg, params, ladder_bits=ladder_bits,
+                          max_batch=args.batch, allocation=args.allocation,
+                          backend=("packed" if args.backend is None
+                                   else args.backend or None),
+                          device=device)
+    del params
+    engine.warmup()
+    _print_rungs(engine)
+    n = args.requests or args.batch
+    raw = frontend_raw_stub(cfg, n, 0, args.seed)
+    if raw is None:                 # no conv stem: stub embeddings
+        raw = frontend_stub(cfg, n, 0, args.seed)
+    reqs = [EncodeRequest(uid=i, item=raw[i],
+                          power_budget_bits=budgets[i % len(budgets)])
+            for i in range(n)]
+    t0 = time.monotonic()
+    responses = engine.encode(reqs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    engine.assert_no_recompile()
+    summary = {
+        "arch": cfg.name,
+        "mode": "encode",
+        "engine": engine.describe(),
+        "items": [{"uid": r.uid, "rung_bits": r.rung_bits,
+                   "encoded_shape": list(r.encoded.shape), **r.metadata}
+                  for r in responses],
+        "encoded": len(responses),
+        "wall_s": round(dt, 3),
+        "items_per_s": round(len(responses) / max(dt, 1e-9), 1),
     }
     print("[serve] " + json.dumps(summary))
     return summary
@@ -247,6 +321,12 @@ def main(argv=None) -> dict:
                          "b~x, layerwise rungs let the allocator trade "
                          "cache bits against weight bits under one "
                          "budget); empty = fp cache")
+    ap.add_argument("--encode", action="store_true",
+                    help="serve the encode workload (a vision or speech "
+                         "frontend and its encoder) instead of decode: "
+                         "whole-sequence waves through EncodeEngine, per-"
+                         "item power budgets on the same ladder; "
+                         "encoder-decoder and vision configs only")
     ap.add_argument("--budgets", default="",
                     help="per-request power budgets (bits), cycled over the "
                          "request stream; defaults to the ladder itself")
@@ -255,6 +335,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.encode:
+        return serve_encode(args)
     if args.quant is not None and not args.power_ladder:
         return serve_single(args)
     return serve_ladder(args)

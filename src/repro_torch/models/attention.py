@@ -1,8 +1,10 @@
 """Self-attention with RoPE, GQA, windows and softcaps (port of
 ``repro.models.attention``): the chunked online-softmax attention of
-prefill and ``forward`` (``_chunked_attention``, ``attend``), and decode
-over KV caches. Cross-attention comes with the encoder-decoder and vision
-configs (ROADMAP A6).
+prefill and ``forward`` (``_chunked_attention``, ``attend``, which also
+cross-attends to an encoder's or an image's tokens), and decode over KV
+caches; decode cross-attention reads K/V projected once per request
+(``project_cross_kv``, ``cross_attend_cached``: fp32, no kernel, as in the
+reference).
 
 Two caches: ``KVCache`` holds K/V in floating point; ``QuantKVCache``
 holds them as packed bit-plane affine codes, written by ``_cache_write``
@@ -80,15 +82,27 @@ class QuantKVCache(NamedTuple):
     length: Tensor     # () int32
 
 
-def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig):
+def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig,
+                 kv_src: Optional[Tensor] = None):
+    """Q from x, K and V from ``kv_src`` (x itself for self-attention)."""
     hd = cfg.resolved_head_dim
     b, t, _ = x.shape
     q = L.project(x, p["wq"], cfg, "attn.wq").reshape(b, t, cfg.num_heads, hd)
-    k = L.project(x, p["wk"], cfg, "attn.wk").reshape(b, t, cfg.num_kv_heads,
-                                                      hd)
-    v = L.project(x, p["wv"], cfg, "attn.wv").reshape(b, t, cfg.num_kv_heads,
-                                                      hd)
+    k, v = project_cross_kv(x if kv_src is None else kv_src, p, cfg)
     return q, k, v
+
+
+def project_cross_kv(src: Tensor, p: dict, cfg: ModelConfig
+                     ) -> tuple[Tensor, Tensor]:
+    """K and V of ``src`` (B, S, d): (B, S, KH, hd) each. Decode projects
+    an encoder's or an image's tokens once per request with it."""
+    b, s, _ = src.shape
+    hd = cfg.resolved_head_dim
+    k = L.project(src, p["wk"], cfg, "attn.wk").reshape(
+        b, s, cfg.num_kv_heads, hd)
+    v = L.project(src, p["wv"], cfg, "attn.wv").reshape(
+        b, s, cfg.num_kv_heads, hd)
+    return k, v
 
 
 def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -153,18 +167,16 @@ def attend(x: Tensor, p: dict, cfg: ModelConfig, *,
            kv_src: Optional[Tensor] = None,
            positions: Optional[Tensor] = None, causal: bool = True,
            window: Optional[int] = None, use_rope: bool = True) -> Tensor:
-    """Full (prefill / ``forward``) self-attention. x: (B, T, d). GQA
-    repeats K/V to the full head count, as the reference does."""
-    if kv_src is not None:
-        raise ValueError("cross-attention (kv_src) is not ported: it comes "
-                         "with the encoder-decoder and vision configs "
-                         "(ROADMAP A6)")
+    """Full (prefill / ``forward``) attention. x: (B, T, d). With
+    ``kv_src`` (B, S, d) it cross-attends: K/V from the source, no RoPE,
+    and not causal against the source. GQA repeats K/V to the full head
+    count, as the reference does."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = _project_qkv(x, p, cfg)
+    q, k, v = _project_qkv(x, p, cfg, kv_src)
     if positions is None:
         positions = torch.arange(t, device=x.device)
-    if use_rope:
+    if use_rope and kv_src is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     g = cfg.num_heads // cfg.num_kv_heads
@@ -172,8 +184,8 @@ def attend(x: Tensor, p: dict, cfg: ModelConfig, *,
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     qg = q.reshape(b, t, cfg.num_heads, 1, hd)
-    out = _chunked_attention(qg, k, v, causal=causal, window=window,
-                             softcap_val=cfg.attn_softcap)
+    out = _chunked_attention(qg, k, v, causal=causal and kv_src is None,
+                             window=window, softcap_val=cfg.attn_softcap)
     out = out.to(x.dtype).reshape(b, t, -1)
     return L.project(out, p["wo"], cfg, "attn.wo")
 
@@ -312,3 +324,23 @@ def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
                               k_nlvl=k_nlvl, v_nlvl=v_nlvl)
     y = L.project(out.to(x.dtype).reshape(b, 1, -1), p["wo"], cfg, "attn.wo")
     return y, cache._replace(length=pos + 1)
+
+
+def cross_attend_cached(x: Tensor, enc_kv: tuple[Tensor, Tensor], p: dict,
+                        cfg: ModelConfig) -> Tensor:
+    """Decode cross-attention against the precomputed source K/V
+    (``project_cross_kv``): fp32 einsum and softmax over every source
+    token. x: (B, T, d)."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = L.project(x, p["wq"], cfg, "attn.wq").reshape(
+        b, t, cfg.num_heads, hd)
+    k, v = enc_kv
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, t, cfg.num_kv_heads, g, hd) * hd ** -0.5
+    scores = torch.einsum("btkgh,bskh->btkgs", qg, k).to(torch.float32)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("btkgs,bskh->btkgh", probs.to(v.dtype),
+                       v).to(torch.float32)
+    out = out.to(x.dtype).reshape(b, t, -1)
+    return L.project(out, p["wo"], cfg, "attn.wo")

@@ -4,7 +4,8 @@ fake-quant, ``qlinear`` (the quantization modes none / ruq / ruq_unsigned /
 pann as fake-quant projections) and the projection choke point
 ``apply_linear``, which routes fp params through ``qlinear``, a serving
 artifact through ``kernels.dispatch`` or, without a backend, through the
-legacy float dequant.
+legacy float dequant; and the conv stem's layers (``init_conv``,
+``apply_conv``: im2col over the same choke point).
 
 The reference's activation-range calibration tap (``calib_tap``) comes
 with training; without one installed the reference's ``path`` argument is
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core import pann as pann_core
 from repro_torch.core import quant
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import pann_conv as _pc
 
 Tensor = torch.Tensor
 
@@ -178,6 +180,38 @@ def apply_linear(x: Tensor, p: dict, qc=None, backend: Optional[str] = None,
         y = x @ w
         return y if b is None else y + b
     return qlinear(x, p["w"].to(x.dtype), b, qc, path=path)
+
+
+# ---------------------------------------------------------------------------
+# Conv stem (modality frontend)
+# ---------------------------------------------------------------------------
+
+def init_conv(gen: torch.Generator, spec, device) -> dict:
+    """One conv-stem layer, the kernel stored flat as a (kh*kw*c_in, c_out)
+    matrix (``kernels.pann_conv``'s layout), so the quantizers, the weight
+    store and its rung views see a linear of fan-in kh*kw*c_in; the bias
+    starts at zero."""
+    return {"w": torch.randn((spec.fan_in, spec.c_out), generator=gen,
+                             dtype=torch.float32, device=device)
+            * spec.fan_in ** -0.5,
+            "b": torch.zeros((spec.c_out,), dtype=torch.float32,
+                             device=device)}
+
+
+def apply_conv(x: Tensor, p: dict, cfg, spec, path: str) -> Tensor:
+    """Conv projection through the same choke point as every linear. x:
+    (B, H, W, C) raw frontend input. A serving artifact with a backend goes
+    through ``dispatch.serving_conv``; fp params through the same im2col
+    (pad, patches) and ``apply_linear`` at the module's quant mode."""
+    if "w_q" in p and cfg.kernel_backend is not None:
+        return dispatch.serving_conv(x, p, spec, cfg.kernel_backend)
+    xpad = _pc.pad_nhwc(x.to(torch.float32), spec.ph, spec.pw)
+    patches = _pc.extract_patches(xpad, spec.kh, spec.kw, spec.sh, spec.sw)
+    b, ho, wo, _ = patches.shape
+    flat = patches.reshape(b * ho * wo, -1).to(x.dtype)
+    y = apply_linear(flat, p, module_quant(cfg, path), backend=None,
+                     path=path)
+    return y.reshape(b, ho, wo, spec.c_out).to(x.dtype)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, device) -> dict:

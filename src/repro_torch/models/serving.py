@@ -140,9 +140,10 @@ def quantize_params_for_serving(params: Any, cfg,
     ``weight_storage_bits`` taken, as the reference takes it, over the
     module's codes stacked across the layer groups of ``cfg``; codes are
     clipped to the planes' +-(2^P - 1) so ``w_q`` and the planes describe
-    the same weights. The MoE router and the stacked experts are no
-    projection parents here (as in the reference) and pass through in
-    fp32, the very tensors handed in. ``cache_bits`` (or a policy's
+    the same weights (an encoder's layers are a stack of their own, a
+    conv-stem layer stands alone). The MoE router and the stacked experts
+    are no projection parents here (as in the reference) and pass through
+    in fp32, the very tensors handed in. ``cache_bits`` (or a policy's
     cache-role overrides) attaches a ``kv_cache`` dict of level counts to
     every attention block. There is no ``plane_shift`` leaf: the kernels
     run at shift 0.
@@ -153,8 +154,12 @@ def quantize_params_for_serving(params: Any, cfg,
     policy, act_bits = spec.policy, spec.act_bits
     r = spec.r if spec.r is not None else cfg.quant.r
     role_bits = _cache_role_bits(policy, spec.cache_bits)
-    pattern, n_groups, _ = T.group_layout(cfg)
-    grouped = n_groups * len(pattern)
+    # the reference stacks layer i of every group of a stack (the decoder's
+    # "layers", an encoder's) along one axis; tail layers stand alone
+    stacks = {("layers",): T.group_layout(cfg)}
+    if cfg.encoder_layers:
+        stacks[("encoder", "layers")] = T.group_layout(
+            cfg, cfg.encoder_layers, "encoder")
     modules = []        # (artifact node, stack key) in walk order
     peak: dict = {}     # stack key -> max |code| over the stack
 
@@ -196,9 +201,9 @@ def quantize_params_for_serving(params: Any, cfg,
                 out["kv_cache"] = _cache_artifact(role_bits, cache_dev)
             return out
         if isinstance(node, (list, tuple)):
-            if trail == ("layers",):
-                # the reference stacks layer i of every group along one
-                # axis; tail layers stand alone
+            if trail in stacks:
+                pattern, n_groups, _ = stacks[trail]
+                grouped = n_groups * len(pattern)
                 return [walk(v, trail, ("group", i % len(pattern))
                              if i < grouped else ("tail", i))
                         for i, v in enumerate(node)]

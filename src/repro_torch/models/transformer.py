@@ -3,11 +3,13 @@
 Every architecture is a repeating *group pattern* of layer kinds; the port
 keeps the pattern functions verbatim (``core/costs`` prices layers by them)
 and holds the layers of one model as a plain per-layer list instead of the
-JAX package's group-stacked leaves. Ported layer kinds: ``attn``
-(self-attention + dense MLP), ``attn_moe`` (self-attention + MoE),
-``mamba`` (Mamba2), ``mamba_attn`` (Mamba2, then zamba2's shared
-attention + MLP block) and ``rwkv`` (RWKV-6 time mix + channel mix);
-``cross_attn`` comes with the encoder-decoder and vision configs.
+JAX package's group-stacked leaves. Layer kinds: ``attn``
+(self-attention + dense MLP; an encoder's bidirectional blocks too, which
+keep RoPE), ``attn_moe`` (self-attention + MoE), ``mamba`` (Mamba2),
+``mamba_attn`` (Mamba2, then zamba2's shared attention + MLP block),
+``rwkv`` (RWKV-6 time mix + channel mix) and ``cross_attn`` (self-attention,
+then cross-attention to the encoder's or the image's tokens gated by
+``tanh(xgate)``, then the MLP).
 """
 from __future__ import annotations
 
@@ -72,22 +74,17 @@ def group_layout(cfg: ModelConfig, num_layers: Optional[int] = None,
 # Per-layer init / apply / decode
 # ---------------------------------------------------------------------------
 
-# the queue item (ROADMAP A) that ports each other layer kind
-_KIND_ITEM = {"cross_attn": "A6"}
-_PORTED = ("attn", "attn_moe", "mamba", "mamba_attn", "rwkv")
+_KINDS = ("attn", "attn_moe", "cross_attn", "mamba", "mamba_attn", "rwkv")
 
 
-def _require_ported(spec: LayerSpec) -> None:
-    if spec.kind not in _PORTED:
-        item = _KIND_ITEM.get(spec.kind)
-        where = f" (ROADMAP {item})" if item else ""
-        raise ValueError(f"layer kind {spec.kind!r} is not ported yet: "
-                         f"{', '.join(_PORTED)} only{where}")
+def _check_kind(spec: LayerSpec) -> None:
+    if spec.kind not in _KINDS:
+        raise ValueError(f"unknown layer kind {spec.kind!r}; have {_KINDS}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> dict:
-    _require_ported(spec)
+    _check_kind(spec)
     d = cfg.d_model
     p = {"norm1": L.init_norm(d, cfg.norm, device)}
     if spec.kind in ("mamba", "mamba_attn"):
@@ -104,6 +101,12 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["moe"] = M.init_moe(gen, cfg, device)
     else:
         p["mlp"] = M.init_mlp(gen, cfg, device)
+    if spec.kind == "cross_attn":
+        # xgate starts at 0: tanh(0) = 0, cross-attention adds nothing
+        # until the gate is trained (or seeded) away from it
+        p["xattn"] = A.init_attention(gen, cfg, device)
+        p["norm_x"] = L.init_norm(d, cfg.norm, device)
+        p["xgate"] = torch.zeros((), dtype=torch.float32, device=device)
     if cfg.post_norm:       # gemma2: a norm on each sublayer's output
         p["post1"] = L.init_norm(d, cfg.norm, device)
         p["post2"] = L.init_norm(d, cfg.norm, device)
@@ -128,7 +131,7 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     windowed layer whose window is shorter than ``max_len`` is refused: the
     reference sizes its cache at the window and drops the writes past it,
     and a ring buffer is not ported yet (ROADMAP C2)."""
-    _require_ported(spec)
+    _check_kind(spec)
     if spec.kind in ("mamba", "mamba_attn"):
         ssm = S.init_ssm_state(cfg, batch, dtype, device)
         if spec.kind == "mamba_attn":
@@ -152,15 +155,23 @@ def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,
     return x + delta
 
 
+def _cross(x: Tensor, h: Tensor, p: dict) -> Tensor:
+    """The gated cross-attention residual x + tanh(xgate) * h."""
+    return x + torch.tanh(p["xgate"]).to(x.dtype) * h
+
+
 def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
                 shared: Optional[dict] = None,
+                cross_src: Optional[Tensor] = None,
                 causal: bool = True) -> tuple[Tensor, Tensor]:
     """Prefill / ``forward`` of one layer. Returns (x, aux_loss): the aux
     loss is an attn_moe layer's router load-balance loss, else 0. MoE runs
     the scan over experts, as the reference does without a mesh (its
     capacity dispatch comes with ``dist/``, ROADMAP A10). ``shared`` is
-    zamba2's shared block, which every mamba_attn layer runs."""
-    _require_ported(spec)
+    zamba2's shared block, which every mamba_attn layer runs;
+    ``cross_src`` (B, S, d) the tokens a cross_attn layer attends to (the
+    layer skips its cross-attention without them, as the reference's)."""
+    _check_kind(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind in ("mamba", "mamba_attn"):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
@@ -182,6 +193,10 @@ def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h = A.attend(h, p["attn"], cfg, window=spec.window, causal=causal)
     x = _residual(x, h, p, cfg, "post1")
+    if spec.kind == "cross_attn" and cross_src is not None:
+        h = L.apply_norm(x, p["norm_x"], cfg.norm)
+        x = _cross(x, A.attend(h, p["xattn"], cfg, kv_src=cross_src,
+                               causal=False), p)
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     if spec.kind == "attn_moe":
         h, aux = M.apply_moe(h, p["moe"], cfg)
@@ -192,14 +207,15 @@ def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
 
 
 def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,
-                 spec: LayerSpec, *, shared: Optional[dict] = None
-                 ) -> tuple[Tensor, Any]:
+                 spec: LayerSpec, *, shared: Optional[dict] = None,
+                 cross_kv: Optional[tuple] = None) -> tuple[Tensor, Any]:
     """Single-token decode step of one layer (an attn_moe layer runs the
     scan over experts and drops its aux loss). Attention writes its K/V
     into ``cache`` in place; a recurrent layer returns NEW state tensors
     (``SSMState``, ``RWKVState``), which a caller holding fixed buffers
-    copies back (``ServeEngine``)."""
-    _require_ported(spec)
+    copies back (``ServeEngine``). ``cross_kv`` is a cross_attn layer's
+    precomputed source (K, V)."""
+    _check_kind(spec)
     if spec.kind in ("mamba", "mamba_attn"):
         ssm_state, kv = cache if spec.kind == "mamba_attn" else (cache, None)
         h = L.apply_norm(x, p["norm1"], cfg.norm)
@@ -227,6 +243,9 @@ def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     h, cache = A.decode_attend(h, cache, p["attn"], cfg, window=spec.window)
     x = _residual(x, h, p, cfg, "post1")
+    if spec.kind == "cross_attn" and cross_kv is not None:
+        h = L.apply_norm(x, p["norm_x"], cfg.norm)
+        x = _cross(x, A.cross_attend_cached(h, cross_kv, p["xattn"], cfg), p)
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     if spec.kind == "attn_moe":
         h, _ = M.apply_moe(h, p["moe"], cfg)

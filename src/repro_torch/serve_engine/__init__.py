@@ -1,9 +1,12 @@
 """Power-budget-aware multi-operating-point serving (port of
 ``repro.serve_engine``): the rung ladder, the continuous-batching
-scheduler, ``ServeEngine`` and the v1 serving artifact. The encoder
-engine and the fleet are not ported yet."""
+scheduler, ``ServeEngine`` (decode), ``EncodeEngine`` (whole-sequence
+encode waves under per-item budgets) and the v1 serving artifact. The
+fleet is not ported yet."""
 from repro_torch.serve_engine.artifact import (ArtifactError, load_artifact,
                                                write_artifact)
+from repro_torch.serve_engine.encoder import (EncodeEngine, EncodeRequest,
+                                              EncodeResponse)
 from repro_torch.serve_engine.engine import Lane, ServeEngine
 from repro_torch.serve_engine.ladder import (OperatingPoint, build_ladder,
                                              select_rung)
@@ -12,4 +15,5 @@ from repro_torch.serve_engine.scheduler import (Request, Response,
 
 __all__ = ["ServeEngine", "Lane", "OperatingPoint", "build_ladder",
            "select_rung", "Request", "Response", "Scheduler",
+           "EncodeEngine", "EncodeRequest", "EncodeResponse",
            "ArtifactError", "load_artifact", "write_artifact"]

@@ -17,10 +17,14 @@ the slot, and the greedy token written into the slot's token buffer), and
 every decode step of ``generate``, ``prefill_wave`` and ``decode_stream``
 on the card is a replay of one of them. A graph replays fixed pointers,
 so a slot owns its decode state and token buffer for the engine's life
-and starting a wave zeroes them in place. Nothing is captured after warmup
-(``assert_no_recompile``); a step whose graph warmup did not capture
-raises, it never runs eagerly on the card. The CPU has no graphs: a CPU
-engine runs the same slot step eagerly.
+and starting a wave zeroes them in place. A cross-attending config
+(encoder-decoder, vision) takes its frontend from ``frontend_kwargs_fn``
+at every wave's start: the stem and the encoder run eagerly, between
+replays, at the wave's rung, and each cross_attn layer's K/V are copied
+into the slot's fixed buffers, which the graphs read. Nothing is
+captured after warmup (``assert_no_recompile``); a step whose graph
+warmup did not capture raises, it never runs eagerly on the card. The
+CPU has no graphs: a CPU engine runs the same slot step eagerly.
 
 Lanes (one per in-flight wave) advance round-robin one decode step each, so
 different rungs interleave between steps of one process.
@@ -72,7 +76,9 @@ class Lane:
 
 def _tensors(tree) -> list:
     """The tensors of a decode state (nested tuples, NamedTuples and
-    lists), in order."""
+    lists; None holds none), in order."""
+    if tree is None:
+        return []
     if isinstance(tree, Tensor):
         return [tree]
     return [t for node in tree for t in _tensors(node)]
@@ -91,9 +97,12 @@ class ServeEngine:
     against weight bits under one budget). ``slots`` is the number of
     decode states, hence of lanes in flight, that ``warmup`` captures
     graphs for: the default covers ``generate``'s default ``max_lanes``,
-    and ``decode_stream`` uses one. ``device`` defaults to 'cuda' and
-    raises without a card; the CPU runs only when asked for (the plain
-    kernel versions)."""
+    and ``decode_stream`` uses one. ``frontend_kwargs_fn(batch)`` returns
+    the ``init_decode_state`` keyword (``enc_inputs`` or ``image_embeds``:
+    a numpy array or tensor, 3-D stub embeddings or raw 4-D input) of a
+    wave of ``batch`` rows; an encoder-decoder or vision config needs it.
+    ``device`` defaults to 'cuda' and raises without a card; the CPU runs
+    only when asked for (the plain kernel versions)."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
@@ -104,11 +113,17 @@ class ServeEngine:
                  cache_bits: Any = None,
                  weight_store: Optional[serving.WeightStore] = None,
                  slots: int = 2,
-                 device="cuda"):
+                 device="cuda",
+                 frontend_kwargs_fn: Optional[Callable[[int], dict]] = None):
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "
                              "weight_store (serve a prebuilt store)")
+        if cfg.family in ("encdec", "vlm") and frontend_kwargs_fn is None:
+            raise ValueError(
+                f"{cfg.family} decode needs a frontend; pass "
+                "frontend_kwargs_fn(batch) -> init_decode_state kwargs")
+        self._frontend_kwargs_fn = frontend_kwargs_fn
         # the cache STRUCTURE is fixed on the config (7 planes for 'auto');
         # per-rung widths ride in the views as data (k_nlvl / v_nlvl), so
         # one step function, one graph per slot, serves the whole ladder
@@ -197,20 +212,55 @@ class ServeEngine:
 
     # -- the compiled decode step -------------------------------------------
 
+    def _frontend(self) -> dict:
+        """A wave's ``init_decode_state`` keyword from
+        ``frontend_kwargs_fn``, as tensors on the engine's device."""
+        if self._frontend_kwargs_fn is None:
+            return {}
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self._frontend_kwargs_fn(self.max_batch).items()}
+
     def _new_slot(self, index: int) -> Slot:
         state = MD.init_decode_state(self.variants[self.ladder[0].bits],
-                                     self.cfg, self.max_batch, self.max_len)
+                                     self.cfg, self.max_batch, self.max_len,
+                                     **self._frontend())
         tok = torch.zeros((self.max_batch, 1), dtype=torch.int64,
                           device=self.device)
         return Slot(index=index, state=state, tok=tok)
 
     @staticmethod
     def _reset(slot: Slot) -> None:
-        """Zero the slot in place: it then equals a fresh
-        ``init_decode_state`` (and a zero token buffer) bit for bit."""
-        for t in _tensors(slot.state):
+        """Zero the slot's caches, position and token buffer in place: with
+        the cross K/V of ``_load_frontend`` it then equals a fresh
+        ``init_decode_state`` bit for bit."""
+        for t in _tensors((slot.state.caches, slot.state.position)):
             t.zero_()
         slot.tok.zero_()
+
+    def _load_frontend(self, bits: int, slot: Slot) -> None:
+        """A new wave's cross-attention source: the frontend run eagerly
+        through the stem and the encoder of rung ``bits``' view (the
+        frontend side quantized at the decode rung, as the reference's
+        ``_init_state``), each cross_attn layer's K/V written into the
+        slot's own buffers with ``copy_``, so the captured graphs read
+        them; a new tensor assigned to the state would leave the graphs
+        reading the last wave's."""
+        if slot.state.cross_kv is None:
+            return
+        view = self.variants[bits]
+        src = MD.cross_source(view, self.cfg, **self._frontend())
+        for buf, new in zip(slot.state.cross_kv,
+                            MD.project_cross(view, self.cfg, src),
+                            strict=True):
+            if buf is None:
+                continue
+            for b, n in zip(buf, new):
+                if b.shape != n.shape:
+                    raise ValueError(
+                        f"frontend gives cross K/V of shape "
+                        f"{tuple(n.shape)}; the engine's slots hold "
+                        f"{tuple(b.shape)}")
+                b.copy_(n)
 
     def _slot_step(self, bits: int, slot: Slot) -> Tensor:
         """One decode step of ``slot`` at rung ``bits``, in place: the
@@ -354,6 +404,7 @@ class ServeEngine:
         rows = self._rows_tensor(np.stack([r.prompt for r in reqs]))
         slot = self._acquire()
         try:
+            self._load_frontend(wave.rung.bits, slot)
             self._teacher_force(wave.rung.bits, slot, rows)
         except BaseException:
             slot.busy = False
@@ -492,6 +543,7 @@ class ServeEngine:
                 continue
             slot = self._acquire()
             try:
+                self._load_frontend(bits, slot)
                 self._teacher_force(
                     bits, slot,
                     self._rows_tensor(np.asarray(prefix)[None, :]))

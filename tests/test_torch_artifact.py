@@ -1,6 +1,7 @@
-"""The v1 serving artifact across the two packages on reduced llama3-8b
-and reduced mixtral-8x7b (fp32 router and experts beside the packed
-projections):
+"""The v1 serving artifact across the two packages on reduced llama3-8b,
+reduced mixtral-8x7b (fp32 router and experts beside the packed
+projections), reduced seamless-m4t-medium (an encoder stack, the conv
+stem, cross-attention and its gate) and reduced llama-3.2-vision-90b:
 the port loads what the JAX package writes and the JAX package loads what
 the port writes (``repro_torch.serve_engine.artifact`` against
 ``repro.serve_engine.artifact``), and each serves the other's store.
@@ -30,6 +31,10 @@ from repro_torch.models import serving as TSV
 from repro_torch.serve_engine import artifact as TA
 from test_torch_common import (LADDER, port_cfg, ref_cfg, reference_store,
                                tonp)
+from test_torch_encoder import ARCHS as ENC_ARCHS
+from test_torch_encoder import frontend_key, raw_input
+from test_torch_encoder import port_cfg as enc_port_cfg
+from test_torch_encoder import reference_store as enc_reference_store
 from test_torch_moe import _port_decode as moe_port_decode
 from test_torch_moe import port_cfg as moe_port_cfg
 from test_torch_moe import ref_cfg as moe_ref_cfg
@@ -205,6 +210,54 @@ def test_moe_port_artifact_loads_in_reference(tmp_path):
     got = RServeEngine(cfg, weight_store=loaded, **kw).generate(
         [RRequest(**r) for r in reqs])
     assert [r.tokens for r in got] == [r.tokens for r in want]
+
+
+@pytest.mark.parametrize("arch", ENC_ARCHS)
+def test_encoder_artifacts_cross_packages(arch, tmp_path):
+    """The cross-attending configs both ways: the JAX package's artifact
+    loaded by the port equals the store carried across in memory, leaf
+    for leaf (the encoder's layers, ``enc_norm``, the conv stem, every
+    ``xattn`` and ``xgate``), and serves bit-identical logits from raw
+    frontend input at the bottom and top rungs; the port's artifact is
+    byte-identical, leaf for leaf, in the JAX package's loader."""
+    ws, pws = enc_reference_store(arch)
+    d = str(tmp_path / "ref")
+    RA.write_artifact(d, ws, meta={"arch": arch})
+    got = TA.load_artifact(d, device="cpu")
+    store = _flat(got.store)
+    assert any(k.startswith("conv_stem/") for k in store)
+    assert any("/xattn/" in k for k in store)
+    assert any("xgate" in k for k in store)
+    cfg = enc_port_cfg(arch, kernel_backend="packed", cache_bits=4)
+    assert any(k.startswith("encoder/") for k in store) == bool(
+        cfg.encoder_layers)
+    fe = {frontend_key(cfg): torch.from_numpy(raw_input(arch))}
+    rows = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (2, 3))).long()
+    for bits in LADDER:
+        a, b = _flat(got.views[bits]), _flat(pws.views[bits])
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    for bits in (LADDER[0], LADDER[-1]):
+        logits = []
+        for views in (got.views, pws.views):
+            st = TMD.init_decode_state(views[bits], cfg, 2, 3, **fe)
+            for t in range(3):
+                lg, st = TMD.decode_step(views[bits], cfg, st,
+                                         rows[:, t:t + 1])
+            logits.append(lg)
+        assert torch.equal(logits[0], logits[1])
+    d2 = TA.write_artifact(str(tmp_path / "port"), pws, enc_port_cfg(arch))
+    loaded = RA.load_artifact(d2)
+    flat = jax.tree_util.tree_leaves_with_path
+    for mine, theirs in [(loaded.store, ws.store)] + [
+            (loaded.views[k], ws.views[k]) for k in LADDER]:
+        a, b = flat(tonp(mine)), flat(tonp(theirs))
+        assert [p for p, _ in a] == [p for p, _ in b]
+        for (p, x), (_, y) in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape, p
+            assert x.tobytes() == y.tobytes(), p
 
 
 def test_port_round_trip_keeps_every_leaf(tmp_path):

@@ -3,10 +3,11 @@ the CPU: ``_chunked_attention`` (causal, window, softcap, ``q_offset``,
 several q and kv chunks, the one-chunk fallback), ``forward`` of the four
 reduced dense decoders at quant modes 'none' and 'pann' on fp params
 carried across from the reference, the port's teacher-forced
-``decode_step`` against its own ``forward``, and the refusals of what is
-not ported (each naming its ROADMAP queue item; MoE is ported, see
-``test_torch_moe``, and so are the SSM and hybrid families, see
-``test_torch_recurrent_serve``).
+``decode_step`` against its own ``forward``, the refusal of what is not
+ported (calibration, naming its ROADMAP queue item), and the layer kinds
+and cross-attention inputs that used to be refused (ROADMAP A6; their
+parity lives in ``test_torch_encoder``; MoE, see ``test_torch_moe``, and
+the SSM and hybrid families, see ``test_torch_recurrent_serve``).
 
 The reference's ``forward`` runs under ``jax.disable_jit()``: op by op,
 so a division by a Python scalar stays a division (under jit XLA may turn
@@ -153,23 +154,61 @@ def test_decode_matches_forward(arch):
 
 @pytest.mark.parametrize("family,item", [("vlm", "A6"), ("encdec", "A6")])
 def test_forward_refuses_unported_layer_kinds(family, item):
-    cfg = dataclasses.replace(port_cfg("llama3-8b"), family=family)
+    """The cross-attending layer kinds that ROADMAP ``item`` ported run:
+    ``forward`` of the family's reduced config with its frontend gives
+    finite logits, a cross_attn layer runs in ``apply_layer`` (a new
+    source changes its output), and what is still refused is only a
+    missing frontend, without a queue item to wait for."""
+    arch = {"vlm": "llama-3.2-vision-90b",
+            "encdec": "seamless-m4t-medium"}[family]
+    cfg = port_cfg(arch)
+    assert cfg.family == family
+    params = TMD.init_params(cfg, seed=1, device="cpu")
+    key = "enc_inputs" if family == "encdec" else "image_embeds"
+    raw = torch.randn((1,) + cfg.frontend_hw + (cfg.conv_stem[0].c_in,))
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        TMD.forward({}, cfg, tokens)
+    logits = TMD.forward(params, cfg, tokens, **{key: raw}).logits
+    assert logits.shape == (1, 4, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match=key) as err:
+        TMD.forward(params, cfg, tokens)
+    assert f"ROADMAP {item}" not in str(err.value)
     spec = TT.group_pattern(cfg)[0]
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        TT.apply_layer(torch.zeros((1, 4, 64)), {}, cfg, spec)
+    assert spec.kind == "cross_attn"
+    layer = dict(params["layers"][0], xgate=torch.ones(()))
+    x = torch.randn((1, 4, cfg.d_model))
+    outs = [TT.apply_layer(x, layer, cfg, spec,
+                           cross_src=torch.randn((1, 3, cfg.d_model)))[0]
+            for _ in range(2)]
+    assert outs[0].shape == x.shape and not torch.equal(outs[0], outs[1])
 
 
 def test_forward_refuses_calibration_and_cross_inputs():
+    """Calibration is still refused (ROADMAP A8). A decoder-only config
+    ignores ``enc_inputs`` / ``image_embeds``, as the reference does, and
+    ``attend`` cross-attends to ``kv_src`` (no RoPE, not causal) as the
+    reference's does, within 1e-6 * max|out|."""
     cfg = port_cfg("llama3-8b")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="ROADMAP A8"):
         TMD.forward({}, cfg, tokens, calib={"attn.wq": (0.0, 1.0)})
+    params = params_from_reference(reference_params("llama3-8b"), cfg, "cpu")
+    plain = TMD.forward(params, cfg, tokens).logits
     for kw in ("enc_inputs", "image_embeds"):
-        with pytest.raises(ValueError, match="ROADMAP A6"):
-            TMD.forward({}, cfg, tokens, **{kw: torch.zeros((1, 2, 64))})
-    with pytest.raises(ValueError, match="ROADMAP A6"):
-        TA.attend(torch.zeros((1, 4, 64)), {}, cfg,
-                  kv_src=torch.zeros((1, 2, 64)))
+        out = TMD.forward(params, cfg, tokens,
+                          **{kw: torch.zeros((1, 2, 64))}).logits
+        assert torch.equal(out, plain)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 4, 64)).astype(np.float32)
+    src = rng.standard_normal((1, 3, 64)).astype(np.float32)
+    rp = jax.tree_util.tree_map(
+        jnp.asarray, reference_params("llama3-8b")["decoder"]["groups"][
+            "layers"][0]["attn"])
+    rp = jax.tree_util.tree_map(lambda a: a[0], rp)
+    want = np.asarray(RA.attend(jnp.asarray(x), rp, ref_cfg("llama3-8b"),
+                                kv_src=jnp.asarray(src)))
+    got = TA.attend(torch.from_numpy(x), params["layers"][0]["attn"], cfg,
+                    kv_src=torch.from_numpy(src)).numpy()
+    assert got.shape == want.shape == (1, 4, 64)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
