@@ -1,6 +1,5 @@
-"""Config dataclasses: model architecture, quantization and shapes
-(port of ``repro.configs.base``; the training and parallelism configs stay
-with the JAX package until training is ported)."""
+"""Config dataclasses: model architecture, quantization, shapes, training
+and parallelism (port of ``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -183,3 +182,37 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 )
 
 SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    fsdp: bool = False            # ZeRO-3-style param sharding over "data"
+    remat: str = "block"          # none | block  (activation checkpointing)
+    pipeline_stages: int = 1      # GPipe over the "pod" axis when > 1
+    compress_grads: bool = False  # int8 + error-feedback gradient all-reduce
+    microbatches: int = 1         # gradient-accumulation factor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    # --- power-aware QAT ---
+    # Budget-annealing curriculum: "step:bits" knots, e.g. "0:fp,200:8,600:4"
+    # (core/anneal.py). None = a fixed operating point for the whole run.
+    budget_schedule: Optional[str] = None
+    # how each annealed budget is spent across modules: uniform | layerwise
+    budget_allocation: str = "layerwise"
+    # EMA decay of the activation-range calibration collection
+    calib_decay: float = 0.99
+    # LR re-warmup after each budget-tightening knot: ramp length in steps
+    # (0 = off) and the knot steps it applies at (set by the trainer from
+    # the parsed schedule; consumed by optim.cosine_warmup_schedule)
+    anneal_warmup_steps: int = 0
+    lr_rewarmup_knots: Tuple[int, ...] = ()

@@ -179,3 +179,99 @@ def weight_store_from_reference(np_store: dict, np_views: dict, cfg,
     views = {k: _alias(_port_layout(v, cfg), store, device)
              for k, v in np_views.items()}
     return WeightStore(store=store, views=views)
+
+
+# ---------------------------------------------------------------------------
+# The train state (launch.steps.TrainState) across the two layouts
+# ---------------------------------------------------------------------------
+
+def _grouped(cfg, num_layers, role: str) -> int:
+    """How many leading layers of a stack the reference stacks in groups."""
+    pattern, n_groups, _ = T.group_layout(cfg, num_layers, role)
+    return n_groups * len(pattern)
+
+
+def reference_matrix_mask(params: dict, cfg) -> Any:
+    """Per leaf of the port's ``params``: is it a matrix (ndim >= 2) in
+    the reference's layout? A layer of a repeating group has one more
+    axis there (the group axis), so its norm scales and biases count as
+    matrices, as they do for the reference's AdamW weight decay; a tail
+    layer's do not."""
+    def mask(node, extra):
+        if isinstance(node, dict):
+            return {k: mask(v, extra) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [mask(v, extra) for v in node]
+        return node.ndim + extra >= 2
+
+    def stack(layers, n_grouped):
+        return [mask(lp, 1 if i < n_grouped else 0)
+                for i, lp in enumerate(layers)]
+
+    out = {k: mask(v, 0) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    out["layers"] = stack(params["layers"], _grouped(cfg, None, "decoder"))
+    if "encoder" in params:
+        out["encoder"] = {"layers": stack(
+            params["encoder"]["layers"],
+            _grouped(cfg, cfg.encoder_layers, "encoder"))}
+    return out
+
+
+def _materialize(node: Any) -> Any:
+    """Stacked and tensor leaves -> numpy arrays (host copies)."""
+    if isinstance(node, dict):
+        return {k: _materialize(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_materialize(v) for v in node]
+    if isinstance(node, Stacked):
+        return np.stack([_materialize(p) for p in node.parts])
+    if isinstance(node, torch.Tensor):
+        return node.detach().cpu().numpy()
+    return node
+
+
+def train_state_to_reference(state, cfg, numpy: bool = False) -> dict:
+    """A port ``TrainState`` -> the reference's ``TrainState`` tree as a
+    dict with its field names (the checkpoint keys are the same):
+    {"params", "opt": {"mu", "nu", "count"}, "step", "calib"}, params and
+    moments restacked (``reference_layout``; ``Stacked`` leaves over the
+    port's tensors), ``calib`` None without calibration. ``numpy=True``
+    copies every leaf to the host as a numpy array (stacked)."""
+    tree = {"params": reference_layout(state.params, cfg),
+            "opt": {"mu": reference_layout(state.opt.mu, cfg),
+                    "nu": reference_layout(state.opt.nu, cfg),
+                    "count": state.opt.count},
+            "step": state.step,
+            "calib": dict(state.calib) if state.calib else None}
+    return _materialize(tree) if numpy else tree
+
+
+def _field(tree, name: str):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def train_state_from_reference(tree, cfg, device):
+    """The reference's ``TrainState`` (a NamedTuple or a dict of its
+    fields, numpy leaves: the JAX package's state after ``np.asarray`` on
+    every leaf, or ``ckpt.checkpoint.restore``'s output) -> the port's
+    ``launch.steps.TrainState`` on ``device``: params and AdamW moments
+    sliced per layer, ``count`` and ``step`` int32, ``calib`` a dict of
+    (2,) fp32 tensors (None when the state has none)."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.optimizers import AdamWState
+
+    opt = _field(tree, "opt")
+    calib = _field(tree, "calib")
+    as_i32 = lambda a: torch.as_tensor(np.array(a, np.int32),
+                                       device=device)
+    return TrainState(
+        params=params_from_reference(_field(tree, "params"), cfg, device),
+        opt=AdamWState(
+            mu=params_from_reference(_field(opt, "mu"), cfg, device),
+            nu=params_from_reference(_field(opt, "nu"), cfg, device),
+            count=as_i32(_field(opt, "count"))),
+        step=as_i32(_field(tree, "step")),
+        calib=None if calib is None else {
+            k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in calib.items()})

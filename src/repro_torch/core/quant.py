@@ -3,7 +3,8 @@
 integer codes) and its straight-through fake-quant, and the affine
 activation quantizer (calibration bounds, (s, z) scalars, level counts,
 the encode map and the whole quantizer over the tensor's own or a frozen
-range). The clip-calibrated and LSQ quantizers come with training.
+range), and the training quantizers: the clip-calibrated quantizer and
+LSQ, the learned step size, whose step gradient is a custom backward.
 
 Every op here is a single correctly rounded fp32 operation (max, min,
 subtract, divide, round half to even, clamp), so the port and the JAX
@@ -178,3 +179,93 @@ def affine_from_range(x: Tensor, n, lo, hi, include_zero: bool = True
     dynamic extremes WITHOUT the zero extension."""
     lo, hi = act_range_bounds(x, lo, hi, include_zero=include_zero)
     return _affine_from_bounds(x, n, lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# Clip-calibrated quantization (ACIQ-style)
+# ---------------------------------------------------------------------------
+
+def _linspace(start: float, stop: float, num: int, like: Tensor) -> Tensor:
+    """``num`` points over [start, stop] as ``jnp.linspace`` forms them in
+    fp32: start * (1 - i/d) + stop * (i/d), the last point ``stop``."""
+    d = num - 1
+    step = (torch.arange(d, dtype=torch.float32, device=like.device)
+            / like.new_full((), float(d), dtype=torch.float32))
+    lo = like.new_full((), start, dtype=torch.float32)
+    hi = like.new_full((), stop, dtype=torch.float32)
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+
+
+def calibrate_clip(x: Tensor, bits: int, signed: bool,
+                   n_grid: int = 64) -> Tensor:
+    """The clipping threshold c that minimizes the quantization MSE of ``x``
+    over a grid of ``n_grid`` ratios of its absmax (the data-driven
+    analogue of ACIQ); the quantizer then uses scale = c / qmax."""
+    qr = qrange(bits, signed)
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf)) if signed else \
+        torch.amax(torch.clamp(xf, min=0.0))
+    ratios = _linspace(0.05, 1.0, n_grid, xf)
+    qdiv = xf.new_full((), float(max(-qr.qmin, qr.qmax) if signed
+                                 else qr.qmax))
+    mses = []
+    for ratio in ratios:
+        s = torch.clamp(amax * ratio / qdiv, min=1e-12)
+        xq = dequantize(quantize(xf, s, qr), s)
+        mses.append(torch.mean((xf - xq) ** 2))
+    return amax * ratios[torch.argmin(torch.stack(mses))]
+
+
+def clip_quant(x: Tensor, bits: int, signed: bool, clip: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """Quantize with a pre-calibrated clip value: (codes, scale)."""
+    qr = qrange(bits, signed)
+    clip = torch.as_tensor(clip, dtype=torch.float32, device=x.device)
+    s = torch.clamp(clip / clip.new_full((), float(qr.qmax)), min=1e-12)
+    return quantize(x, s, qr), s
+
+
+# ---------------------------------------------------------------------------
+# LSQ — learned step size quantization (Esser et al. 2019)
+# ---------------------------------------------------------------------------
+
+class _LSQ(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp``: forward clip(round(x/step)) *
+    step; backward ``_lsq_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, step, qmin, qmax):
+        v = x / step
+        q = torch.clamp(torch.round(v), qmin, qmax)
+        ctx.save_for_backward(v, q)
+        ctx.qmin, ctx.qmax, ctx.n = qmin, qmax, x.numel()
+        ctx.step_shape = step.shape
+        return q * step
+
+    @staticmethod
+    def backward(ctx, g):
+        v, q = ctx.saved_tensors
+        qmin, qmax = ctx.qmin, ctx.qmax
+        in_range = (v >= qmin) & (v <= qmax)
+        dx = torch.where(in_range, g, torch.zeros_like(g))
+        # d(out)/d(step): q - v inside the range, the rails outside
+        dstep_elem = torch.where(in_range, q - v, torch.clamp(v, qmin, qmax))
+        grad_scale = 1.0 / torch.sqrt(g.new_full(
+            (), ctx.n * float(qmax if qmax > 0 else 1), dtype=torch.float32))
+        dstep = torch.sum(g * dstep_elem) * grad_scale
+        return dx, dstep.reshape(ctx.step_shape), None, None
+
+
+def lsq_quant(x: Tensor, step: Tensor, qmin: int, qmax: int) -> Tensor:
+    """LSQ fake-quant with the paper's gradient w.r.t. the step size: the
+    in-range mask passes g to x; the step gets sum(g * (q - v)) inside the
+    range and the rails outside, scaled by 1/sqrt(n * qmax)."""
+    return _LSQ.apply(x, step, qmin, qmax)
+
+
+def lsq_init_step(x: Tensor, bits: int, signed: bool) -> Tensor:
+    """LSQ step initialization: 2<|x|>/sqrt(qmax)."""
+    qr = qrange(bits, signed)
+    qp = max(qr.qmax, 1)
+    return 2.0 * torch.mean(torch.abs(x)) / torch.sqrt(
+        x.new_full((), float(qp), dtype=torch.float32))

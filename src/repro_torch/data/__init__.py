@@ -1,1 +1,2 @@
-"""Deterministic frontend inputs of the port (``pipeline``)."""
+"""Deterministic synthetic data of the port: the LM stream and the
+frontend inputs (``pipeline``)."""

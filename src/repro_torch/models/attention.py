@@ -179,6 +179,13 @@ def attend(x: Tensor, p: dict, cfg: ModelConfig, *,
     if use_rope and kv_src is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_src is None:
+        # the cache roles: post-RoPE K and V, what decode writes, so a
+        # calibrated store can freeze the cache quantizers' ranges
+        tap = L._active_tap()
+        if tap is not None:
+            tap.observe("attn.k_cache", k)
+            tap.observe("attn.v_cache", v)
     g = cfg.num_heads // cfg.num_kv_heads
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)

@@ -4,18 +4,16 @@ fake-quant, ``qlinear`` (the quantization modes none / ruq / ruq_unsigned /
 pann as fake-quant projections) and the projection choke point
 ``apply_linear``, which routes fp params through ``qlinear``, a serving
 artifact through ``kernels.dispatch`` or, without a backend, through the
-legacy float dequant; and the conv stem's layers (``init_conv``,
-``apply_conv``: im2col over the same choke point).
-
-The reference's activation-range calibration tap (``calib_tap``) comes
-with training; without one installed the reference's ``path`` argument is
-inert, and so it is here.
+legacy float dequant; the activation-range calibration tap of QAT
+(``calib_tap``, ``calib_suspend``); and the conv stem's layers
+(``init_conv``, ``apply_conv``: im2col over the same choke point).
 
 Parameters are plain dicts of tensors, laid out as in the JAX package so
 the two can be compared leaf for leaf.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -101,6 +99,90 @@ def affine_fake_quant_ranged(x: Tensor, bits: int, rng: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Activation-range calibration tap (QAT observers; core/calibrate.py)
+# ---------------------------------------------------------------------------
+
+class CalibTap:
+    """An activation observer for one scope of the forward.
+
+    While installed (``calib_tap``), every ``qlinear`` call that names its
+    module path (a) records the per-tensor min/max of its input under that
+    path into ``observed`` (detached: observations carry no gradient) and
+    (b) quantizes against the calibrated range in ``ranges`` (the dynamic
+    range while a role is unseen). ``models.model`` installs one per layer
+    group, inside the function that ``torch.utils.checkpoint`` recomputes,
+    and returns the observations as that function's outputs: a recompute
+    during backward installs and removes a tap of its own, and its
+    observations are dropped with the rest of the recomputed outputs.
+    """
+
+    __slots__ = ("ranges", "observed")
+
+    def __init__(self, ranges):
+        self.ranges = ranges or {}
+        self.observed: dict[str, Tensor] = {}
+
+    def observe(self, path: str, x: Tensor) -> None:
+        with torch.no_grad():
+            lo, hi = torch.aminmax(x.detach().to(torch.float32))
+            rec = torch.stack([lo, hi])
+            prev = self.observed.get(path)
+            if prev is not None:
+                rec = torch.stack([torch.minimum(prev[0], rec[0]),
+                                   torch.maximum(prev[1], rec[1])])
+        self.observed[path] = rec
+
+    def range_for(self, path: str) -> Optional[Tensor]:
+        rng = self.ranges.get(path)
+        return None if rng is None else rng.detach()
+
+
+_TAPS: list = []
+
+
+@contextlib.contextmanager
+def calib_tap(ranges):
+    """Install an activation observer for the enclosed scope."""
+    tap = CalibTap(ranges)
+    _TAPS.append(tap)
+    try:
+        yield tap
+    finally:
+        _TAPS.pop()
+
+
+@contextlib.contextmanager
+def calib_suspend():
+    """Mask the active tap for the enclosed scope. The MoE expert loop runs
+    under it, as the reference's inner scan does: its projections keep
+    dynamic per-tensor ranges and their roles stay unseen, so export leaves
+    them dynamic too."""
+    _TAPS.append(None)
+    try:
+        yield
+    finally:
+        _TAPS.pop()
+
+
+def _active_tap() -> Optional[CalibTap]:
+    return _TAPS[-1] if _TAPS else None
+
+
+def _act_fake_quant(x: Tensor, bits: int, path: Optional[str]) -> Tensor:
+    """The activation side of ``qlinear`` at 'ruq': dynamic per-tensor
+    fake-quant, or observed and against the calibrated range when a tap is
+    installed and the call names its module path."""
+    xf = x.to(torch.float32)
+    tap = _active_tap()
+    if tap is not None and path is not None:
+        tap.observe(path, xf)
+        rng = tap.range_for(path)
+        if rng is not None:
+            return affine_fake_quant_ranged(xf, bits, rng)
+    return affine_fake_quant(xf, bits)
+
+
+# ---------------------------------------------------------------------------
 # QuantLinear
 # ---------------------------------------------------------------------------
 
@@ -119,7 +201,9 @@ def qlinear(x: Tensor, w: Tensor, b: Optional[Tensor], qc,
     code serves evaluation and straight-through training. x (..., d_in),
     w (d_in, d_out). 'ruq_unsigned' is numerically 'ruq' (the unsigned
     split is exact; it differs in power accounting only). ``path`` names
-    the module; it is inert until the calibration tap is ported."""
+    the module: with a calibration tap installed its input range is
+    observed and the calibrated range drives the activation quantizer;
+    without one the path is inert."""
     mode = qc.mode
     dtype = x.dtype
     if mode == "none":
@@ -127,10 +211,15 @@ def qlinear(x: Tensor, w: Tensor, b: Optional[Tensor], qc,
     elif mode in ("ruq", "ruq_unsigned"):
         wq = quant.fake_quant(w.to(torch.float32), qc.weight_bits,
                               signed=True, dim=0).to(dtype)
-        xq = affine_fake_quant(x.to(torch.float32), qc.act_bits).to(dtype)
+        xq = _act_fake_quant(x, qc.act_bits, path).to(dtype)
         y = xq @ wq
     elif mode == "pann":
-        y = pann_core.pann_qat_matmul(x, w, qc)
+        tap = _active_tap()
+        rng = None
+        if tap is not None and path is not None:
+            tap.observe(path, x)
+            rng = tap.range_for(path)
+        y = pann_core.pann_qat_matmul(x, w, qc, act_range=rng)
     else:
         raise ValueError(f"unknown quant mode {mode!r}")
     if b is not None:

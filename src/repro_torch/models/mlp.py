@@ -98,15 +98,20 @@ def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One expert's gated FFN, each projection through ``qlinear`` at its
     ``moe.*`` quant mode (SiLU for both gated activations, as the
-    reference)."""
+    reference). It runs under ``calib_suspend``, as the reference's expert
+    scan does: the expert roles keep dynamic activation ranges and stay
+    unseen in a calibration collection; the router is calibrated."""
     act = F.silu if cfg.activation in ("swiglu", "geglu") else \
         _ACT.get(cfg.activation, F.silu)
-    h = act(L.qlinear(x, w_gate.to(x.dtype), None,
-                      L.module_quant(cfg, "moe.w_gate"), path="moe.w_gate")) \
-        * L.qlinear(x, w_up.to(x.dtype), None,
-                    L.module_quant(cfg, "moe.w_up"), path="moe.w_up")
-    return L.qlinear(h, w_down.to(x.dtype), None,
-                     L.module_quant(cfg, "moe.w_down"), path="moe.w_down")
+    with L.calib_suspend():
+        h = act(L.qlinear(x, w_gate.to(x.dtype), None,
+                          L.module_quant(cfg, "moe.w_gate"),
+                          path="moe.w_gate")) \
+            * L.qlinear(x, w_up.to(x.dtype), None,
+                        L.module_quant(cfg, "moe.w_up"), path="moe.w_up")
+        return L.qlinear(h, w_down.to(x.dtype), None,
+                         L.module_quant(cfg, "moe.w_down"),
+                         path="moe.w_down")
 
 
 def apply_moe(x: torch.Tensor, p: dict, cfg: ModelConfig

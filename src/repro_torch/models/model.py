@@ -20,11 +20,16 @@ or raw 4-D frontend input that runs through the conv stem first.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import calibrate as CAL
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -73,9 +78,11 @@ def _cross_layers(cfg: ModelConfig) -> list:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random fp32 parameters from ``seed`` (a torch.Generator on the
     device; the values differ from the JAX package's, whose params are
-    carried across with ``repro_torch.convert`` where they must match)."""
+    carried across with ``repro_torch.convert`` where they must match).
+    ``device="meta"`` gives the tree's shapes without any storage."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    # on "meta" (shapes only, no values) the generator lives on the host
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu")
     gen.manual_seed(int(seed))
     params = {
         "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dev),
@@ -102,14 +109,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
 def _run_layers(x: Tensor, layers: list, specs: list, cfg: ModelConfig, *,
                 causal: bool, shared: Optional[dict] = None,
-                cross_src: Optional[Tensor] = None) -> tuple:
-    """Run a stack of layers; returns (x, the summed aux loss)."""
+                cross_src: Optional[Tensor] = None, group: int = 0,
+                calib: Optional[dict] = None, remat: bool = False) -> tuple:
+    """Run a stack of layers; returns (x, the summed aux loss, the observed
+    activation ranges or None).
+
+    The stack runs as the reference scans it: groups of ``group`` layers
+    (the config's repeating pattern), then the tail layers. With ``calib``
+    (a ``core.calibrate`` collection) each group runs under a tap of its
+    own that quantizes against the collection's ranges and records what
+    it sees, and the tail under one more; the observations are merged
+    (min/max, so the grouping does not change them). ``remat`` wraps each
+    group in ``torch.utils.checkpoint`` (non-reentrant) while grad mode
+    is on: backward reruns the group, tap included, and keeps none of the
+    rerun's observations.
+    """
+    collect = bool(calib)
+    group = group or len(layers)
+    n_grouped = (len(layers) // group) * group
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, lp in zip(specs, layers, strict=True):
-        x, a = T.apply_layer(x, lp, cfg, spec, shared=shared,
-                             cross_src=cross_src, causal=causal)
-        aux = aux + a
-    return x, aux
+    obs = CAL.unseen_like(calib) if collect else None
+
+    def run(h, aux, lps, sps):
+        tap_cm = L.calib_tap(calib) if collect else contextlib.nullcontext()
+        with tap_cm as tap:
+            for spec, lp in zip(sps, lps, strict=True):
+                h, a = T.apply_layer(h, lp, cfg, spec, shared=shared,
+                                     cross_src=cross_src, causal=causal)
+                aux = aux + a
+        return h, aux, (tap.observed if collect else {})
+
+    bounds = [(i, i + group) for i in range(0, n_grouped, group)]
+    if n_grouped < len(layers):
+        bounds.append((n_grouped, len(layers)))
+    for lo, hi in bounds:
+        fn = functools.partial(run, lps=layers[lo:hi], sps=specs[lo:hi])
+        if remat and lo < n_grouped and torch.is_grad_enabled():
+            x, aux, seen = _ckpt.checkpoint(fn, x, aux, use_reentrant=False)
+        else:
+            x, aux, seen = fn(x, aux)
+        if collect:
+            obs = CAL.merge(obs, seen)
+    return x, aux, obs
 
 
 def apply_conv_stem(params: dict, cfg: ModelConfig, raw: Tensor) -> Tensor:
@@ -129,18 +170,21 @@ def apply_conv_stem(params: dict, cfg: ModelConfig, raw: Tensor) -> Tensor:
     return x.reshape(b, h * w, c)
 
 
-def _frontend_tokens(params: dict, cfg: ModelConfig, src: Tensor) -> Tensor:
+def _frontend(params: dict, cfg: ModelConfig, src: Tensor, *,
+              calib: Optional[dict] = None, remat: bool = False) -> tuple:
     """Raw 4-D input through the conv stem (3-D embeddings as they are),
     then, for an encoder-decoder, the bidirectional encoder stack and
-    ``enc_norm``."""
+    ``enc_norm``; returns (tokens, the encoder's observed ranges or None)."""
     if cfg.conv_stem and src.ndim == 4:
         src = apply_conv_stem(params, cfg, src)
     src = src.to(_dtype(cfg))
     if cfg.family != "encdec":
-        return src
-    x, _ = _run_layers(src, params["encoder"]["layers"], encoder_specs(cfg),
-                       cfg, causal=False)
-    return L.apply_norm(x, params["enc_norm"], cfg.norm)
+        return src, None
+    pattern, _, _ = T.group_layout(cfg, cfg.encoder_layers, "encoder")
+    x, _, obs = _run_layers(src, params["encoder"]["layers"],
+                            encoder_specs(cfg), cfg, causal=False,
+                            group=len(pattern), calib=calib, remat=remat)
+    return L.apply_norm(x, params["enc_norm"], cfg.norm), obs
 
 
 def encode(params: dict, cfg: ModelConfig, inputs: Tensor) -> Tensor:
@@ -153,7 +197,19 @@ def encode(params: dict, cfg: ModelConfig, inputs: Tensor) -> Tensor:
     if cfg.conv_stem and inputs.ndim != 4:
         raise ValueError(f"conv_stem set: encode() wants raw (B, H, W, C), "
                          f"got {tuple(inputs.shape)}")
-    return _frontend_tokens(params, cfg, inputs)
+    return _frontend(params, cfg, inputs)[0]
+
+
+def _cross(params: dict, cfg: ModelConfig, enc_inputs, image_embeds, *,
+           calib: Optional[dict] = None, remat: bool = False) -> tuple:
+    """(``cross_source``'s tokens, the encoder's observed ranges or None)."""
+    if cfg.family not in ("encdec", "vlm"):
+        return None, None
+    key = "enc_inputs" if cfg.family == "encdec" else "image_embeds"
+    src = enc_inputs if cfg.family == "encdec" else image_embeds
+    if src is None:
+        raise ValueError(f"{cfg.family} needs its frontend: pass {key}")
+    return _frontend(params, cfg, src, calib=calib, remat=remat)
 
 
 def cross_source(params: dict, cfg: ModelConfig,
@@ -164,20 +220,14 @@ def cross_source(params: dict, cfg: ModelConfig,
     output over ``enc_inputs`` (encoder-decoder) or ``image_embeds``
     (vision), raw 4-D input through the conv stem first; None for a
     decoder-only config (which ignores both, as the reference does)."""
-    if cfg.family not in ("encdec", "vlm"):
-        return None
-    key = "enc_inputs" if cfg.family == "encdec" else "image_embeds"
-    src = enc_inputs if cfg.family == "encdec" else image_embeds
-    if src is None:
-        raise ValueError(f"{cfg.family} needs its frontend: pass {key}")
-    return _frontend_tokens(params, cfg, src)
+    return _cross(params, cfg, enc_inputs, image_embeds)[0]
 
 
 class ForwardOut(NamedTuple):
     logits: Tensor
     aux_loss: Tensor
-    # the observed activation ranges of a calibration pass: always None
-    # until calibration is ported (ROADMAP A8)
+    # observed activation ranges ({path: [lo, hi]}, core/calibrate.py) when
+    # the caller passed a calibration collection; None otherwise
     calib: Optional[dict] = None
 
 
@@ -201,20 +251,56 @@ def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
     at its quant mode) or a serving artifact or rung view (through
     ``cfg.kernel_backend``, or the legacy float dequant without one).
     ``enc_inputs`` / ``image_embeds``: the cross-attention source of an
-    encoder-decoder / vision config (``cross_source``). ``remat`` is
-    accepted and inert: there is no backward pass to checkpoint until
-    training is ported (ROADMAP A8), which brings ``calib`` too."""
-    if calib:
-        raise ValueError("calib (activation-range calibration) is not "
-                         "ported: it comes with training (ROADMAP A8)")
+    encoder-decoder / vision config (``cross_source``). ``remat``
+    checkpoints each layer group for backward (``_run_layers``).
+    ``calib``: an EMA activation-range collection (``core.calibrate``):
+    the quantizers use its ranges, and ``ForwardOut.calib`` reports the
+    ranges this pass observed (the encoder's, the decoder's and the
+    head's, merged)."""
+    collect = bool(calib)
     x = L.embed(tokens, params["embed"], _dtype(cfg))
     if cfg.scale_embed:
         x = x * embed_scale(cfg)
-    src = cross_source(params, cfg, enc_inputs, image_embeds)
-    x, aux = _run_layers(x, params["layers"], layer_specs(cfg), cfg,
-                         causal=True, shared=params.get("shared_attn"),
-                         cross_src=src)
-    return ForwardOut(logits=_head(x, params, cfg), aux_loss=aux)
+    obs = CAL.unseen_like(calib) if collect else None
+    src, enc_obs = _cross(params, cfg, enc_inputs, image_embeds,
+                          calib=calib, remat=remat)
+    if enc_obs is not None:
+        obs = CAL.merge(obs, enc_obs)
+    pattern, _, _ = T.group_layout(cfg)
+    x, aux, dec_obs = _run_layers(
+        x, params["layers"], layer_specs(cfg), cfg, causal=True,
+        shared=params.get("shared_attn"), cross_src=src,
+        group=len(pattern), calib=calib, remat=remat)
+    if collect:
+        obs = CAL.merge(obs, dec_obs)
+        with L.calib_tap(calib) as tap:
+            logits = _head(x, params, cfg)
+        obs = CAL.merge(obs, tap.observed)
+    else:
+        logits = _head(x, params, cfg)
+    return ForwardOut(logits=logits, aux_loss=aux, calib=obs)
+
+
+def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
+            *, enc_inputs=None, image_embeds=None, remat: bool = True,
+            aux_weight: float = 0.01, calib: Optional[dict] = None,
+            return_calib: bool = False):
+    """Mean next-token NLL over the labels >= 0 (a label of -1, the end of
+    each row, is masked out), plus ``aux_weight`` times the MoE
+    load-balance loss. The gather clamps the -1 labels to 0 first (torch
+    refuses a negative index where ``jnp.take_along_axis`` takes it); the
+    mask removes them after, as the reference's does."""
+    out = forward(params, cfg, tokens, enc_inputs=enc_inputs,
+                  image_embeds=image_embeds, remat=remat, calib=calib)
+    logp = F.log_softmax(out.logits, dim=-1)
+    idx = torch.clamp(labels, min=0).to(torch.int64)
+    nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = loss + aux_weight * out.aux_loss
+    if return_calib:
+        return loss, out.calib
+    return loss
 
 
 class DecodeState(NamedTuple):

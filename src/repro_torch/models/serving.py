@@ -65,8 +65,11 @@ class ServingQuantSpec:
     single-point artifact; a ladder store packs 7 and refuses another
     count); ``cache_bits`` (an int,
     or a {rung key: bits} mapping for a ladder) attaches the KV-cache
-    leaves. ``calib`` (frozen activation ranges from calibrated training)
-    comes with training (ROADMAP A8) and is refused."""
+    leaves. ``calib`` (an EMA activation-range collection of calibrated
+    training, ``core.calibrate``) freezes each seen projection role's
+    range into ``act_lo``/``act_hi`` and its (s, z) into ``act_s``/``act_z``,
+    and each seen cache role's (s, z) into the ``kv_cache`` leaves
+    ``k_s``/``k_z``/``v_s``/``v_z``; unseen roles keep the dynamic range."""
     policy: Optional[pol.PolicyTree] = None
     r: Optional[float] = None
     act_bits: Optional[int] = None
@@ -74,13 +77,6 @@ class ServingQuantSpec:
     plane_count: Optional[int] = None
     calib: Optional[Mapping[str, Any]] = None
     cache_bits: Any = None
-
-
-def _refuse_calib(calib) -> None:
-    if calib:
-        raise ValueError("calib (frozen activation ranges) is not ported: "
-                         "it comes with training and calibration "
-                         "(ROADMAP A8)")
 
 
 def _planes_artifact(codes: Tensor, plane_count: int) -> dict:
@@ -102,18 +98,61 @@ def _full(value: float, device) -> Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
-def _cache_artifact(cache_role_bits: dict, device) -> dict:
-    """Per-rung KV-cache leaves: the level count of each cache role."""
-    return {f"{prefix}_nlvl": _full(quant_core.cap_levels(
-                cache_role_bits[role]), device)
-            for role, prefix in zip(pol.CACHE_PATHS, ("k", "v"))}
+def _frozen_scale_zp(rng, n_lvl: float, device) -> tuple[Tensor, Tensor]:
+    """(s, z) of a frozen range [lo, hi]: zero-extended, then
+    ``affine_scale_zp`` at ``n_lvl`` levels, the reference's fp32 op
+    sequence (the one the serve-time derivation runs)."""
+    lo = torch.clamp(_full(rng[0], device), max=0.0)
+    hi = torch.clamp(_full(rng[1], device), min=0.0)
+    return quant_core.affine_scale_zp(lo, hi, _full(n_lvl, device))
 
 
-def _act_leaves(ab: int, device) -> dict:
+def _seen_range(calib, role: str):
+    """The [lo, hi] floats of a seen role of ``calib``, else None."""
+    rng = calib.get(role) if calib else None
+    if rng is None:
+        return None
+    lo, hi = (float(v) for v in rng)
+    return (lo, hi) if lo <= hi else None
+
+
+def _cache_artifact(cache_role_bits: dict, device, calib=None) -> dict:
+    """Per-rung KV-cache leaves: the level count of each cache role and,
+    when ``calib`` saw the role, its frozen quantizer scalars."""
+    out = {}
+    for role, prefix in zip(pol.CACHE_PATHS, ("k", "v")):
+        n_lvl = quant_core.cap_levels(cache_role_bits[role])
+        out[f"{prefix}_nlvl"] = _full(n_lvl, device)
+        rng = _seen_range(calib, role)
+        if rng is not None:
+            s, z = _frozen_scale_zp(rng, n_lvl, device)
+            out[f"{prefix}_s"], out[f"{prefix}_z"] = s, z
+    return out
+
+
+def _act_leaves(ab: int, device, trail: tuple = (), calib=None) -> dict:
     """Per-rung activation-quantizer leaves for one projection at b~x=ab:
-    the level count 2^b~x - 1 and its kernel-facing cap min(., 127)."""
-    return {"act_n": _full((1 << int(ab)) - 1, device),
-            "act_nlvl": _full(quant_core.cap_levels(int(ab)), device)}
+    the level count 2^b~x - 1 and its kernel-facing cap min(., 127); when
+    ``calib`` saw the module's role, its frozen range ``act_lo``/``act_hi``
+    and the (s, z) derived from it at the cap, ``act_s``/``act_z``."""
+    out = {"act_n": _full((1 << int(ab)) - 1, device),
+           "act_nlvl": _full(quant_core.cap_levels(int(ab)), device)}
+    rng = _seen_range(calib, pol.serving_path(trail))
+    if rng is not None:
+        out["act_lo"] = _full(rng[0], device)
+        out["act_hi"] = _full(rng[1], device)
+        out["act_s"], out["act_z"] = _frozen_scale_zp(
+            rng, quant_core.cap_levels(int(ab)), device)
+    return out
+
+
+def _host_calib(calib):
+    """A collection's ranges as host floats (None without one)."""
+    if not calib:
+        return None
+    return {k: [float(v) for v in (t.detach().cpu().tolist()
+                                   if isinstance(t, Tensor) else t)]
+            for k, t in calib.items()}
 
 
 def _cache_role_bits(policy, cache_bits) -> Optional[dict]:
@@ -150,8 +189,12 @@ def quantize_params_for_serving(params: Any, cfg,
 
     The caller hands ``params`` over: each fp32 ``w`` is popped out of it
     once quantized."""
-    _refuse_calib(spec.calib)
     policy, act_bits = spec.policy, spec.act_bits
+    if spec.calib and act_bits is None and policy is None:
+        raise ValueError(
+            "freezing calibrated ranges needs an activation bit width: "
+            "pass act_bits= or a policy= tree")
+    calib = _host_calib(spec.calib)
     r = spec.r if spec.r is not None else cfg.quant.r
     role_bits = _cache_role_bits(policy, spec.cache_bits)
     # the reference stacks layer i of every group of a stack (the decoder's
@@ -181,7 +224,7 @@ def quantize_params_for_serving(params: Any, cfg,
         peak[key] = m if key not in peak else torch.maximum(peak[key], m)
         out = {"w_q": codes, "w_scale": gamma.to(torch.float32)}
         if ab is not None:
-            out.update(_act_leaves(ab, dev))
+            out.update(_act_leaves(ab, dev, trail, calib))
         if "b" in node:
             out["b"] = node["b"]
         modules.append((out, key))
@@ -198,7 +241,8 @@ def quantize_params_for_serving(params: Any, cfg,
                          and isinstance(wk, dict) and "w" in wk else None)
             out = {k: walk(v, trail + (k,), stack) for k, v in node.items()}
             if cache_dev is not None:
-                out["kv_cache"] = _cache_artifact(role_bits, cache_dev)
+                out["kv_cache"] = _cache_artifact(role_bits, cache_dev,
+                                                  calib)
             return out
         if isinstance(node, (list, tuple)):
             if trail in stacks:
@@ -263,7 +307,7 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
     once quantized, which at full width is what keeps the build under the
     card's memory."""
     spec = spec or ServingQuantSpec()
-    _refuse_calib(spec.calib)
+    calib = _host_calib(spec.calib)
     unused = [f for f in ("policy", "r", "act_bits", "plane_count")
               if getattr(spec, f) is not None]
     if unused:
@@ -319,7 +363,7 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
             v["w_colsum"] = torch.sum(pann_core.masked_codes(codes, sh),
                                       dim=-2, dtype=torch.int32)
             if ab is not None:
-                v.update(_act_leaves(ab, dev))
+                v.update(_act_leaves(ab, dev, trail, calib))
             views[k] = v
         return shared, views
 
@@ -343,7 +387,7 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
             if cache_parent:
                 for k in keys:
                     view_n[k]["kv_cache"] = _cache_artifact(rung_cache[k],
-                                                            dev)
+                                                            dev, calib)
             return store_n, view_n
         if isinstance(node, (list, tuple)):
             pairs = [walk(v, trail) for v in node]

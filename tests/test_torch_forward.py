@@ -4,7 +4,7 @@ several q and kv chunks, the one-chunk fallback), ``forward`` of the four
 reduced dense decoders at quant modes 'none' and 'pann' on fp params
 carried across from the reference, the port's teacher-forced
 ``decode_step`` against its own ``forward``, the refusal of what is not
-ported (calibration, naming its ROADMAP queue item), and the layer kinds
+ported (naming their ROADMAP queue items), and the layer kinds
 and cross-attention inputs that used to be refused (ROADMAP A6; their
 parity lives in ``test_torch_encoder``; MoE, see ``test_torch_moe``, and
 the SSM and hybrid families, see ``test_torch_recurrent_serve``).
@@ -184,16 +184,21 @@ def test_forward_refuses_unported_layer_kinds(family, item):
 
 
 def test_forward_refuses_calibration_and_cross_inputs():
-    """Calibration is still refused (ROADMAP A8). A decoder-only config
-    ignores ``enc_inputs`` / ``image_embeds``, as the reference does, and
+    """Calibration is no longer refused: ``forward(calib=...)`` returns the
+    observed ranges in ``ForwardOut.calib`` (held against the reference in
+    tests/test_torch_calibrate.py), and an all-unseen collection leaves
+    the logits bit-identical. A decoder-only config ignores
+    ``enc_inputs`` / ``image_embeds``, as the reference does, and
     ``attend`` cross-attends to ``kv_src`` (no RoPE, not causal) as the
     reference's does, within 1e-6 * max|out|."""
+    from repro_torch.core import calibrate as TCAL
     cfg = port_cfg("llama3-8b")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        TMD.forward({}, cfg, tokens, calib={"attn.wq": (0.0, 1.0)})
     params = params_from_reference(reference_params("llama3-8b"), cfg, "cpu")
     plain = TMD.forward(params, cfg, tokens).logits
+    out = TMD.forward(params, cfg, tokens, calib=TCAL.init_calib(cfg))
+    assert torch.equal(out.logits, plain)
+    assert set(out.calib) == set(TCAL.calib_paths(cfg))
     for kw in ("enc_inputs", "image_embeds"):
         out = TMD.forward(params, cfg, tokens,
                           **{kw: torch.zeros((1, 2, 64))}).logits
