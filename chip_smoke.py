@@ -74,54 +74,58 @@ Phases (any failure raises and the script exits non-zero):
               recorded, and every wave is replayed eagerly through
               ``MD.decode_step``: every graphed step's logits must be
               bit-identical. ``assert_no_recompile`` after serving.
-4b. layerwise — the same model at allocation 'layerwise' with
+4b. layerwise — the same model cut to 8 layers (LAYERWISE_LAYERS) at
+              allocation 'layerwise' with
               cache_bits 'auto' (each rung's allocator trades cache bits
               against weight bits), served through graphs and held to
               eager the same way; reports each rung's cache bits and
               Gbit-flips per token.
 4c. variants — qwen1.5-4b, gemma2-9b and stablelm-12b at full width,
-              cut to 8 layers (VARIANT_LAYERS) to keep the script inside
-              its time limit (random weights, qwen's q/k/v biases
+              cut to 2 layers (VARIANT_LAYERS; gemma2 one local and one
+              global) to keep the script inside its time limit (random
+              weights, qwen's q/k/v biases
               overwritten with nonzero values), each as phase 4 with 3
               requests: every
               graphed step bit-identical to eager, B2 / B3 launches a
               graphed step 7 L (+ 1 with an untied head) / L, no
               recompile, peak memory under 70 GB.
-4d. moe     — mixtral-8x7b cut to 8 layers and dbrx-132b to 2 (full
-              width; the depth that fits one card with the fp32 experts),
+4d. moe     — mixtral-8x7b cut to 2 layers and dbrx-132b to 1 (full
+              width; MOE_LAYERS: the fp32 experts fit one card at 8 and
+              2, cut further for the script's time limit),
               each as phase 4c: B2 / B3 launches a graphed step 4 L + 1 /
               L (the router and the E experts are fp32 matmuls, every
               expert on every token), every graphed step bit-identical to
               eager, no recompile, peak under 70 GB; the device ms a step
               split between the expert matmuls (against their byte
               bound), B2, B3 and the small kernels.
-4e. recurrent — zamba2-1.2b (38 layers: Mamba2 with a shared attention +
-              MLP block at every 6th layer, 6 groups and a 2-layer tail)
-              and rwkv6-1.6b (24 layers) at full width and depth, each as
-              phase 4c (zamba2 with the 4-bit KV cache, rwkv6 has no
+4e. recurrent — zamba2-1.2b (Mamba2 with a shared attention + MLP block
+              at every 6th layer; cut to 14 of 38 layers: 2 groups and
+              the 2-layer tail) and rwkv6-1.6b (cut to 4 of 24 layers)
+              at full width (RECURRENT_LAYERS), each as phase 4c (zamba2 with the 4-bit KV cache, rwkv6 has no
               attention): every graphed step bit-identical to eager (the
               recurrent states live in the engine's fixed slots and are
               written back in place every replay; a stale slot would
-              show here), B2 / B3 launches a graphed step 113 / 6 and 217
+              show here), B2 / B3 launches a graphed step 41 / 2 and 37
               / 0, no recompile, peak under 70 GB; the device ms of the
               graphed step by kernel kind, and of one eager step (top
               rung) split between B2, B3, the dispatch's small kernels,
               the recurrent blocks' fp ops (scan, conv, wkv recurrence)
               and the rest (profiler ranges around the blocks).
-4f. encdec  — seamless-m4t-medium (12 + 12 layers, d 1024, a two-conv
-              speech stem over (4096, 1, 80) features -> 1024 encoder
-              positions) at full width and depth and llama-3.2-vision-90b
-              (d 8192, GQA 64/8) at full width cut to 10 layers (two
-              groups of 5, two cross-attention layers; a 14x14/s14
-              patchify over 560x560x3 -> 1600 image tokens), random
+4f. encdec  — seamless-m4t-medium (d 1024, a two-conv speech stem over
+              (4096, 1, 80) features -> 1024 encoder positions) at full
+              width, its decoder cut to 4 of 12 layers and its encoder
+              at its 12, and llama-3.2-vision-90b (d 8192, GQA 64/8) at
+              full width cut to 5 layers (ENCDEC_LAYERS; one group, one
+              cross-attention layer; a 14x14/s14 patchify over
+              560x560x3 -> 1600 image tokens), random
               weights with xgate, conv and layernorm biases seeded
               nonzero, each as phase 4c; every wave starts with a new raw
               input (``data.pipeline.frontend_raw_stub``) run eagerly
               through the stem, the encoder and the cross K/V
               projections, written into the slot's buffers in place; its
-              ms and B2 launches (98 and 5 a wave) are reported apart
-              from the step's (B2 / B3 a graphed step 97 / 12 and 75 /
-              10); every graphed step bit-identical to an eager replay
+              ms and B2 launches (82 and 3 a wave) are reported apart
+              from the step's (B2 / B3 a graphed step 33 / 4 and 38 /
+              5); every graphed step bit-identical to an eager replay
               from a state built by ``MD.init_decode_state`` off the
               wave's raw input.
 5. backends — each served config cut to 2 layers (gemma2: one local and
@@ -129,7 +133,10 @@ Phases (any failure raises and the script exits non-zero):
               the 2-layer tail, so the shared block and the tail both
               run; seamless to 2 + 2 layers, vision to 5: one cross
               layer) served by 'ref', 'fused' and
-              'packed' engines over ONE weight store: logits and tokens must
+              'packed' engines over ONE weight store: logits (teacher-
+              forcing the prompt's first 8 tokens, P5_TOKENS, through
+              every rung; vision's 4)
+              and tokens must
               be bit-identical; counts the fused matmul kernel's launches;
               the store is written as a v1 serving artifact
               (``write_artifact``), loaded back onto the card
@@ -162,11 +169,12 @@ Phases (any failure raises and the script exits non-zero):
               bf16, bits 2..8, an all-negative and an all-zero row and an
               x not 16-byte aligned, each M timed over the pass's launches
               beside the time of a one-element torch op.
-7. prefill and single point — (a) a full-width llama3-8b weight store
-              (ladder 2,4,6, packed planes, seed 7): ``MD.forward`` on the
+7. prefill and single point — (a) a llama3-8b weight store at full
+              width cut to 8 layers (PREFILL_LAYERS; ladder 2,4,6, packed
+              planes, seed 7): ``MD.forward`` on the
               top rung's view at (B, T) = (2, 2048) through 'ref', 'fused'
               and 'packed', logits bit-identical; launches counted from 0:
-              225 B2 on 'packed', 225 B1 on 'fused', nothing else; forward
+              57 B2 on 'packed', 57 B1 on 'fused', nothing else; forward
               ms, prefill tokens/s and the device time by kernel kind
               (profiler). (b) ``repro_torch.launch.serve.main`` in
               single-point mode at full width cut to 4 layers
@@ -179,23 +187,23 @@ Phases (any failure raises and the script exits non-zero):
               step an eager ``decode_step``. (c) the legacy paths cut to 2
               layers: --quant none, --quant ruq --power_bits 8, --quant
               pann --power_bits 4 --backend "" (fp params through the
-              fake-quant projections). (d) 7a on mixtral-8x7b at 4
+              fake-quant projections). (d) 7a on mixtral-8x7b at 2
               layers (MOE_PREFILL_LAYERS): logits and
               the load-balance ``aux_loss`` bit-identical across the
-              backends. (e) mixtral at 4 layers through the single-point
+              backends. (e) mixtral at 2 layers through the single-point
               CLI, --quant pann --power_bits 4 on
               'packed' and 'ref': every step's logits bit-identical. (f)
-              7a's ``forward`` on zamba2-1.2b and rwkv6-1.6b at full
-              width and depth (113 and 217 B2 launches), logits
+              7a's ``forward`` on zamba2-1.2b and rwkv6-1.6b at 4e's
+              depths (41 and 37 B2 launches), logits
               bit-identical across the backends, forward ms (no
               profile: rwkv6's token-by-token wkv recurrence alone is
               ~400,000 small kernels a forward). (g) 7a's ``forward``
-              on seamless-m4t-medium at full width and depth, (B, T) =
-              (2, 256), over raw (2, 4096, 1, 80) features (195 B2:
+              on seamless-m4t-medium at 4f's depth, (B, T) = (2, 256),
+              over raw (2, 4096, 1, 80) features (115 B2:
               stem, encoder, decoder, head), logits bit-identical across
               the backends. Every serve: the reference's summary keys,
               finite logits, peak memory under 70 GB.
-8. encode   — ``EncodeEngine`` on seamless (full) and vision (10 layers):
+8. encode   — ``EncodeEngine`` on seamless and vision at 4f's depths:
               8 raw items over budgets cycling the ladder, waves of 4 on
               'packed' (one B2 a stem layer and an encoder projection),
               items/s and each rung's Gbit-flips an item,
@@ -222,6 +230,34 @@ Phases (any failure raises and the script exits non-zero):
               line's "(frozen calibration scalars)" entries); (e) 8 steps
               against 4 + restore + 4 at configs.reduced size: whether
               losses and every checkpoint array are bit-identical.
+10. fleet   — (a) ``serve_engine.fleet.Fleet``: 4 rung-sharded decode
+              hosts and a prefill host (ladder 2,4,6, 'packed', 4-bit
+              cache, batch 2) over ONE device copy of the artifact,
+              llama3-8b at full width cut to 8 layers (FLEET_LAYERS),
+              ``benchmarks/fleet_sim.py``'s trace (seed 7, 12 ticks, a
+              host kill at tick 4, a cap step at tick 6), its caps scaled
+              by rho (rung 6's flips a token, full width over reduced):
+              every request served, 0 cap violations, 1 restart, >= 1
+              migration, the ceiling moved after the step,
+              ``verify_streams`` empty on a fresh full-ladder engine over
+              the same store, no recompile on any host (reborn ones
+              included), every host's views the store's tensors, peak
+              under 70 GB; wall s, decode tok/s, each host's StepMonitor,
+              the reborn host's rebuild s, the handoff copies' ms. (b)
+              ``launch.serve.main`` in fleet mode at the same depth and
+              cap: the reference's summary keys, every request served,
+              no violation.
+11. autotune — (a) ``dispatch.tune_projection`` at M = 4 over llama3-8b's
+              5 distinct projection shapes (4 of a layer and the
+              lm_head) on 'fused' (B1) and 'packed' (B2): every legal K
+              split bit-identical to the heuristic's, each timed with a
+              cold L2, one ``[autotune]`` line a shape with the
+              heuristic's and the winner's ms and the bound; (b) a
+              full-width 2-layer store served through graphs by an engine
+              on the heuristic and by ``ServeEngine(autotune=True)``: one
+              cache entry a shape, every step's logits bit-identical,
+              device ms a step both ways. The cache files live in
+              temporary directories.
 
 TF32 must stay off for the fp32 matmuls (PyTorch's defaults, asserted at
 the start and the end). A ``[time]`` line marks the end of each phase.
@@ -261,44 +297,58 @@ L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
 SLEEP_CYCLES = 400_000_000         # ~0.2 s of GPU clock: host enqueues ahead
 PROFILE_STEPS = 2
 PROFILE_ATTEMPTS = 3               # profiles of a serve whose counts differ
-# the MoE configs served at full width, each cut in depth to fit one card
-# with its fp32 experts (5.64 GB a mixtral layer, 12.68 GB a dbrx layer);
-# the full depth needs sharding across cards
-MOE_LAYERS = {"mixtral-8x7b": 8, "dbrx-132b": 2}
+# the MoE configs served at full width, each cut in depth: to fit one card
+# with its fp32 experts (5.64 GB a mixtral layer, 12.68 GB a dbrx layer;
+# the full depth needs sharding across cards), and further to keep the
+# script inside its time limit: mixtral 8 layers took 20.6 s of phase 4d,
+# dbrx 2 layers 9.8 s (NVIDIA H100 80GB HBM3, 700.00 W)
+MOE_LAYERS = {"mixtral-8x7b": 2, "dbrx-132b": 1}
 MOE_ARCHS = tuple(MOE_LAYERS)
 # phase 7d/7e's depth of mixtral: its forward and single point
-MOE_PREFILL_LAYERS = 4
-# phase 4c's depth of the dense variants (of 40, 42 and 40 layers): cut so
-# the script stays inside its time limit with the cross-attending phases
-VARIANT_LAYERS = {"qwen1.5-4b": 8, "gemma2-9b": 8, "stablelm-12b": 8}
-# the recurrent families, served at full width and depth (phase 4e), and
+MOE_PREFILL_LAYERS = 2
+# phase 4c's depth of the dense variants (of 40, 42 and 40 layers; gemma2's
+# 2: one local and one global layer): cut so the script stays inside its
+# time limit (at 8 layers phase 4c took 37 s)
+VARIANT_LAYERS = {"qwen1.5-4b": 2, "gemma2-9b": 2, "stablelm-12b": 2}
+# the recurrent families at full width (phases 4e and 7f), cut in depth to
+# keep the script inside its time limit (at full depth, 38 and 24 layers,
+# phase 4e took 33.5 and 36.4 s, 7f 1.7 and 22.2 s): zamba2 two groups
+# and its 2-layer tail (the shared block runs at two depths), rwkv6 4
+RECURRENT_LAYERS = {"zamba2-1.2b": 14, "rwkv6-1.6b": 4}
 # the depth phase 5 cuts each to: zamba2 one group and its 2-layer tail
 # (the shared block and the tail both run), rwkv6 2 layers
 RECURRENT_CUT = {"zamba2-1.2b": 8, "rwkv6-1.6b": 2}
 RECURRENT_ARCHS = tuple(RECURRENT_CUT)
-# the cross-attending configs (phase 4f): seamless-m4t-medium at full width
-# and depth (12 + 12 layers), llama-3.2-vision-90b at full width cut to 10
-# layers (two groups of 5, so two cross-attention layers: 44 GB of fp32
-# params; its 100 layers need sharding across cards); phase 5 cuts
-# seamless to 2 + 2 layers and vision to one group of 5
-ENCDEC_LAYERS = {"seamless-m4t-medium": 12, "llama-3.2-vision-90b": 10}
+# the cross-attending configs (phases 4f, 7g, 8) at full width:
+# seamless-m4t-medium's decoder cut to 4 of 12 layers (its encoder keeps
+# its 12; at 12 + 12 phase 4f took 21.0 s), llama-3.2-vision-90b cut to 5
+# of 100 layers (one group: a cross-attention layer and 4 self-attention
+# layers; at 10 layers phase 4f took 19.3 s; the 100 layers need sharding
+# across cards); phase 5 cuts seamless to 2 + 2 layers and vision to its
+# one group of 5 (a cross_attn layer past the last whole group gets no
+# cross K/V in decode, as in the reference, so no shorter cut crosses)
+ENCDEC_LAYERS = {"seamless-m4t-medium": 4, "llama-3.2-vision-90b": 5}
 ENCDEC_ARCHS = tuple(ENCDEC_LAYERS)
 ENCDEC_CUT = {"seamless-m4t-medium": 2, "llama-3.2-vision-90b": 5}
 # phase 5's prompt tokens teacher-forced through every rung, backend and
-# the artifact, and its requests: vision's 'fused' and 'ref' steps rebuild
-# or widen 5.3 G weights a step, so its phase 5 took 322 s at 32 tokens
-# and 3 requests, 197 s at 8 and 3 (NVIDIA H100 80GB HBM3, 700.00 W)
-ENCDEC_P5 = {"seamless-m4t-medium": (PROMPT, 3),
-             "llama-3.2-vision-90b": (8, 1)}
+# the artifact: 8 (at 32 llama3-8b's phase 5 took 60.9 s, the dense
+# variants' 37.0, 33.1 and 69.4 s), vision's 4; and its requests:
+# vision's 'fused' and 'ref' steps rebuild or widen its weights a step,
+# so its phase 5 took 322 s at 32 tokens and 3 requests, 197 s at 8 and
+# 3, 115 s at 8 and 1 (NVIDIA H100 80GB HBM3, 700.00 W)
+P5_TOKENS = 8
+ENCDEC_P5 = {"seamless-m4t-medium": (P5_TOKENS, 3),
+             "llama-3.2-vision-90b": (4, 1)}
 
 
 def served_config(arch: str, **kwargs):
     """``arch``'s config as the script serves it: full width, at its
-    depth in MOE_LAYERS, VARIANT_LAYERS or ENCDEC_LAYERS when it has
-    one."""
+    depth in MOE_LAYERS, VARIANT_LAYERS, RECURRENT_LAYERS or
+    ENCDEC_LAYERS when it has one."""
     from repro_torch import configs
     cfg = configs.get_config(arch, **kwargs)
-    layers = {**MOE_LAYERS, **VARIANT_LAYERS, **ENCDEC_LAYERS}.get(arch)
+    layers = {**MOE_LAYERS, **VARIANT_LAYERS, **RECURRENT_LAYERS,
+              **ENCDEC_LAYERS}.get(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     return cfg
@@ -1571,7 +1621,7 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
     responses = served.pop("responses")
     ms = served["ms_per_step"]
     full = configs.get_config(arch).num_layers
-    cut = (f" (of {full}: the depth that fits one card)"
+    cut = (f" (of {full}: cut to fit one card and the script's time)"
            if n_layers != full else "")
     out = {
         "config": f"{arch} full width, {n_layers} layers{cut}, random "
@@ -1635,15 +1685,24 @@ def _moe_matmul_report(cfg, profile: dict) -> dict:
                 "small kernels": by_kind.get("other PyTorch kernels", 0.0)}}
 
 
+# phase 4b's depth: llama3-8b at full width cut to 8 of its 32 layers, so
+# the script stays inside its time limit with phases 10 and 11 (phase 4
+# serves the full depth)
+LAYERWISE_LAYERS = 8
+
+
 def layerwise_serve() -> dict:
     """Phase 4b: a full-width engine at allocation 'layerwise' with
-    cache_bits 'auto', served through graphs and held to eager."""
+    cache_bits 'auto', LAYERWISE_LAYERS layers, served through graphs and
+    held to eager."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import policy as pol
     from repro_torch.models import model as MD
     from repro_torch.serve_engine import ServeEngine
-    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    cfg = dataclasses.replace(
+        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
+        num_layers=LAYERWISE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, MD.init_params(cfg, seed=2, device="cuda"),
@@ -1666,7 +1725,8 @@ def layerwise_serve() -> dict:
     if any(r["allocation"] != "layerwise" for r in rungs.values()):
         raise AssertionError(f"rungs not layerwise: {rungs}")
     out = {
-        "config": "llama3-8b full width, 32 layers, random weights seed 2",
+        "config": f"llama3-8b full width, {LAYERWISE_LAYERS} of 32 layers, "
+                  "random weights seed 2",
         "allocation": "layerwise", "cache_bits": "auto",
         "ladder": list(LADDER), "backend": "packed", "store_build_s": build_s,
         **served, "graphs": engine.graphs_captured,
@@ -1779,17 +1839,19 @@ def _profile_rung(run, steps: int = PROFILE_STEPS,
 
 
 def profile_steps(runner, steps_by_rung: dict,
-                  names: dict | None = None) -> dict:
+                  names: dict | None = None, guard_run=None) -> dict:
     """Device kernel time per decode step of each rung (PROFILE_STEPS
     steps each, torch.profiler), and the mean over rungs weighted by the
     serve's steps per rung: the device time of the serve's average step,
     by kernel kind. The profiler's own host overhead does not enter the
     device times. ``device_ms_per_step`` is None when the profiler
     records no device activity on this machine. ``names`` gathers the
-    device ms by kernel name over every profiled step."""
+    device ms by kernel name over every profiled step; ``guard_run``
+    replaces each window's guard step (``_profile_rung``)."""
     by_rung = {}
     for bits in LADDER:
-        ms, count, lost = _profile_rung(runner(bits), names=names)
+        ms, count, lost = _profile_rung(runner(bits), names=names,
+                                        guard_run=guard_run)
         if not ms:
             print("[profile] the profiler recorded no device activity: "
                   "device time per step not measured", flush=True)
@@ -1973,7 +2035,7 @@ def _check_aliasing(ws) -> int:
 
 def backends_agree(arch: str = "llama3-8b", seed: int = 1,
                    n_requests: int = REQUESTS, layers: int = 2,
-                   tf_len: int = PROMPT) -> dict:
+                   tf_len: int = P5_TOKENS) -> dict:
     """Phase 5: ``arch`` at full width cut to ``layers`` layers (gemma2's
     2: one local and one global layer; mixtral's 1 carries 5.64 GB of
     fp32 experts into the artifact; zamba2's 8: one group and its 2-layer
@@ -2561,6 +2623,14 @@ def b6_decode_sweep(gen, projections, err: dict) -> dict:
 GUARD_KERNELS = 2000
 
 
+def guard_ops() -> None:
+    """GUARD_KERNELS one-element ops: the guard of a profiler window late
+    in the process, whose first records the profiler loses."""
+    one = torch.zeros(1, device="cuda")
+    for _ in range(GUARD_KERNELS):
+        one.add_(1.0)
+
+
 def b6_kernels_per_call(seed: int = 21) -> dict:
     """The device kernels of B6 calls at M = 1..DECODE_M_MAX at (4096,
     4096), from the profiler: one decode kernel a call, no epilogue and
@@ -2580,18 +2650,12 @@ def b6_kernels_per_call(seed: int = 21) -> dict:
                             dtype=torch.int8),
               torch.rand((m, 1), generator=gen, device="cuda") + 0.5)
              for m in range(1, DECODE_M_MAX + 1)]
-    one = torch.zeros(1, device="cuda")
-
-    def guard():
-        for _ in range(GUARD_KERNELS):
-            one.add_(1.0)
-
     def run():
         for xq, sx in calls:
             um.unsigned_matmul(xq, w, sx, sw)
     run()                   # the decode scratch at its largest
     for _ in range(PROFILE_ATTEMPTS):
-        _, kinds, _ = _profile_rung(run, steps=1, guard_run=guard)
+        _, kinds, _ = _profile_rung(run, steps=1, guard_run=guard_ops)
         if kinds:
             break
     if kinds != {"unsigned_matmul": DECODE_M_MAX}:
@@ -2736,6 +2800,9 @@ def unfused_path(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 PREFILL_B, PREFILL_T = 2, 2048
+# phase 7a's depth of llama3-8b: cut to 8 of its 32 layers to keep the
+# script inside its time limit (phase 4 serves the full depth)
+PREFILL_LAYERS = 8
 ENCDEC_T = 256                  # phase 7g's tokens over seamless's frontend
 # the reference's single-point summary keys (repro/launch/serve.py)
 SINGLE_POINT_KEYS = ("arch", "quant", "backend", "batch", "generated",
@@ -3665,6 +3732,398 @@ def resume_on_card(root: str) -> dict:
             "calib_seen": resumed["calib_seen"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: a fleet of hosts under one global power cap
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width cut to 8 of its 32 layers (an 8.4 GB store that
+# five hosts and the verify engine share), so the phase fits the script's
+# time; benchmarks/fleet_sim.py's settings otherwise
+FLEET_LAYERS = 8
+FLEET_HOSTS = 4
+FLEET_BATCH = 2
+FLEET_PROMPT, FLEET_GEN = 6, (6, 10)
+FLEET_TICKS = 12
+FLEET_KILL = (4, 1)                 # (tick, decode host)
+FLEET_STEP_TICK = 6
+# fleet_sim.py's caps (Gbit-flips/s) for the reduced model, scaled by rho
+REDUCED_CAPS = (0.25, 0.035)
+
+
+def _fleet_config():
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    cfg = configs.get_config("llama3-8b", quant=QuantConfig(mode="none"))
+    return dataclasses.replace(cfg, num_layers=FLEET_LAYERS)
+
+
+def _reduced_flips(bits: int, ctx: int) -> float:
+    """The reduced llama3-8b pricer's bit flips of one token at rung
+    ``bits`` (the config fleet_sim.py's caps were set for), from an
+    engine over a reduced store on the card."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import model as MD
+    from repro_torch.serve_engine import ServeEngine
+    cfg = configs.reduced(configs.get_config(
+        "llama3-8b", quant=QuantConfig(mode="none")))
+    eng = ServeEngine(cfg, MD.init_params(cfg, seed=0, device="cuda"),
+                      ladder_bits=LADDER, max_batch=FLEET_BATCH,
+                      max_len=FLEET_PROMPT + max(FLEET_GEN) + 2,
+                      backend="packed", cache_bits=CACHE_BITS, slots=1,
+                      device="cuda")
+    return eng.token_flips(bits, ctx)
+
+
+def _store_bytes(store) -> int:
+    from repro_torch.serve_engine.artifact import _flatten
+    seen = {}
+    for _, t in _flatten(store):
+        if isinstance(t, torch.Tensor):
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def _check_host_views(fleet) -> int:
+    """Every host's engine serves the fleet's one store: its views are the
+    fleet's, and each view leaf at a store path is the store's own device
+    tensor (``_check_aliasing``). Returns the aliased leaves checked."""
+    ws = fleet.weight_store
+    n = _check_aliasing(ws)
+    for host in (list(fleet.decode_hosts.values())
+                 + list(fleet.prefill_hosts.values())):
+        if host.engine.weight_store is not ws.store or any(
+                v is not ws.views[b]
+                for b, v in host.engine.variants.items()):
+            raise AssertionError(f"host {host.role} {host.host_id} holds a "
+                                 "store or view of its own")
+    return n
+
+
+def fleet_serve(tmp: str) -> dict:
+    """10a: a ``Fleet`` of FLEET_HOSTS decode hosts and a prefill host over
+    one device store (llama3-8b full width, FLEET_LAYERS layers), the
+    fleet_sim trace with its host kill and cap step, the caps scaled by
+    rho; every stream verified on a fresh full-ladder engine over the
+    same store."""
+    from repro_torch.serve_engine import ServeEngine
+    from repro_torch.serve_engine.fleet import (Fleet, FleetConfig,
+                                                TrafficSpec, make_trace,
+                                                verify_streams)
+    cfg = _fleet_config()
+    max_len = FLEET_PROMPT + max(FLEET_GEN) + 2
+    ctx = FLEET_PROMPT + max(FLEET_GEN)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    fc = FleetConfig(n_decode_hosts=FLEET_HOSTS, n_prefill_hosts=1,
+                     ladder_bits=LADDER, cap_gbitflips_per_s=REDUCED_CAPS[0],
+                     control_interval=3, max_batch=FLEET_BATCH,
+                     max_len=max_len, drain_tick_factor=16,
+                     backend="packed", cache_bits=CACHE_BITS)
+    params = _init_params(cfg, seed=40)
+    fleet = Fleet(cfg, fc, f"{tmp}/fleet_artifact", params=params,
+                  device="cuda")
+    del params
+    _free()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the reference's caps were set for the reduced model: scale both by
+    # rho so the governor feels the same pressure at full width
+    rho = fleet._pricer.token_flips(LADDER[-1], ctx) / _reduced_flips(
+        LADDER[-1], ctx)
+    caps = tuple(c * rho for c in REDUCED_CAPS)
+    fleet.governor.set_cap(caps[0], tick=0, replan=False)
+    print(f"[fleet] rho {rho:.6g} (rung {LADDER[-1]} flips a token at "
+          f"context {ctx}, full width {FLEET_LAYERS} layers over reduced); "
+          f"caps {caps[0]:.6g} -> {caps[1]:.6g} Gbit-flips/s at tick "
+          f"{FLEET_STEP_TICK}", flush=True)
+    spec = TrafficSpec(seed=7, n_ticks=FLEET_TICKS, burst_prob=0.7,
+                       mean_burst=2.0, prompt_lens=(FLEET_PROMPT,),
+                       gen_tokens=FLEET_GEN, budget_mix=(2, 4, 6, 6),
+                       slo_prob=0.3, slo_bits=(4,),
+                       budget_steps=((FLEET_STEP_TICK, caps[1]),),
+                       host_kills=(FLEET_KILL,))
+    trace = make_trace(spec, cfg.vocab_size, fleet.ladder)
+    t0 = time.perf_counter()
+    report = fleet.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fleet.assert_no_recompile()
+    aliased = _check_host_views(fleet)
+    t0 = time.perf_counter()
+    ref = ServeEngine(cfg, weight_store=fleet.weight_store,
+                      ladder_bits=LADDER, max_batch=FLEET_BATCH,
+                      max_len=max_len, backend="packed",
+                      cache_bits=CACHE_BITS, slots=1, device="cuda")
+    ref.warmup()
+    mismatches = verify_streams(report, ref)
+    ref.assert_no_recompile()
+    verify_s = time.perf_counter() - t0
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    store_gb = _store_bytes(fleet.weight_store.store) / 1e9
+    moved = [r for r in report["governor"]["replans"]
+             if r["moved"] and r["tick"] >= FLEET_STEP_TICK]
+    ticks = report["per_tick"]
+    worst = max(ticks, key=lambda t: t["flips"] / t["cap"])
+    hosts = {f"{h.role} {h.host_id} {list(h.rung_bits)}": h.monitor.summary()
+             for h in (list(fleet.prefill_hosts.values())
+                       + list(fleet.decode_hosts.values()))}
+    checks = {
+        "served == requests": report["served"] == report["requests"] > 0,
+        "cap_violations 0": report["cap_violations"] == 0,
+        "host_restarts 1": report["host_restarts"] == 1,
+        "migrations >= 1": report["migrations"] >= 1,
+        f"a replan moved the ceiling at tick >= {FLEET_STEP_TICK}":
+            bool(moved),
+        "verify_streams empty": mismatches == [],
+        "peak < 70 GB": peak_gb < 70.0,
+        "B2 and B3 launched": launches["pann_matmul_packed_act"] > 0
+        and launches["decode_attention"] > 0}
+    out = {
+        "config": f"llama3-8b full width, {FLEET_LAYERS} of 32 layers, "
+                  "random weights seed 40",
+        "hosts": report["hosts"], "ladder": list(LADDER),
+        "backend": "packed", "cache_bits": CACHE_BITS,
+        "max_batch": FLEET_BATCH, "rho": rho, "caps_gbitflips_per_s": caps,
+        "requests": report["requests"], "served": report["served"],
+        "ticks": report["ticks"], "decode_tokens": report["decode_tokens"],
+        "realized_gbitflips": report["realized_gbitflips"],
+        "decode_gbitflips": report["decode_gbitflips"],
+        "prefill_gbitflips": report["prefill_gbitflips"],
+        "cap_violations": report["cap_violations"],
+        "host_restarts": report["host_restarts"],
+        "migrations": report["migrations"],
+        "slo_violations": report["slo_violations"],
+        "rung_token_histogram": report["rung_token_histogram"],
+        "replans": report["governor"]["replans"],
+        "largest_tick": {"tick": worst["tick"], "flips": worst["flips"],
+                         "grant": worst["cap"],
+                         "share": worst["flips"] / worst["cap"]},
+        "build_s": build_s, "wall_s": wall,
+        "decode_tok_per_s": report["decode_tokens"] / wall,
+        "host_monitors": hosts, "restart_s": report["restart_s"],
+        "handoff_ms": report["handoff_ms"],
+        "verify_s": verify_s, "verify_mismatches": mismatches,
+        "aliased_leaves": aliased, "store_gb": store_gb,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "graphs": {f"{h.role} {h.host_id}": h.engine.graphs_captured
+                   for h in (list(fleet.prefill_hosts.values())
+                             + list(fleet.decode_hosts.values()))},
+        "checks": checks}
+    del fleet, ref
+    _free()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        print("[fleet] " + json.dumps(out), flush=True)
+        raise AssertionError(f"fleet checks failed: {failed}")
+    return out
+
+
+FLEET_CLI_KEYS = ("arch", "mode", "hosts", "artifact_dir",
+                  "cap_gbitflips_per_s", "requests", "served",
+                  "realized_gbitflips", "realized_gbitflips_per_s",
+                  "cap_violations", "rung_token_histogram",
+                  "governor_replans", "wall_s")
+
+
+def fleet_cli(tmp: str, cap: float) -> dict:
+    """10b: ``launch.serve.main`` in fleet mode, in process: the
+    reference's summary keys, every request served, no violation; the
+    fleet's ``assert_no_recompile`` runs inside."""
+    from repro_torch.launch import serve
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", "llama3-8b", "--layers", str(FLEET_LAYERS),
+                      "--fleet_hosts", str(FLEET_HOSTS),
+                      "--global_budget", repr(cap), "--ticks",
+                      str(FLEET_TICKS), "--backend", "packed",
+                      "--artifact_dir", f"{tmp}/fleet_cli"])
+    seconds = time.perf_counter() - t0
+    _free()
+    if tuple(out) != FLEET_CLI_KEYS or out["served"] != out["requests"] \
+            or out["cap_violations"] != 0:
+        raise AssertionError(f"fleet CLI summary {out}")
+    return {**out, "phase_s": seconds, "launches": _counts()}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the projection autotuner
+# ---------------------------------------------------------------------------
+
+TUNE_LAYERS = 2            # 11b's store: full width, 2 layers
+TUNE_REQUESTS = 3
+
+
+def _distinct_projections(view) -> list:
+    """(name, leaf) of each distinct (K, N, planes) projection of a view,
+    in the engine's walk order."""
+    seen, out = set(), []
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                key = (tuple(node["w_q"].shape),
+                       node["w_planes_pos"].shape[-3])
+                if key not in seen:
+                    seen.add(key)
+                    out.append((name, node))
+                return
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, name)
+
+    walk(view, "")
+    return out
+
+
+def tune_shapes(view) -> list:
+    """11a: ``dispatch.tune_projection`` at M = BATCH over every distinct
+    projection of a full-width view, on 'fused' (B1) and 'packed' (B2):
+    each candidate split bit-identical to the heuristic's (checked inside
+    ``autotune.tune``), timed with a cold L2; the heuristic's and the
+    winner's ms beside the bound, which counts the view's live planes
+    (the kernels read no plane below its plane_shift)."""
+    from repro_torch.kernels import autotune, dispatch
+    rows = []
+    for backend in ("fused", "packed"):
+        for name, leaf in _distinct_projections(view):
+            k, n = leaf["w_q"].shape
+            planes = leaf["w_planes_pos"].shape[-3]
+            live = planes - int(round(float(leaf["plane_shift"])))
+            k_eff = leaf["w_planes_pos"].shape[-2] * 8 \
+                if backend == "packed" else k
+            dispatch.tune_projection(BATCH, leaf, backend)
+            t = autotune.timings[autotune.cache_key(
+                BATCH, k_eff, n, planes, backend,
+                autotune.device_kind("cuda"))]
+            plane_bytes = 2 * live * (k // 8 if backend == "packed"
+                                      else k) * n
+            nbytes = 4 * (BATCH * k + 2 * n + 4 + BATCH * n) + plane_bytes
+            b_ms, b_by = bound_ms(nbytes, 2 * BATCH * k * n)
+            (heur, heur_ms), (best, best_ms) = t["heuristic"], t["best"]
+            row = {"kernel": ("pann_matmul_act" if backend == "fused"
+                              else "pann_matmul_packed_act"),
+                   "backend": backend, "module": name, "M": BATCH, "K": k,
+                   "N": n, "planes": planes, "live_planes": live,
+                   "heuristic": list(heur), "heuristic_ms": heur_ms,
+                   "best": list(best), "best_ms": best_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "candidates": len(t["candidates"]),
+                   "candidate_ms": {f"{c.ksplit}x{c.kchunk}": ms
+                                    for c, ms in t["candidates"]}}
+            rows.append(row)
+            print(f"[autotune] {row['kernel']} {name} (M, K, N) = "
+                  f"({BATCH}, {k}, {n}): heuristic {tuple(heur)} "
+                  f"{heur_ms:.4f} ms, best {tuple(best)} {best_ms:.4f} ms "
+                  f"of {row['candidates']} candidates, all bit-identical; "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return rows
+
+
+def _served_log(engine, reqs) -> list:
+    log, restore = _record(engine)
+    try:
+        responses = engine.generate(reqs)
+    finally:
+        restore()
+    engine.assert_no_recompile()
+    return [r.tokens for r in responses], log
+
+
+def autotune_phase(tmp: str) -> dict:
+    """Phase 11: (a) ``tune_shapes`` on the top rung's view (every plane
+    live) of a full-width TUNE_LAYERS-layer store, in a cache file of its
+    own; (b) the same
+    store served through graphs by an engine warmed up on the heuristic
+    and by a ``ServeEngine(autotune=True)`` in a fresh cache file: one
+    entry per distinct shape, every step's logits bit-identical, device
+    ms a step both ways (the profiler over replays)."""
+    import os
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import autotune
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import ServeEngine
+    cfg = dataclasses.replace(
+        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
+        num_layers=TUNE_LAYERS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    plain = ServeEngine(cfg, _init_params(cfg, seed=50), ladder_bits=LADDER,
+                        max_batch=BATCH, max_len=PROMPT + GEN,
+                        backend="packed", cache_bits=CACHE_BITS,
+                        device="cuda")
+    _free()
+    cache_was = os.environ[autotune._ENV_VAR]
+    os.environ[autotune._ENV_VAR] = f"{tmp}/autotune_a.json"
+    autotune.clear_memory_cache()
+    rows = tune_shapes(plain.variants[LADDER[-1]])
+    tune_a_s = time.perf_counter() - t0
+    # (b): a fresh cache; the untuned engine captures first
+    os.environ[autotune._ENV_VAR] = f"{tmp}/autotune_b.json"
+    autotune.clear_memory_cache()
+    plain.warmup()
+    t0 = time.perf_counter()
+    tuned = ServeEngine(cfg, weight_store=serving.WeightStore(
+                            store=plain.weight_store, views=plain.variants),
+                        ladder_bits=LADDER, max_batch=BATCH,
+                        max_len=PROMPT + GEN, backend="packed",
+                        cache_bits=CACHE_BITS, device="cuda", autotune=True)
+    engine_tune_s = time.perf_counter() - t0
+    tuned.warmup()
+    with open(autotune.cache_path()) as f:
+        entries = json.load(f)["params"]
+    reqs = _requests(cfg, seed=50, n=TUNE_REQUESTS)
+    tok_plain, log_plain = _served_log(plain, reqs)
+    tok_tuned, log_tuned = _served_log(tuned, reqs)
+    steps = [e for e in log_plain if e[0] == "step"]
+    steps_t = [e for e in log_tuned if e[0] == "step"]
+    same = len(steps) == len(steps_t) and all(
+        a[2] == b[2] and torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
+        for a, b in zip(steps, steps_t))
+    del log_plain, log_tuned, steps, steps_t
+    # late in the process: each window opens with GUARD_KERNELS ops
+    steps_by_rung = {b: plain.steps_by_rung[b] for b in LADDER}
+    prof = {name: profile_steps(functools.partial(_graph_runner, eng),
+                                steps_by_rung, guard_run=guard_ops)
+            for name, eng in (("heuristic", plain), ("tuned", tuned))}
+    launches = _counts()
+    sms = autotune._pm.sm_count(torch.cuda.current_device())
+    changed = 0
+    for key, entry in entries.items():
+        m, k, n = map(int, key.split("|")[2].split("x"))
+        heur = autotune.heuristic_params(m, k, n, "packed", sms)
+        changed += (entry["ksplit"], entry["kchunk"]) != tuple(heur)
+    out = {"config": f"llama3-8b full width, {TUNE_LAYERS} layers, random "
+                     "weights seed 50",
+           "rows": rows, "tune_a_s": tune_a_s,
+           "engine_entries": entries, "engine_tune_s": engine_tune_s,
+           "entries_changed_from_heuristic": changed,
+           "graphs": {"heuristic": plain.graphs_captured,
+                      "tuned": tuned.graphs_captured},
+           "steps_bit_identical": same,
+           "tokens_equal": tok_plain == tok_tuned,
+           "device_ms_per_step": {k: v["device_ms_per_step"]
+                                  for k, v in prof.items()},
+           "ms_per_step_by_kind": {k: v.get("ms_per_step_by_kind")
+                                   for k, v in prof.items()},
+           "launches": launches}
+    del plain, tuned
+    os.environ[autotune._ENV_VAR] = cache_was
+    autotune.clear_memory_cache()
+    _free()
+    if not same or len(entries) != 5 or \
+            out["graphs"]["heuristic"] != out["graphs"]["tuned"] or \
+            not launches["pann_matmul_act"] or \
+            not launches["pann_matmul_packed_act"]:
+        raise AssertionError(f"autotune checks failed: {out}")
+    return out
+
+
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
                   max_abs_err, times_are):
     """One kernel of the ``kernels`` line: its times summed over the
@@ -3703,15 +4162,27 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "runs the port on an NVIDIA card", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
+    import os
+    import tempfile
+    from repro_torch.kernels import autotune, build
     from repro_torch.kernels import pann_attention as pa
     start = time.perf_counter()
     phase_s: dict = {}
+    # the autotuner's cache file lives in a temporary directory: no launch
+    # reads a tuned split before phase 11, and nothing is written outside
+    cache_dir = tempfile.TemporaryDirectory()
+    os.environ[autotune._ENV_VAR] = f"{cache_dir.name}/autotune_torch.json"
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
 
     def mark(phase: str) -> None:
-        """Seconds since the start at the end of ``phase``, printed."""
+        """Seconds since the start at the end of ``phase``, printed and
+        written to chiprun_out/chip_smoke_times.json (kept when a later
+        phase fails)."""
         phase_s[phase] = time.perf_counter() - start
         print(f"[time] {phase} done at {phase_s[phase]:.1f} s", flush=True)
+        (out_dir / "chip_smoke_times.json").write_text(json.dumps(phase_s))
 
     # phase 1: device
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3746,28 +4217,41 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.perf_counter()
-    mm_rows, mm_err = check_matmuls(gen)
-    packed_tile_err, packed_tile_checked = check_packed_tile_rows()
+    check_s: dict = {}      # seconds of each of phase 3's checks
+
+    def timed(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        check_s[name] = time.perf_counter() - t
+        return out
+
+    mm_rows, mm_err = timed("matmuls", check_matmuls, gen)
+    packed_tile_err, packed_tile_checked = timed("packed_tile_rows",
+                                                 check_packed_tile_rows)
     print(f"[kernels] pann_matmul_packed_act above 8 rows at "
           f"{packed_tile_checked}: max |err| {packed_tile_err}", flush=True)
-    plane_err, plane_checked, plane_rows = check_plane_counts()
+    plane_err, plane_checked, plane_rows = timed("plane_counts",
+                                                 check_plane_counts)
     print(f"[planes] B2 and B1 at P = {list(PLANE_COUNTS)}, M = "
           f"{list(PLANE_M)}, plane_shift 0 and P - 1, shapes "
           f"{list(PLANE_SHAPES)}: {len(plane_checked)} cases, max |err| "
           f"{plane_err}", flush=True)
-    att_by_config, att_checks = check_attention(gen)
+    att_by_config, att_checks = timed("attention", check_attention, gen)
     att_rows = att_by_config["llama3-8b"]
-    variant_mm = check_variant_matmuls()
-    ragged = check_ragged_dispatch()
+    variant_mm = timed("variant_matmuls", check_variant_matmuls)
+    ragged = timed("ragged_dispatch", check_ragged_dispatch)
     print("[kernels] serving_linear at a ragged N (C8): " + json.dumps(
         ragged), flush=True)
-    b6_calls = b6_kernels_per_call()
+    b6_calls = timed("b6_kernels_per_call", b6_kernels_per_call)
     print("[kernels] unsigned_matmul at M = 1..8, device kernels (profiler): "
           + json.dumps(b6_calls), flush=True)
-    encode_rows, encode_err = check_encode_matmuls(gen)
-    conv = check_serving_conv()
+    encode_rows, encode_err = timed("encode_matmuls", check_encode_matmuls,
+                                    gen)
+    conv = timed("serving_conv", check_serving_conv)
     print(f"[kernels] all bit-identical to their plain versions "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s; by check "
+          + json.dumps({k: round(v, 1) for k, v in check_s.items()}) + ")",
+          flush=True)
     for name, rows in mm_rows.items():
         for r in rows:
             print(f"[kernels] {name} " + json.dumps(
@@ -3843,7 +4327,7 @@ def main() -> int:
               flush=True)
     mark("4d")
 
-    # phase 4e: the recurrent families at full width and depth
+    # phase 4e: the recurrent families at full width, RECURRENT_LAYERS deep
     recurrent = {}
     for i, arch in enumerate(RECURRENT_ARCHS):
         t0 = time.perf_counter()
@@ -3943,7 +4427,7 @@ def main() -> int:
 
     # phase 7: prefill (forward) and the single-point serve
     t0 = time.perf_counter()
-    prefill = prefill_forward()
+    prefill = prefill_forward(layers=PREFILL_LAYERS)
     single = single_point()
     phase7_s = time.perf_counter() - t0
     print(f"[phase7] {phase7_s:.1f} s", flush=True)
@@ -3958,7 +4442,7 @@ def main() -> int:
     print(f"[phase7] mixtral-8x7b {phase7_moe_s:.1f} s", flush=True)
     mark("7de")
 
-    # 7f: forward of the recurrent families at full width and depth
+    # 7f: forward of the recurrent families at 4e's depths
     recurrent_prefill = {}
     for i, arch in enumerate(RECURRENT_ARCHS):
         t0 = time.perf_counter()
@@ -3969,7 +4453,7 @@ def main() -> int:
               flush=True)
     mark("7f")
 
-    # 7g: forward of seamless at full width and depth over raw features
+    # 7g: forward of seamless at 4f's depth over raw features
     t0 = time.perf_counter()
     encdec_prefill = prefill_forward(seed=24, arch=ENCDEC_ARCHS[0],
                                      profiled=False, t_len=ENCDEC_T)
@@ -3990,7 +4474,6 @@ def main() -> int:
     # phase 9: power-aware training -> export -> the calibrated artifact
     # served; its checkpoint and artifact live in a temporary directory
     import shutil
-    import tempfile
     t9 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         print(f"[train] temporary directory {tmp}: "
@@ -4039,6 +4522,44 @@ def main() -> int:
         mark("9e")
     phase9_s = time.perf_counter() - t9
     print(f"[phase9] {phase9_s:.1f} s", flush=True)
+
+    # phase 10: a fleet under one global power cap; its artifacts live in
+    # a temporary directory
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = fleet_serve(tmp)
+        print("[fleet] " + json.dumps(
+            {k: v for k, v in fleet.items()
+             if k not in ("replans", "host_monitors")}), flush=True)
+        print(f"[fleet] {fleet['served']} of {fleet['requests']} requests "
+              f"in {fleet['ticks']} ticks, {fleet['wall_s']:.2f} s wall "
+              f"({fleet['decode_tok_per_s']:.1f} decode tok/s), "
+              f"{fleet['realized_gbitflips']:.6g} Gbit-flips, largest tick "
+              f"{fleet['largest_tick']['share']:.4f} of its grant; reborn "
+              f"host {fleet['restart_s']} s; handoffs "
+              f"{fleet['handoff_ms']} ms; peak {fleet['peak_mem_gb']:.2f} "
+              f"GB against the {fleet['store_gb']:.2f} GB store", flush=True)
+        for name, mon in fleet["host_monitors"].items():
+            print(f"[fleet] {name}: " + json.dumps(mon), flush=True)
+        for r in fleet["replans"]:
+            print("[fleet] replan " + json.dumps(r), flush=True)
+        mark("10a")
+        fleet_cli_out = fleet_cli(tmp, fleet["caps_gbitflips_per_s"][0])
+        print("[fleet] cli " + json.dumps(fleet_cli_out), flush=True)
+        mark("10b")
+    phase10_s = time.perf_counter() - t10
+    print(f"[phase10] {phase10_s:.1f} s", flush=True)
+
+    # phase 11: the projection autotuner
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned = autotune_phase(tmp)
+    print("[autotune] " + json.dumps({k: v for k, v in tuned.items()
+                                      if k != "rows"}), flush=True)
+    mark("11")
+    phase11_s = time.perf_counter() - t11
+    print(f"[phase11] {phase11_s:.1f} s", flush=True)
+    cache_dir.cleanup()
     _assert_fp32_matmuls()
 
     step = "one full-width decode step's launches, cold L2"
@@ -4216,6 +4737,25 @@ def main() -> int:
                                 "pann_matmul_act" else "") + ")")
         e["cases"] = frozen["cases"]
         kernels.append(e)
+    # the fleet (phase 10a: every host's captures and the verify engine's)
+    # and the autotuner (phase 11: the tuning launches and both engines'
+    # captures)
+    for k in kernels[1:3]:
+        k["launches_fleet"] = fleet["launches"][k["name"]]
+    kernels[1]["launches_fleet_cli"] = fleet_cli_out["launches"][
+        "pann_matmul_packed_act"]
+    for k in kernels[:2]:
+        k["launches_autotune"] = tuned["launches"][k["name"]]
+        k["autotune_m4"] = [
+            {key: r[key] for key in ("module", "K", "N", "heuristic",
+                                     "heuristic_ms", "best", "best_ms",
+                                     "bound_ms", "candidates")}
+            for r in tuned["rows"] if r["kernel"] == k["name"]]
+        if not k["launches_autotune"]:
+            raise AssertionError(f"{k['name']}: no launch in phase 11")
+    for k in kernels[1:3]:
+        if not k["launches_fleet"]:
+            raise AssertionError(f"{k['name']}: no launch in phase 10")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")
@@ -4239,12 +4779,12 @@ def main() -> int:
               "encdec": encdec, "encdec_prefill": encdec_prefill,
               "encode": encode, "train": train, "export": exported,
               "calibrated": calibrated, "frozen": frozen, "resume": resume,
-              "phase9_s": phase9_s, "phase_done_at_s": phase_s,
+              "phase9_s": phase9_s, "fleet": fleet, "fleet_cli": fleet_cli_out,
+              "phase10_s": phase10_s, "autotune": tuned,
+              "phase11_s": phase11_s, "phase_done_at_s": phase_s,
               "wall_s": time.perf_counter() - start}
     print(f"[time] {report['wall_s']:.1f} s from the device check to the "
           "report", flush=True)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

@@ -69,9 +69,19 @@ def bitplane_decompose(w_q_nonneg: Tensor, n_planes: Optional[int] = None
     plane k holding bit k, so that w_q = sum_k 2^k planes[k]."""
     if n_planes is None:
         n_planes = weight_storage_bits(w_q_nonneg)
-    wi = w_q_nonneg.to(torch.int32)
-    return torch.stack([((wi >> k) & 1).to(torch.int8)
-                        for k in range(n_planes)])
+    if n_planes > 8 or w_q_nonneg.is_floating_point():
+        wi = w_q_nonneg.to(torch.int32)
+        return torch.stack([((wi >> k) & 1).to(torch.int8)
+                            for k in range(n_planes)])
+    # planes 0..7 read only the low byte: shift and mask it as uint8 (a
+    # quarter of the int32 path's bytes), each plane written in place
+    w8 = (w_q_nonneg.view(torch.uint8) if w_q_nonneg.dtype == torch.int8
+          else (w_q_nonneg & 0xFF).to(torch.uint8))
+    out = torch.empty((n_planes, *w8.shape), dtype=torch.uint8,
+                      device=w8.device)
+    for k in range(n_planes):
+        torch.bitwise_and(w8 >> k, 1, out=out[k])
+    return out.view(torch.int8)
 
 
 def truncate_codes(codes: Tensor, shift) -> Tensor:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.pann import bitplane_decompose, masked_codes
+from repro_torch.kernels import autotune
 from repro_torch.kernels import pann_attention as _pa
 from repro_torch.kernels import pann_conv as _pc
 from repro_torch.kernels import pann_matmul as _pm
@@ -116,6 +117,37 @@ def _pad_columns(pos: Tensor, neg: Tensor, gamma: Tensor,
             _pad_to(gamma, _N_MULT, 0), _pad_to(zcol, _N_MULT, 0))
 
 
+def _kernel_operands(xf: Tensor, p: dict, s: Tensor, z: Tensor,
+                     n_lvl: Tensor, gamma: Tensor, zcol: Tensor,
+                     name: str) -> tuple:
+    """The operands of backend ``name``'s kernel ('fused' | 'packed'):
+    (x, pos, neg, qparams, gamma, zcol), x padded to the packed planes'
+    K, N padded to the kernels' multiple of 4."""
+    w_q = p["w_q"]
+    shift = (_scalar(p["plane_shift"], xf) if "plane_shift" in p
+             else xf.new_zeros(()))
+    qparams = torch.stack([s, z, n_lvl, shift])
+    if name == "fused":
+        n_planes = (p["w_planes_pos"].shape[-3] if "w_planes_pos" in p
+                    else INT8_PLANES)
+        pos = bitplane_decompose(torch.clamp(w_q, min=0), n_planes)
+        neg = bitplane_decompose(torch.clamp(-w_q.to(torch.int32), min=0),
+                                 n_planes)
+    else:
+        pos, neg = p["w_planes_pos"], p["w_planes_neg"]
+        k_full = pos.shape[-2] * 8      # pack_planes padded K up to 8
+        if xf.shape[1] != k_full:
+            xf = F.pad(xf, (0, k_full - xf.shape[1]))
+    pos, neg, gamma, zcol = _pad_columns(pos, neg, gamma, zcol)
+    return xf, pos, neg, qparams, gamma, zcol
+
+
+def _kernel(name: str):
+    """The kernel wrapper behind backend ``name`` ('fused' | 'packed')."""
+    return _pm.pann_matmul_act if name == "fused" else \
+        _pk.pann_matmul_packed_act
+
+
 def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
                    n_lvl: Tensor, gamma: Tensor, zcol: Tensor,
                    name: str) -> Tensor:
@@ -124,27 +156,11 @@ def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
     device tensor: the kernels read it, the 'ref' path masks the codes. A
     single-point artifact has no such leaf and runs at shift 0."""
     w_q = p["w_q"]
+    if name != "ref":
+        return _kernel(name)(*_kernel_operands(xf, p, s, z, n_lvl, gamma,
+                                                zcol, name))[:, :w_q.shape[-1]]
     shift = (_scalar(p["plane_shift"], xf) if "plane_shift" in p
              else xf.new_zeros(()))
-    qparams = torch.stack([s, z, n_lvl, shift])
-    n = w_q.shape[-1]
-    if name == "fused":
-        n_planes = (p["w_planes_pos"].shape[-3] if "w_planes_pos" in p
-                    else INT8_PLANES)
-        pos = bitplane_decompose(torch.clamp(w_q, min=0), n_planes)
-        neg = bitplane_decompose(torch.clamp(-w_q.to(torch.int32), min=0),
-                                 n_planes)
-        pos, neg, gamma, zcol = _pad_columns(pos, neg, gamma, zcol)
-        return _pm.pann_matmul_act(xf, pos, neg, qparams, gamma,
-                                   zcol)[:, :n]
-    if name == "packed":
-        pp, pn = p["w_planes_pos"], p["w_planes_neg"]
-        k_full = pp.shape[-2] * 8       # pack_planes padded K up to 8
-        if xf.shape[1] != k_full:
-            xf = F.pad(xf, (0, k_full - xf.shape[1]))
-        pp, pn, gamma, zcol = _pad_columns(pp, pn, gamma, zcol)
-        return _pk.pann_matmul_packed_act(xf, pp, pn, qparams, gamma,
-                                          zcol)[:, :n]
     q = quant.affine_encode(xf, s, z, n_lvl)
     return _pm.matmul_epilogue(q, masked_codes(w_q, shift), s, gamma, zcol)
 
@@ -256,3 +272,41 @@ def decode_attention(q: Tensor, kv, backend, *, num_kv_heads: int,
         out = _pa.decode_attention(*args, k_pact, v_pact, window=window,
                                    softcap=softcap)
     return out.reshape(b, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Offline split autotuning (ServeEngine(autotune=True) / launch --autotune)
+# ---------------------------------------------------------------------------
+
+def tune_projection(m: int, p: dict, backend: str,
+                    planes_active: int | None = None) -> None:
+    """Measure and cache the best K split of one projection's kernel at
+    decode row count ``m`` (``kernels.autotune``): 'fused' tunes B1's
+    prologue kernel, 'packed' B2's, 'ref' has nothing to tune. The
+    operands are those ``serving_linear`` hands the kernel, on seeded
+    rows on the store's device. Offline: call before ``warmup``, whose
+    captures then read the cached split (``autotune.params_for``). On the
+    CPU the heuristic is recorded untimed.
+
+    ``planes_active`` keys a single-point tuning run whose live plane
+    count is static; the ladder leaves it None (one kernel serves every
+    rung, the shift is data), so its launches key on the full plane
+    count."""
+    name = parse_backend(backend)
+    if name == "ref":
+        return
+    resolve_backend(name, p)
+    w_q = p["w_q"]
+    if w_q.ndim != 2:
+        raise ValueError(f"tune_projection wants a (K, N) weight, got "
+                         f"{tuple(w_q.shape)}")
+    gen = torch.Generator(device=w_q.device)
+    gen.manual_seed(0)
+    xf = torch.randn((m, w_q.shape[0]), generator=gen, device=w_q.device)
+    s, z, n_lvl = _act_scalars(xf, p)
+    gamma, zcol = _gamma_zcol(p, s, z)
+    ops = _kernel_operands(xf, p, s, z, n_lvl, gamma, zcol, name)
+    x, pos = ops[0], ops[1]
+    autotune.tune(m, x.shape[1], pos.shape[-1], pos.shape[0], name,
+                  lambda params: _kernel(name)(*ops, params=params),
+                  active=planes_active, device=w_q.device)

@@ -26,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import int_matmul
 
 Tensor = torch.Tensor
@@ -255,20 +255,23 @@ def decode_scratch(x: Tensor, n_acc: int, n_tickets: int) -> tuple:
     return acc, tickets
 
 
-def split_scratch(x: Tensor, n: int, step: int, blocks: dict) -> tuple:
+def split_scratch(x: Tensor, n: int, step: int, blocks: dict,
+                  params=None) -> tuple:
     """(ksplit, kchunk, partial, acc, tickets) of a matmul of x (M, K) with
     N columns: up to DECODE_ROWS rows the streaming decode kernel's split
     (K steps of ``step`` rows, ``blocks`` a SM by row tile, see
     ``decode_split``) and its zeroed sums and tickets, partial None; above
     it the tile kernel's split (``split_k``) and its (ksplit, M, N) int32
-    partial sums, acc and tickets None."""
+    partial sums, acc and tickets None. ``params`` (ksplit, kchunk)
+    replaces the heuristic split (``kernels.autotune``)."""
     m, k = x.shape
     if m <= DECODE_ROWS:
-        slots = sm_count(x.device.index) * blocks[4 if m <= 4 else 8]
-        ksplit, kchunk = decode_split(k, n, step, slots)
+        if params is None:
+            slots = sm_count(x.device.index) * blocks[4 if m <= 4 else 8]
+            params = decode_split(k, n, step, slots)
         acc, tickets = decode_scratch(x, m * n, -(-n // DECODE_COLS))
-        return ksplit, kchunk, None, acc, tickets
-    ksplit, kchunk = split_k(m, k, n)
+        return (*params, None, acc, tickets)
+    ksplit, kchunk = split_k(m, k, n) if params is None else params
     partial = torch.empty((ksplit, m, n), dtype=torch.int32, device=x.device)
     return ksplit, kchunk, partial, None, None
 
@@ -276,15 +279,24 @@ def split_scratch(x: Tensor, n: int, step: int, blocks: dict) -> tuple:
 def launch_product(launcher, what: str, x: Tensor, planes: tuple,
                    scale: Tensor, gamma: Tensor, zcol, *extra,
                    step: int = STEP_PLANES,
-                   blocks: dict = BLOCKS_PLANES) -> Tensor:
+                   blocks: dict = BLOCKS_PLANES, backend=None,
+                   params=None) -> Tensor:
     """Allocate y and the split-K scratch (``split_scratch``) and call one C
     entry point of the bit-plane matmuls: up to DECODE_ROWS rows the
     streaming decode kernel (one launch), above it the tensor-core tile
-    kernel and the epilogue kernel; raises on a CUDA error."""
+    kernel and the epilogue kernel; raises on a CUDA error. A serving
+    launch names its ``backend`` ('fused' | 'packed') and reads its split
+    from ``autotune.params_for``; ``params`` forces one (``autotune.tune``
+    measures each candidate so), checked legal."""
     m, k = x.shape
     p, _, n = planes[0].shape
+    if params is not None:
+        params = autotune.check_params(m, k, backend, params)
+    elif backend is not None:
+        params = autotune.params_for(m, k, n, p, backend, device=x.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ksplit, kchunk, partial, acc, tickets = split_scratch(x, n, step, blocks)
+    ksplit, kchunk, partial, acc, tickets = split_scratch(x, n, step, blocks,
+                                                          params)
     ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,
                                    partial, acc, tickets)]
     err = launcher(*ptrs, m, k, n, p, ksplit, kchunk, *extra,
@@ -295,11 +307,13 @@ def launch_product(launcher, what: str, x: Tensor, planes: tuple,
 
 def pann_matmul_act(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
                     qparams: Tensor, gamma: Tensor, zcol: Tensor,
-                    mode: str = "fused") -> Tensor:
+                    mode: str = "fused", params=None) -> Tensor:
     """x (M, K) f32; planes_pos/neg (P, K, N) int8 in {0, 1}; qparams (4,)
     f32 [s, z, n_lvl, plane_shift] on the same device; gamma (N,) f32;
     zcol (N,) int32 -> (M, N) f32. CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise. The launch's K split is the
+    autotuner's for backend 'fused' (``autotune.params_for``), or
+    ``params``."""
     if x.device.type == "cpu":
         return pann_matmul_act_plain(x, planes_pos, planes_neg, qparams,
                                      gamma, zcol, mode)
@@ -310,7 +324,7 @@ def pann_matmul_act(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
                gamma, zcol)
     y = launch_product(_act_launcher(), "pann_matmul_act", x,
                        (planes_pos, planes_neg), qparams, gamma, zcol,
-                       planes)
+                       planes, backend="fused", params=params)
     global launches
     launches += 1
     return y

@@ -92,11 +92,13 @@ def _check_k(k: int) -> None:
 
 def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
                            packed_neg: Tensor, qparams: Tensor,
-                           gamma: Tensor, zcol: Tensor) -> Tensor:
+                           gamma: Tensor, zcol: Tensor,
+                           params=None) -> Tensor:
     """x (M, K) f32 with K % 8 == 0; packed_pos/neg (P, K/8, N) uint8;
     qparams (4,) f32 [s, z, n_lvl, plane_shift]; gamma (N,) f32; zcol (N,)
     int32 -> (M, N) f32. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. The launch's K split is the autotuner's
+    for backend 'packed' (``autotune.params_for``), or ``params``."""
     if x.device.type == "cpu":
         return pann_matmul_packed_act_plain(x, packed_pos, packed_neg,
                                             qparams, gamma, zcol)
@@ -107,7 +109,8 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
                qparams, gamma, zcol)
     y = launch_product(_act_launcher(), "pann_matmul_packed_act", x,
                        (packed_pos, packed_neg), qparams, gamma, zcol,
-                       step=STEP_PACKED, blocks=BLOCKS_PACKED)
+                       step=STEP_PACKED, blocks=BLOCKS_PACKED,
+                       backend="packed", params=params)
     global launches
     launches += 1
     return y

@@ -1,4 +1,4 @@
-"""Serving CLI (port of ``repro.launch.serve``), three modes.
+"""Serving CLI (port of ``repro.launch.serve``), four modes.
 
 Ladder mode (the default; ``serve_ladder``): plan a ladder of equal-power
 PANN operating points once, quantize into one weight store, then serve
@@ -6,6 +6,18 @@ requests whose rung is chosen per request from a declared power budget:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --power_ladder 2,4,6 --backend packed --cache_bits 4
+
+``--autotune`` measures and caches the K split of every projection's
+kernel before warmup (``kernels.autotune``; the CPU records the
+heuristic).
+
+Fleet mode (``--fleet_hosts N``; ``serve_fleet``): N rung-sharded decode
+hosts and a prefill host serving one device copy of the artifact under a
+global power cap of ``--global_budget`` Gbit-flips/s, driven by a
+synthetic ``--ticks``-tick trace (``serve_engine.fleet``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --fleet_hosts 4 --global_budget 0.25 --ticks 12
 
 Single point (``--quant`` without ``--power_ladder``; ``serve_single``):
 plan one operating point for ``--power_bits`` (Algorithm 1's theory
@@ -37,6 +49,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +63,8 @@ from repro_torch.models import model as MD
 from repro_torch.models import serving
 from repro_torch.serve_engine import (EncodeEngine, EncodeRequest, Request,
                                       ServeEngine)
+from repro_torch.serve_engine.fleet import (Fleet, FleetConfig, TrafficSpec,
+                                            make_trace)
 
 
 def _config(args, quant=None):
@@ -194,7 +209,8 @@ def serve_ladder(args) -> dict:
                          backend=("packed" if args.backend is None
                                   else args.backend or None),
                          cache_bits=cache_bits,
-                         device=device, frontend_kwargs_fn=fe_fn)
+                         device=device, frontend_kwargs_fn=fe_fn,
+                         autotune=args.autotune)
     del params
     engine.warmup()
     _print_rungs(engine)
@@ -225,6 +241,66 @@ def serve_ladder(args) -> dict:
         "generated": n_tok,
         "wall_s": round(dt, 3),
         "tok_per_s": round(n_tok / max(dt, 1e-9), 1),
+    }
+    print("[serve] " + json.dumps(summary))
+    return summary
+
+
+def serve_fleet(args) -> dict:
+    """N simulated hosts under one global Gbit-flips/s cap, serving one
+    device copy of the artifact written to ``--artifact_dir`` (a fresh
+    temporary directory by default)."""
+    ladder_bits = tuple(int(b) for b in
+                        (args.power_ladder or "2,4,6").split(","))
+    backend = "packed" if args.backend is None else args.backend
+    if not backend:
+        raise SystemExit(
+            "--fleet_hosts serves through a kernel backend ('ref' | "
+            "'fused' | 'packed'); '' is the reference's float path, which "
+            "the port's engine refuses")
+    cfg = _config(args, quant=QuantConfig(mode="none"))
+    device = MD.resolve_device(args.device)
+    params = MD.init_params(cfg, seed=args.seed, device=device)
+    fc = FleetConfig(
+        n_decode_hosts=args.fleet_hosts,
+        n_prefill_hosts=1,
+        ladder_bits=ladder_bits,
+        allocation=args.allocation,
+        cap_gbitflips_per_s=args.global_budget,
+        max_batch=args.batch,
+        max_len=args.prompt_len + args.gen + 2,
+        backend=backend,
+    )
+    spec = TrafficSpec(seed=args.seed + 7, n_ticks=args.ticks,
+                       prompt_lens=(args.prompt_len,),
+                       gen_tokens=(max(args.gen - 4, 2), args.gen),
+                       budget_mix=ladder_bits + (max(ladder_bits),))
+    art_dir = args.artifact_dir or tempfile.mkdtemp(prefix="fleet_serve_")
+    fleet = Fleet(cfg, fc, art_dir, params=params, device=device)
+    del params
+    trace = make_trace(spec, cfg.vocab_size, fleet.ladder)
+
+    t0 = time.monotonic()
+    report = fleet.run(trace)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    fleet.assert_no_recompile()
+
+    summary = {
+        "arch": cfg.name,
+        "mode": "fleet",
+        "hosts": report["hosts"],
+        "artifact_dir": art_dir,
+        "cap_gbitflips_per_s": args.global_budget,
+        "requests": report["requests"],
+        "served": report["served"],
+        "realized_gbitflips": report["realized_gbitflips"],
+        "realized_gbitflips_per_s": report["realized_gbitflips_per_s"],
+        "cap_violations": report["cap_violations"],
+        "rung_token_histogram": report["rung_token_histogram"],
+        "governor_replans": len(report["governor"]["replans"]),
+        "wall_s": round(dt, 3),
     }
     print("[serve] " + json.dumps(summary))
     return summary
@@ -332,11 +408,32 @@ def main(argv=None) -> dict:
                          "request stream; defaults to the ladder itself")
     ap.add_argument("--requests", type=int, default=0,
                     help="number of requests (default: --batch)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="ladder mode: measure and cache the best K split "
+                         "of every projection's kernel before warmup "
+                         "(kernels/autotune; $REPRO_TORCH_AUTOTUNE_CACHE "
+                         "names the cache file). The CPU records the "
+                         "heuristic untimed")
+    ap.add_argument("--fleet_hosts", type=int, default=0,
+                    help="serve a simulated fleet with this many rung-"
+                         "sharded decode hosts (+1 prefill host) under "
+                         "--global_budget (serve_engine.fleet)")
+    ap.add_argument("--global_budget", type=float, default=0.25,
+                    help="fleet mode: global power cap in Gbit-flips/s, "
+                         "enforced every tick by the fleet governor")
+    ap.add_argument("--ticks", type=int, default=12,
+                    help="fleet mode: length of the synthetic traffic "
+                         "trace")
+    ap.add_argument("--artifact_dir", default="",
+                    help="fleet mode: write the serving artifact here "
+                         "(default: a fresh temporary directory)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.encode:
         return serve_encode(args)
+    if args.fleet_hosts:
+        return serve_fleet(args)
     if args.quant is not None and not args.power_ladder:
         return serve_single(args)
     return serve_ladder(args)

@@ -27,7 +27,12 @@ warmup did not capture raises, it never runs eagerly on the card. The
 CPU has no graphs: a CPU engine runs the same slot step eagerly.
 
 Lanes (one per in-flight wave) advance round-robin one decode step each, so
-different rungs interleave between steps of one process.
+different rungs interleave between steps of one process. The fleet
+(``serve_engine.fleet``) moves lanes between engines: an engine steps only
+lanes in its own slots, so it ``adopt``s a lane another engine built (the
+state copied into one of its slots, the donor's slot freed), rebuilds one
+from its token prefix (``prefill_wave(prefix_rows=...)``), and
+``release``s the slot of a lane it detaches without finalizing it.
 """
 from __future__ import annotations
 
@@ -51,6 +56,14 @@ from repro_torch.serve_engine.scheduler import (Request, Response, Scheduler,
 
 Tensor = torch.Tensor
 
+# the refusal of backend=None (the reference's float dequant path, which
+# ignores a rung's plane_shift: ROADMAP C6), by the engine and the fleet
+NO_BACKEND = (
+    "ServeEngine serves its weight store through a kernel backend ('ref' | "
+    "'fused' | 'packed'), not backend=None; the legacy float dequant is "
+    "reached through models.model.forward / decode_step on an artifact with "
+    "cfg.kernel_backend None")
+
 
 @dataclasses.dataclass
 class Slot:
@@ -66,12 +79,32 @@ class Slot:
 @dataclasses.dataclass
 class Lane:
     """One in-flight wave: the slot holding its decode state and the
-    tokens grown so far (device tensors). A lane holds its slot until the
-    engine finalizes it."""
+    tokens grown so far (device tensors).
+
+    Public because the fleet (``serve_engine.fleet``) moves lanes between
+    engines: a prefill host builds the lane, a decode host ``adopt``s it
+    (the state copied into one of its own slots, whose graphs it
+    replays), and a restarted or switched-to host rebuilds it from the
+    token prefix (``prefill_wave(prefix_rows=...)``: the decode state is a
+    function of the prefix, so the rebuilt lane continues bit for bit). A
+    lane holds its slot until the engine finalizes or ``release``s it.
+    ``done`` counts tokens generated before this lane's state was
+    (re)built; ``generated`` holds only the tokens grown since."""
     wave: Wave
     slot: Slot
     generated: list          # [(max_batch, 1), ...] greedy tokens
     steps_left: int
+    done: int = 0
+
+    def generated_rows(self) -> np.ndarray:
+        """(n_requests, n_generated_since_build) int32 token matrix: what
+        the fleet appends to its per-request records when this lane
+        finishes, switches rung, or dies with its host."""
+        n = len(self.wave.requests)
+        if not self.generated:
+            return np.zeros((n, 0), np.int32)
+        return torch.cat(self.generated, dim=1)[:n].cpu().numpy().astype(
+            np.int32)
 
 
 def _tensors(tree) -> list:
@@ -102,7 +135,10 @@ class ServeEngine:
     a numpy array or tensor, 3-D stub embeddings or raw 4-D input) of a
     wave of ``batch`` rows; an encoder-decoder or vision config needs it.
     ``device`` defaults to 'cuda' and raises without a card; the CPU runs
-    only when asked for (the plain kernel versions)."""
+    only when asked for (the plain kernel versions). ``autotune`` measures
+    and caches the K split of every distinct projection shape of the
+    views at ``max_batch`` rows before ``warmup`` captures
+    (``kernels.autotune``; a backend other than 'ref')."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
@@ -114,7 +150,8 @@ class ServeEngine:
                  weight_store: Optional[serving.WeightStore] = None,
                  slots: int = 2,
                  device="cuda",
-                 frontend_kwargs_fn: Optional[Callable[[int], dict]] = None):
+                 frontend_kwargs_fn: Optional[Callable[[int], dict]] = None,
+                 autotune: bool = False):
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "
@@ -137,12 +174,7 @@ class ServeEngine:
             cfg = dataclasses.replace(
                 cfg, cache_bits=7 if cache_bits == "auto" else cache_bits)
         if backend is None:
-            raise ValueError(
-                "ServeEngine serves its weight store through a kernel "
-                "backend ('ref' | 'fused' | 'packed'), not backend=None; the "
-                "legacy float dequant is reached through models.model."
-                "forward / decode_step on an artifact with "
-                "cfg.kernel_backend None")
+            raise ValueError(NO_BACKEND)
         self.backend = dispatch.parse_backend(backend)
         cfg = dataclasses.replace(cfg, kernel_backend=self.backend)
         self.cfg = cfg
@@ -196,6 +228,8 @@ class ServeEngine:
         if table.device.type != self.device.type:
             raise ValueError(f"weight store lives on {table.device}, engine "
                              f"device is {self.device}")
+        if autotune and self.backend != "ref":
+            self._autotune_projections()
         self.scheduler = Scheduler(self.ladder, self.max_batch)
         self.steps_by_rung = {op.bits: 0 for op in self.ladder}
         self.rung_switches = 0
@@ -209,6 +243,36 @@ class ServeEngine:
         self._stream = None
         self.graphs_captured = 0
         self.compilations_after_warmup: Optional[int] = None
+
+    # -- offline autotuning -------------------------------------------------
+
+    def _autotune_projections(self) -> None:
+        """Tune every distinct projection shape (K, N, plane count) of the
+        views once, at the engine's decode row count, walking the port's
+        per-layer layout of the top rung's view (every plane live, so the
+        launches that move the most bytes decide). Every rung's launches
+        share the shape and so the split. Idempotent: a cached shape
+        short-circuits inside ``autotune.tune``."""
+        seen: set = set()
+
+        def walk(node):
+            if isinstance(node, dict):
+                if "w_q" in node:
+                    planes = node.get("w_planes_pos")
+                    key = (tuple(node["w_q"].shape),
+                           None if planes is None else planes.shape[-3])
+                    if key not in seen:
+                        seen.add(key)
+                        dispatch.tune_projection(self.max_batch, node,
+                                                 self.backend)
+                    return
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, (list, tuple)):
+                for v in node:
+                    walk(v)
+
+        walk(self.variants[self.ladder[-1].bits])
 
     # -- the compiled decode step -------------------------------------------
 
@@ -353,6 +417,49 @@ class ServeEngine:
             f"all {len(self._slots)} decode-state slots are in flight; "
             f"warmup() captures graphs for ServeEngine(slots=...) slots")
 
+    def _owns(self, slot: Slot) -> bool:
+        return any(s is slot for s in self._slots)
+
+    def _check_own(self, lane: Lane) -> None:
+        if not self._owns(lane.slot):
+            raise ValueError(
+                "the lane's decode state is in another engine's slot; this "
+                "engine's graphs replay its own slots: adopt() it first")
+
+    def adopt(self, lane: Lane) -> None:
+        """Move a lane another engine built into one of this engine's free
+        slots: its state is copied in place, in the order the graphs read
+        it (caches, position, token buffer, the cross K/V where present;
+        a recurrent layer's state is its cache), and the donor's slot is
+        freed. A lane already in this engine's slot stays. The engines
+        must share the config, ``max_batch`` and ``max_len``."""
+        donor = lane.slot
+        if self._owns(donor):
+            return
+
+        def read_order(s: Slot) -> list:
+            return _tensors((s.state.caches, s.state.position)) + [s.tok] \
+                + _tensors(s.state.cross_kv)
+
+        slot = self._acquire()
+        src, dst = read_order(donor), read_order(slot)
+        if len(src) != len(dst) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(src, dst)):
+            slot.busy = False
+            raise ValueError("lane's decode state does not fit this "
+                             "engine's slots (config, max_batch, max_len)")
+        for a, b in zip(dst, src):
+            a.copy_(b)
+        donor.busy = False
+        lane.slot = slot
+
+    def release(self, lane: Lane) -> None:
+        """Free the lane's slot without finalizing it: the lane finished
+        elsewhere, switched rung, or died with its host."""
+        self._check_own(lane)
+        lane.slot.busy = False
+
     def _run_step(self, bits: int, slot: Slot) -> Tensor:
         """One decode step of ``slot`` at rung ``bits``: a replay on the
         card, the eager slot step on the CPU. Returns the logits."""
@@ -392,16 +499,34 @@ class ServeEngine:
         return torch.as_tensor(self._pad_rows(np.asarray(rows, np.int64)),
                                device=self.device)
 
-    def prefill_wave(self, wave: Wave) -> Lane:
+    def prefill_wave(self, wave: Wave,
+                     prefix_rows: Optional[np.ndarray] = None) -> Lane:
         """Teacher-force a wave's prompts in a free slot and return its
-        lane (the first generated token included)."""
+        lane (the first generated token included).
+
+        ``prefix_rows`` (n_requests, prompt_len + done) replays a lane
+        that already generated ``done`` tokens elsewhere: on a host
+        restart or a governor-forced rung switch the fleet rebuilds the
+        lane here from prompt + tokens so far, and since the decode state
+        is a function of the token prefix, the rebuilt lane continues bit
+        for bit. The replay runs at THIS wave's rung: switching is
+        replaying into another rung's view."""
         reqs = wave.requests
         gen_max = max(r.max_new_tokens for r in reqs)
+        if prefix_rows is None:
+            rows, done = np.stack([r.prompt for r in reqs]), 0
+        else:
+            rows = np.asarray(prefix_rows, np.int32)
+            done = rows.shape[1] - reqs[0].prompt_len
+            if not 0 <= done < gen_max:
+                raise ValueError(
+                    f"replay prefix carries {done} generated tokens, "
+                    f"wave needs 0 <= done < {gen_max}")
         if reqs[0].prompt_len + gen_max > self.max_len:
             raise ValueError(
                 f"prompt_len {reqs[0].prompt_len} + gen {gen_max} exceeds "
                 f"engine max_len {self.max_len}")
-        rows = self._rows_tensor(np.stack([r.prompt for r in reqs]))
+        rows = self._rows_tensor(rows)
         slot = self._acquire()
         try:
             self._load_frontend(wave.rung.bits, slot)
@@ -410,10 +535,12 @@ class ServeEngine:
             slot.busy = False
             raise
         return Lane(wave=wave, slot=slot, generated=[slot.tok.clone()],
-                    steps_left=gen_max - 1)
+                    steps_left=gen_max - done - 1, done=done)
 
     def step_lane(self, lane: Lane) -> bool:
-        """Advance a lane one decode step; True when the lane is finished."""
+        """Advance a lane one decode step; True when the lane is finished.
+        The lane must be in one of this engine's slots (``adopt``)."""
+        self._check_own(lane)
         if lane.steps_left > 0:
             self._run_step(lane.wave.rung.bits, lane.slot)
             lane.generated.append(lane.slot.tok.clone())

@@ -299,18 +299,21 @@ def signed_step(w, rows, panel, acc):
 # ---------------------------------------------------------------------------
 
 def decode_launch(q, n: int, step: int, blocks: dict, step_fn, rng,
-                  sides: int = 1):
+                  sides: int = 1, split=None):
     """The int32 sums of a decode launch with N columns, block by block as
     the kernel runs it: ``step_fn(rows, panel, acc)`` adds one K step of
     ``step`` rows (row indices, -1 past the chunk's end) to a warp's
     accumulators acc (sides, MT, N/4, 4); with two sides (B6's acc_pos and
     acc_neg) each lane subtracts once. The blocks of a column tile arrive in
     a random order and finish through the atomics buffer and the tickets
-    (ksplit > 1) or directly (ksplit == 1). Returns (sums (M, N), the
-    blocks' K rows, buffers)."""
+    (ksplit > 1) or directly (ksplit == 1). ``split`` (ksplit, kchunk)
+    replaces ``decode_split``'s, as a tuned launch's does
+    (``kernels.autotune``). Returns (sums (M, N), the blocks' K rows,
+    buffers)."""
     m, k = q.shape
     mt = 4 if m <= 4 else 8
-    ksplit, kchunk = tpm.decode_split(k, n, step, SMS * blocks[mt])
+    ksplit, kchunk = (tpm.decode_split(k, n, step, SMS * blocks[mt])
+                      if split is None else split)
     tiles = -(-n // tpm.DECODE_COLS)
     acc_buf = np.zeros((m, n), np.int64)      # the wrapper's zeroed acc
     tickets = np.zeros(tiles, np.int64)
@@ -350,7 +353,7 @@ def decode_launch(q, n: int, step: int, blocks: dict, step_fn, rng,
     return out, covered, (acc_buf, tickets)
 
 
-def packed_launch(q, pos, neg, lo, seed=0):
+def packed_launch(q, pos, neg, lo, seed=0, split=None):
     ppk, npk = pack(pos), pack(neg)
 
     def step_fn(rows, panel, acc):
@@ -358,16 +361,16 @@ def packed_launch(q, pos, neg, lo, seed=0):
 
     return decode_launch(q, pos.shape[2], tpm.STEP_PACKED,
                          tpm.BLOCKS_PACKED, step_fn,
-                         np.random.default_rng(seed))
+                         np.random.default_rng(seed), split=split)
 
 
-def planes_launch(q, pos, neg, lo, mode, seed=0):
+def planes_launch(q, pos, neg, lo, mode, seed=0, split=None):
     def step_fn(rows, panel, acc):
         planes_step(pos, neg, rows, lo, panel, acc[0], mode)
 
     return decode_launch(q, pos.shape[2], tpm.STEP_PLANES,
                          tpm.BLOCKS_PLANES, step_fn,
-                         np.random.default_rng(seed))
+                         np.random.default_rng(seed), split=split)
 
 
 def signed_launch(q, w, seed=0):
@@ -712,3 +715,36 @@ def test_signed_launch_property(m, k, n4, seed):
     got, covered, (acc, tickets) = signed_launch(q, w, seed)
     np.testing.assert_array_equal(got, q.astype(np.int64) @ w)
     assert (covered == 1).all() and not acc.any() and not tickets.any()
+
+
+# the reduced llama3-8b's w_down, and a ragged-N one with a longer K (more
+# legal splits)
+TUNE_SHAPES = ((128, 64), (1000, 72))
+
+
+@pytest.mark.parametrize("backend", ["packed", "fused"])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_every_tuned_split_is_bit_identical(backend, m):
+    """Every legal (ksplit, kchunk) the autotuner measures
+    (``autotune.candidate_params``) gives B2's / B1's decode launch the
+    same int32 sums as the plain version, every K row once, and leaves
+    the atomics buffer and tickets zero: a tuned launch is exact."""
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(100 * m + len(backend))
+    for k, n in TUNE_SHAPES:
+        pos, neg = planes_of(rand_weights(rng, MAX_PLANES, k, n), MAX_PLANES)
+        q = rand_codes(rng, m, k)
+        splits = autotune.candidate_params(m, k, n, backend)
+        assert len(splits) >= (1 if k <= 128 else 5)
+        shift = 2
+        want = int_product(q, pos, neg, shift)
+        for split in splits:
+            if backend == "packed":
+                got, covered, bufs = packed_launch(q, pos, neg, shift,
+                                                   split=split)
+            else:
+                got, covered, bufs = planes_launch(q, pos, neg, shift,
+                                                   "fused", split=split)
+            np.testing.assert_array_equal(got, want)
+            assert (covered == 1).all()
+            assert not bufs[0].any() and not bufs[1].any()

@@ -50,7 +50,7 @@ def test_every_submodule_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(names) >= 65
+    assert int(out.stdout.strip()) == len(names) >= 68
 
 
 def test_nothing_builds_at_import():
@@ -95,3 +95,25 @@ def test_training_modules_are_checked(module):
            "zipfile", "functools", "struct"}
     allowed = {"torch", "numpy", "repro_torch"} | std
     assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
+
+
+FLEET_MODULES = ["serve_engine/fleet.py", "dist/sharding.py",
+                 "dist/fault.py", "kernels/autotune.py"]
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_and_autotune_modules_are_checked(module):
+    """The fleet's modules (the fleet, the rung sharding, the host
+    supervisor) and the autotuner are among the files and submodules
+    checked above and import only torch, numpy, the standard library and
+    the port."""
+    path = PORT / module
+    assert path in _port_files()
+    name = "repro_torch." + module[:-3].replace("/", ".")
+    assert name in [m.name for m in pkgutil.walk_packages(
+        [str(PORT)], "repro_torch.")]
+    std = {"__future__", "dataclasses", "functools", "json", "os",
+           "tempfile", "time", "typing"}
+    allowed = {"torch", "numpy", "repro_torch"} | std
+    assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
+

@@ -72,6 +72,27 @@ def test_bitplanes_masked_and_truncated_codes_exact(shift):
         tpann.truncate_codes(_t(codes), shift).numpy())
 
 
+@pytest.mark.parametrize("n_planes", [1, 7, 8, 9])
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64])
+def test_bitplane_decompose_dtypes_match_reference(dtype, n_planes):
+    """The low-byte path (n_planes <= 8, int8 input reinterpreted, wider
+    input masked) and the int32 path (9 planes) against the reference,
+    on the unsigned split's magnitudes 0..128 and wider values whose
+    planes past the low byte must come out too."""
+    rng = np.random.default_rng(n_planes)
+    codes = rng.integers(-128, 128, (16, 24))
+    for w in (np.maximum(codes, 0), np.maximum(-codes, 0),
+              rng.integers(0, 1 << 12, (16, 24))):
+        if np.iinfo(dtype).max < w.max():
+            continue
+        w = w.astype(dtype)
+        got = tpann.bitplane_decompose(_t(w), n_planes)
+        assert got.dtype == torch.int8 and got.is_contiguous()
+        assert np.array_equal(
+            np.asarray(rpann.bitplane_decompose(
+                jnp.asarray(w.astype(np.int32)), n_planes)), got.numpy())
+
+
 def test_view_shift_and_snapped_r_match():
     for r_max in (0.5, 2.83, 7.9, 31.0):
         for r in (0.1, 0.4, 1.0, 2.83, 5.5, 7.9):
