@@ -259,6 +259,30 @@ Phases (any failure raises and the script exits non-zero):
               device ms a step both ways. The cache files live in
               temporary directories.
 
+12. dist    — ``dist/`` on torch.distributed: (a) mixtral-8x7b at full
+              width cut to 1 layer, one rank on nccl under a 1 x 1 mesh
+              (``launch.mesh.make_local_mesh``, ``dist.constrain.
+              use_mesh``): the capacity dispatch's loss and gradients
+              against the scan on the same params at capacity factor 4.0
+              (no token dropped; rel 1e-5 and 1e-4), the share of routes
+              dropped at mixtral's 1.25, 3 AdamW steps through the
+              capacity path (finite losses, ms a step, peak memory); (b)
+              ``launch.train`` under ``torchrun`` on two ranks that share
+              the card (``--model_axis 2``, QAT, llama3-8b at full width
+              cut to 2 layers, batch 2 x 128; the host-staged backend of
+              ``dist.compat``): its 3 losses within rel 2e-3 of the same
+              command on one rank, each rank's ms a step, peak memory and
+              the collectives it staged through the host; then two ranks
+              of this script (``--dist-worker``): ``compressed_psum_mean``'s
+              int8 codes equal to the single-process restatement's, and
+              ``pipeline_stack`` over a 2-stage "pod" axis within 1e-5 of
+              the sequential fold (gradient 1e-4 relative); (c) llama3-8b
+              at full width cut to 2 layers: ``build_variant_cache``'s top
+              rung equal leaf for leaf to ``materialize_view`` of the
+              weight store's top view, and the rung view with the most
+              skipped planes and its materialized copy decoding 8 tokens
+              at batch 4 bit for bit on 'packed' and 'fused' (B2, B1).
+
 TF32 must stay off for the fp32 matmuls (PyTorch's defaults, asserted at
 the start and the end). A ``[time]`` line marks the end of each phase.
 
@@ -4124,6 +4148,405 @@ def autotune_phase(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: dist/ on torch.distributed
+# ---------------------------------------------------------------------------
+
+# 12a: mixtral-8x7b's capacity dispatch in a training step at full width,
+# cut to one layer (6.9 GB of fp32 params, as much again in gradients and
+# twice in AdamW moments), batch (2, 256); no token dropped at capacity
+# factor 4.0 (every expert can take all 512 tokens' top-2 routes)
+CAPACITY_LAYERS = 1
+CAPACITY_BATCH, CAPACITY_SEQ = 2, 256
+CAPACITY_NO_DROP = 4.0
+CAPACITY_STEPS = 3
+# the bounds tests/test_torch_dist.py states for the capacity path against
+# the scan where no token is dropped: the loss, and each gradient's
+# largest difference over its largest value
+CAPACITY_LOSS_RTOL = 1e-5
+CAPACITY_GRAD_RTOL = 1e-4
+# 12b: llama3-8b at full width cut to 2 layers, tensor-parallel over two
+# ranks that share the card (launch.train under torchrun), against the
+# same command on one rank; the reference's own tolerance
+# (tests/test_dist_multidev.py:185)
+TP_ARGV = ["--arch", "llama3-8b", "--d_model", "4096", "--d_ff", "14336",
+           "--layers", "2", "--batch", "2", "--seq", "128", "--steps", "3",
+           "--quant", "pann", "--train_quant", "qat", "--log_every", "1",
+           "--device", "cuda"]
+TP_RTOL = 2e-3
+# 12b's collective checks on the two ranks: compressed_psum_mean's codes
+# exact, its mean and residual within 1e-6 relative; pipeline_stack over
+# a 2-stage "pod" axis within 1e-5 of the sequential fold, its gradient
+# within 1e-4 relative
+PSUM_RTOL = 1e-6
+PIPE_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
+# 12c: A11 on the kernels, llama3-8b at full width cut to 2 layers: 8
+# tokens decoded at batch 4 through a rung view and its materialized copy
+A11_LAYERS, A11_TOKENS = 2, 8
+
+
+def _lm_batch(vocab: int, b: int, t: int, seed: int) -> tuple:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, vocab, (b, t), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    return tokens, labels
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got - want).abs().max()
+                 / torch.clamp(want.abs().max(), min=1e-30))
+
+
+def moe_capacity_train(seed: int = 40) -> dict:
+    """12a: mixtral-8x7b (moe_impl "capacity") at full width cut to
+    CAPACITY_LAYERS, one rank on nccl, a 1 x 1 mesh: at capacity factor
+    4.0 the loss and every gradient of the capacity dispatch against the
+    scan on the same params; at mixtral's own 1.25 the share of routed
+    (token, expert) pairs dropped; CAPACITY_STEPS AdamW steps through the
+    capacity path, finite losses, ms a step and peak memory."""
+    import contextlib
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.dist import moe_ep
+    from repro_torch.dist.constrain import use_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as MD
+    from repro_torch.optim.optimizers import tree_leaves
+    t_start = time.perf_counter()
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(1, "cuda")
+    backend = dist.get_backend()
+    routed = []
+    plan = moe_ep.dispatch_plan
+
+    def recorded(mask, capacity):     # the dispatch's keep mask, counted
+        keep, pos = plan(mask, capacity)
+        routed.append((int(mask.sum()), int(keep.sum())))
+        return keep, pos
+
+    moe_ep.dispatch_plan = recorded
+    try:
+        cfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
+                                  num_layers=CAPACITY_LAYERS)
+        if cfg.moe_impl != "capacity":
+            raise AssertionError(f"mixtral's moe_impl is {cfg.moe_impl}")
+        no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CAPACITY_NO_DROP))
+        tcfg = TrainConfig(total_steps=CAPACITY_STEPS, warmup_steps=1,
+                           seed=seed)
+        torch.cuda.reset_peak_memory_stats()
+        state = ST.make_train_state(cfg, tcfg, device="cuda")
+        tokens, labels = _lm_batch(cfg.vocab_size, CAPACITY_BATCH,
+                                   CAPACITY_SEQ, seed)
+        leaves = tree_leaves(state.params)
+
+        def loss_grads(meshed: bool):
+            for p in leaves:
+                p.requires_grad_(True)
+            try:
+                ctx = use_mesh(mesh) if meshed else contextlib.nullcontext()
+                with ctx:
+                    loss = MD.lm_loss(state.params, no_drop, tokens, labels,
+                                      remat=False)
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+            return loss.detach(), grads
+
+        t0 = time.perf_counter()
+        scan_loss, scan_grads = loss_grads(False)
+        if routed:
+            raise AssertionError("the scan ran the capacity dispatch")
+        cap_loss, cap_grads = loss_grads(True)
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t0
+        if len(routed) != CAPACITY_LAYERS or routed[0][0] != routed[0][1]:
+            raise AssertionError(f"capacity factor {CAPACITY_NO_DROP} "
+                                 f"dropped tokens: {routed}")
+        loss_rel = abs(float(cap_loss) - float(scan_loss)) / abs(
+            float(scan_loss))
+        grad_rel = max(_rel(c, g) for c, g in zip(cap_grads, scan_grads))
+        del scan_grads, cap_grads
+        _free()
+        if loss_rel > CAPACITY_LOSS_RTOL or grad_rel > CAPACITY_GRAD_RTOL:
+            raise AssertionError(
+                f"capacity vs scan: loss rel {loss_rel:.3g} (bound "
+                f"{CAPACITY_LOSS_RTOL}), gradient rel {grad_rel:.3g} (bound "
+                f"{CAPACITY_GRAD_RTOL})")
+        routed.clear()
+        with torch.no_grad(), use_mesh(mesh):
+            MD.lm_loss(state.params, cfg, tokens, labels, remat=False)
+        dropped = 1.0 - routed[0][1] / routed[0][0]
+        routed.clear()
+        losses, step_ms = [], []
+        par = ParallelConfig(remat="none")
+        with use_mesh(mesh):
+            for _ in range(CAPACITY_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = ST.train_step(
+                    state, {"tokens": tokens, "labels": labels}, cfg=cfg,
+                    tcfg=tcfg, par=par)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        if len(routed) != CAPACITY_STEPS * CAPACITY_LAYERS:
+            raise AssertionError(f"the train steps ran {len(routed)} "
+                                 "capacity dispatches")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"capacity training losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+        _free()
+    finally:
+        moe_ep.dispatch_plan = plan
+        if started:
+            dist.destroy_process_group()
+    return {"arch": "mixtral-8x7b", "layers": CAPACITY_LAYERS,
+            "batch": [CAPACITY_BATCH, CAPACITY_SEQ], "backend": backend,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "no_drop_capacity_factor": CAPACITY_NO_DROP,
+            "scan_loss": float(scan_loss), "capacity_loss": float(cap_loss),
+            "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "parity_s": parity_s,
+            "capacity_factor": cfg.moe.capacity_factor,
+            "dropped_share": dropped, "losses": losses, "step_ms": step_ms,
+            "ms_per_step_after_first": float(np.mean(step_ms[1:])),
+            "peak_mem_gb": peak, "wall_s": time.perf_counter() - t_start}
+
+
+def _torchrun(nproc: int, args: list, timeout: int = 600) -> str:
+    """``torch.distributed.run --standalone`` with ``nproc`` ranks on this
+    machine; its stdout. A rank's failure raises with the end of its
+    output."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc)] + args, env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"torchrun {args[:3]} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    return proc.stdout
+
+
+def tp_train() -> dict:
+    """12b: ``launch.train`` under torchrun on two ranks that share the
+    card (``--model_axis 2``: the params and moments DTensors split over
+    "model", the host-staged backend) against the same command on one
+    rank in process; then ``dist_worker``'s collective checks on two
+    ranks."""
+    import os
+    import tempfile
+    from repro_torch.launch import train as TR
+    t0 = time.perf_counter()
+    out = _torchrun(2, ["-m", "repro_torch.launch.train"] + TP_ARGV
+                    + ["--model_axis", "2"])
+    tp_s = time.perf_counter() - t0
+    summary = ranks = None
+    ranks = []
+    for line in out.splitlines():
+        if line.startswith("[train] {"):
+            summary = json.loads(line[len("[train] "):])
+        elif line.startswith("[train] rank {"):
+            ranks.append(json.loads(line[len("[train] rank "):]))
+    if summary is None or len(ranks) != 2:
+        raise AssertionError(f"no summary of both ranks:\n{out[-3000:]}")
+    t0 = time.perf_counter()
+    one = TR.main(TP_ARGV + ["--model_axis", "1"])
+    one_s = time.perf_counter() - t0
+    _free()
+    rel = [abs(a - b) / abs(b) for a, b in zip(summary["losses_exact"],
+                                               one["losses_exact"])]
+    if len(rel) != 3 or max(rel) > TP_RTOL or \
+            not all(np.isfinite(summary["losses_exact"])):
+        raise AssertionError(f"2-rank losses {summary['losses_exact']} vs "
+                             f"1-rank {one['losses_exact']}: rel {rel}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist_checks.json")
+        t0 = time.perf_counter()
+        _torchrun(2, [str(ROOT / "chip_smoke.py"), "--dist-worker", path])
+        checks = json.loads(Path(path).read_text())
+        checks["wall_s"] = time.perf_counter() - t0
+    return {"argv": TP_ARGV, "mesh": summary["mesh"],
+            "backend": summary["backend"],
+            "losses_2_ranks": summary["losses_exact"],
+            "losses_1_rank": one["losses_exact"], "loss_rel": rel,
+            "ranks": ranks, "segments": summary["segments"],
+            "one_rank_ms_per_step_after_first": one["segments"][0][
+                "ms_per_step_after_first"],
+            "one_rank_peak_mem_gb": one["peak_mem_gb"],
+            "tp_wall_s": tp_s, "one_rank_wall_s": one_s, "checks": checks}
+
+
+def dist_worker(out_path: str) -> int:
+    """One rank of 12b's collective checks (run by ``tp_train`` under
+    torchrun, two ranks on the card): ``compressed_psum_mean``'s wire
+    codes against the single-process restatement over both ranks' shards,
+    and ``pipeline_stack`` over a 2-stage "pod" axis against the
+    sequential fold, forward and gradient. Rank 0 writes the result."""
+    import torch.distributed as dist
+    from repro_torch.dist import compat
+    from repro_torch.dist.collectives import _compress_one
+    from repro_torch.dist.pipeline import pipeline_stack
+    backend = compat.init_process_group("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = compat.rank_device("cuda")
+
+    def randn(shape, seed, scale=1.0):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def gathered(t):                  # every rank's t, stacked
+        flat = t.contiguous().reshape(-1)
+        out = torch.empty(world * flat.numel(), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, flat)
+        return out.reshape((world,) + tuple(t.shape))
+
+    res = {"backend": backend, "world": world}
+    psum = []
+    for i, shape in enumerate(((4096,), (256, 1024))):
+        g = randn(shape, 50 + 10 * i + rank, 1e-2)
+        e = randn(shape, 80 + 10 * i + rank, 1e-5)
+        mean, new_err, codes = _compress_one(g, e)
+        gs, es = gathered(g), gathered(e)
+        vals = gs + es
+        wire = torch.tensor(127.0, device=dev)
+        scale = torch.clamp(vals.abs().max(), min=1e-30) / wire
+        want_codes = torch.clamp(torch.round(vals / scale), -127, 127).to(
+            torch.int8)
+        deq = want_codes.to(torch.float32) * scale
+        want_mean = deq.sum(0) / torch.tensor(float(world), device=dev)
+        if not torch.equal(gathered(codes), want_codes):
+            raise AssertionError(f"wire codes differ at {shape}")
+        psum.append({"shape": list(shape),
+                     "mean_rel": _rel(mean, want_mean),
+                     "err_rel": _rel(gathered(new_err), vals - deq)})
+    if max(max(r["mean_rel"], r["err_rel"]) for r in psum) > PSUM_RTOL:
+        raise AssertionError(f"compressed_psum_mean: {psum}")
+    res["compressed_psum_mean"] = psum
+    mesh = compat.DeviceMesh("cuda", torch.arange(world),
+                             mesh_dim_names=("pod",))
+    d, n_groups, batch, n_micro = 256, 4, 8, 4
+    ws = randn((n_groups, d, d), 60, d ** -0.5).requires_grad_(True)
+    x = randn((batch, d), 61).requires_grad_(True)
+
+    def block(stage_ws, h):
+        for w in stage_ws:
+            h = torch.tanh(h @ w)
+        return h
+
+    out = pipeline_stack(block, ws, x, mesh=mesh, axis="pod",
+                         n_micro=n_micro)
+    gw, gx = torch.autograd.grad((out ** 2).sum(), (ws, x))
+    dist.all_reduce(gw)
+    dist.all_reduce(gx)
+    want = block(ws, x)
+    rw, rx = torch.autograd.grad((want ** 2).sum(), (ws, x))
+    pipe = {"fwd_abs": float((out - want).abs().max()),
+            "grad_ws_rel": _rel(gw, rw), "grad_x_rel": _rel(gx, rx)}
+    if pipe["fwd_abs"] > PIPE_ATOL or max(pipe["grad_ws_rel"],
+                                          pipe["grad_x_rel"]) > \
+            PIPE_GRAD_RTOL:
+        raise AssertionError(f"pipeline_stack: {pipe}")
+    res["pipeline_stack"] = pipe
+    res["staged_collectives"] = compat.staged_collectives()
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def a11_on_kernels(seed: int = 45) -> dict:
+    """12c: llama3-8b at full width cut to A11_LAYERS: a ladder store and,
+    from the same params, ``build_variant_cache``'s variant of its top
+    rung (plane_shift 0): equal leaf for leaf to ``materialize_view`` of
+    the store's top view; the rung view with the most skipped planes and
+    its ``materialize_view`` copy decode A11_TOKENS tokens at batch 4 on
+    'packed' (B2) and 'fused' (B1), logits bit-identical, launches
+    counted."""
+    from repro_torch import configs
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import model as MD
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import build_ladder
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(
+        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
+        num_layers=A11_LAYERS)
+    ladder = build_ladder(LADDER, d=float(cfg.d_model))
+    points = {op.bits: (op.r, op.b_x_tilde) for op in ladder}
+    top = max(points, key=lambda b: points[b][0])
+    params = _init_params(cfg, seed)
+    variant = serving.build_variant_cache(
+        params, cfg, {top: points[top]}, pack_planes=True,
+        plane_count=serving.LADDER_PLANE_COUNT, cache_bits=CACHE_BITS)[top]
+    ws = serving.build_weight_store(
+        params, cfg, points,
+        serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+    del params
+    mat_top = dict(flatten(serving.materialize_view(ws.views[top])))
+    var = dict(flatten(variant))
+    if set(mat_top) != set(var):
+        raise AssertionError(f"variant / view keys differ: "
+                             f"{sorted(set(mat_top) ^ set(var))[:8]}")
+    unequal = [k for k in var if var[k].dtype != mat_top[k].dtype
+               or not torch.equal(var[k], mat_top[k])]
+    if unequal:
+        raise AssertionError(f"variant != materialized view at {unequal}")
+    del variant, var, mat_top
+    shifts = {b: int(v["layers"][0]["attn"]["wq"]["plane_shift"])
+              for b, v in ws.views.items()}
+    rung = max(shifts, key=shifts.get)
+    mat = serving.materialize_view(ws.views[rung])
+    rows = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, A11_TOKENS)), device="cuda")
+    runs = {}
+    for backend in ("packed", "fused"):
+        c = dataclasses.replace(cfg, kernel_backend=backend,
+                                cache_bits=CACHE_BITS)
+        logits = []
+        _reset_counts()
+        for tree in (ws.views[rung], mat):
+            state = MD.init_decode_state(tree, c, BATCH, A11_TOKENS)
+            steps = []
+            for i in range(A11_TOKENS):
+                lg, state = MD.decode_step(tree, c, state, rows[:, i:i + 1])
+                steps.append(lg)
+            logits.append(torch.cat(steps, 1))
+        torch.cuda.synchronize()
+        launches = _counts()
+        if not torch.equal(logits[0], logits[1]) or \
+                not torch.isfinite(logits[0]).all():
+            raise AssertionError(f"{backend}: the view and its "
+                                 "materialized copy decode differently")
+        name = ("pann_matmul_packed_act" if backend == "packed"
+                else "pann_matmul_act")
+        if not launches[name]:
+            raise AssertionError(f"{backend}: no {name} launch")
+        runs[backend] = {"launches": launches}
+    del mat, ws
+    _free()
+    return {"layers": A11_LAYERS, "ladder": list(LADDER), "top_rung": top,
+            "rung": rung, "plane_shift": shifts[rung], "tokens": A11_TOKENS,
+            "batch": BATCH, "variant_leaves_equal": True, "runs": runs,
+            "wall_s": time.perf_counter() - t_start}
+
+
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
                   max_abs_err, times_are):
     """One kernel of the ``kernels`` line: its times summed over the
@@ -4559,6 +4982,36 @@ def main() -> int:
     mark("11")
     phase11_s = time.perf_counter() - t11
     print(f"[phase11] {phase11_s:.1f} s", flush=True)
+
+    # phase 12: dist/ on torch.distributed
+    t12 = time.perf_counter()
+    capacity = moe_capacity_train()
+    print(f"[capacity] {smi} " + json.dumps(capacity), flush=True)
+    print(f"[capacity] {smi}: mixtral-8x7b 1 layer, batch (2, 256): loss "
+          f"rel {capacity['loss_rel']:.3g}, gradient rel "
+          f"{capacity['grad_rel']:.3g} against the scan at capacity factor "
+          f"{CAPACITY_NO_DROP}; {100 * capacity['dropped_share']:.2f} % of "
+          f"routes dropped at {capacity['capacity_factor']}; "
+          f"{capacity['ms_per_step_after_first']:.1f} ms a step after the "
+          f"first; peak {capacity['peak_mem_gb']:.2f} GB", flush=True)
+    mark("12a")
+    tp = tp_train()
+    print(f"[tp] {smi} " + json.dumps(tp), flush=True)
+    for r in tp["ranks"]:
+        print(f"[tp] {smi}: rank {r['rank']} of 2 on the card: "
+              f"{r['ms_per_step_after_first']} ms a step after the first, "
+              f"peak {r['peak_mem_gb']:.2f} GB; staged through the host "
+              f"{r['staged_collectives']}", flush=True)
+    print(f"[tp] {smi}: one rank {tp['one_rank_ms_per_step_after_first']:.1f}"
+          f" ms a step, peak {tp['one_rank_peak_mem_gb']:.2f} GB; loss rel "
+          f"{max(tp['loss_rel']):.3g}; collective checks "
+          + json.dumps(tp["checks"]), flush=True)
+    mark("12b")
+    a11 = a11_on_kernels()
+    print(f"[a11] {smi} " + json.dumps(a11), flush=True)
+    mark("12c")
+    phase12_s = time.perf_counter() - t12
+    print(f"[phase12] {phase12_s:.1f} s", flush=True)
     cache_dir.cleanup()
     _assert_fp32_matmuls()
 
@@ -4756,6 +5209,14 @@ def main() -> int:
     for k in kernels[1:3]:
         if not k["launches_fleet"]:
             raise AssertionError(f"{k['name']}: no launch in phase 10")
+    # phase 12c: a rung view and its materialized copy decoded on 'fused'
+    # and 'packed' (counted from 0 before each backend)
+    kernels[0]["launches_a11"] = a11["runs"]["fused"]["launches"][
+        "pann_matmul_act"]
+    kernels[1]["launches_a11"] = a11["runs"]["packed"]["launches"][
+        "pann_matmul_packed_act"]
+    kernels[2]["launches_a11"] = sum(a11["runs"][b]["launches"][
+        "decode_attention"] for b in ("fused", "packed"))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")
@@ -4781,7 +5242,9 @@ def main() -> int:
               "calibrated": calibrated, "frozen": frozen, "resume": resume,
               "phase9_s": phase9_s, "fleet": fleet, "fleet_cli": fleet_cli_out,
               "phase10_s": phase10_s, "autotune": tuned,
-              "phase11_s": phase11_s, "phase_done_at_s": phase_s,
+              "phase11_s": phase11_s, "capacity": capacity, "tp": tp,
+              "a11": a11, "phase12_s": phase12_s,
+              "phase_done_at_s": phase_s,
               "wall_s": time.perf_counter() - start}
     print(f"[time] {report['wall_s']:.1f} s from the device check to the "
           "report", flush=True)
@@ -4799,4 +5262,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

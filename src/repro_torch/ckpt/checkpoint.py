@@ -21,6 +21,13 @@ and reads only the keys the template has: a template without the
 optimizer state (``opt=None``) leaves the moments on disk. A member
 stored uncompressed (``np.savez`` and ``save`` both store) is mapped
 read-only from the file rather than read through ``zipfile``.
+
+Under a mesh a leaf may be a DTensor: ``save`` gathers each one on every
+rank in turn (a collective) and rank 0 writes the file, in the same
+format. ``restore(..., shardings=)`` is the elastic path: each leaf with
+a ``dist.sharding.NamedSharding`` becomes a DTensor on that sharding's
+mesh, each rank reading only its shard off the mapped file, so a
+checkpoint saved on one mesh restores onto a mesh of another shape.
 """
 from __future__ import annotations
 
@@ -34,6 +41,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist import compat
 
 ARRAYS = "arrays.npz"
 
@@ -45,6 +55,8 @@ def _parts(leaf) -> tuple:
 
 
 def _host(a) -> np.ndarray:
+    if compat.is_dtensor(a):
+        a = a.full_tensor()
     if isinstance(a, torch.Tensor):
         return a.detach().contiguous().cpu().numpy()
     return np.ascontiguousarray(np.asarray(a))
@@ -154,15 +166,38 @@ def _template_value(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _sharded(pairs: list) -> bool:
+    return any(compat.is_dtensor(p) for _, leaf in pairs
+               for p in _parts(leaf))
+
+
 def save(directory: str, step: int, tree: Any, *,
          meta: Optional[dict] = None, keep: int = 3) -> str:
     """Atomically write a checkpoint (temporary directory, ``COMMITTED``,
-    rename); prune to the newest ``keep``. Returns its directory."""
-    os.makedirs(directory, exist_ok=True)
+    rename); prune to the newest ``keep``. Returns its directory. With
+    DTensor leaves every rank of the mesh calls it: each leaf is gathered
+    in key order, rank 0 writes, and the ranks meet at a barrier."""
     final = os.path.join(directory, f"step_{step:08d}")
+    pairs = flatten(tree)
+    if _sharded(pairs) and dist.get_rank() != 0:
+        for _, leaf in pairs:
+            for part in _parts(leaf):
+                if compat.is_dtensor(part):
+                    part.full_tensor()
+        dist.barrier()
+        return final
+    path = _save(directory, final, pairs, meta, step, keep)
+    if _sharded(pairs):
+        dist.barrier()
+    return path
+
+
+def _save(directory: str, final: str, pairs: list, meta, step: int,
+          keep: int) -> str:
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
-        _write_npz(os.path.join(tmp, ARRAYS), flatten(tree))
+        _write_npz(os.path.join(tmp, ARRAYS), pairs)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, **(meta or {})}, f)
         with open(os.path.join(tmp, "COMMITTED"), "w") as f:
@@ -200,13 +235,17 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, template: Any, strict=True) -> Any:
+def restore(directory: str, step: int, template: Any,
+            shardings: Optional[Any] = None, strict=True) -> Any:
     """Restore into ``template``'s structure (any tree whose leaves have a
     ``.shape``: tensors, meta tensors, numpy arrays, ``convert.Stacked``)
-    as numpy arrays. ``strict`` may be a tuple of key prefixes (e.g.
-    ``("calib/",)``) naming the only subtrees allowed to keep the
-    template's value when the checkpoint lacks them; False allows any
-    (logged), True (the default) none."""
+    as numpy arrays. ``shardings``, a tree of the template's structure
+    whose leaves are ``dist.sharding.NamedSharding`` or None, puts each
+    leaf that has one onto its mesh as a DTensor (this rank's shard only);
+    the saving and restoring meshes may differ. ``strict`` may be a tuple
+    of key prefixes (e.g. ``("calib/",)``) naming the only subtrees
+    allowed to keep the template's value when the checkpoint lacks them;
+    False allows any (logged), True (the default) none."""
     path = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, "COMMITTED")):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -230,6 +269,11 @@ def restore(directory: str, step: int, template: Any, strict=True) -> Any:
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{arr.shape} vs template {tuple(leaf.shape)}")
             values[key] = arr
+        if shardings is not None:
+            placed = dict(flatten(shardings))
+            for key, sh in placed.items():
+                if sh is not None and key in values:
+                    values[key] = sh.put(values[key])
     if fellback:
         print(f"[ckpt] {len(fellback)} leaves absent from the checkpoint "
               f"kept their template init: {fellback[:8]}"

@@ -167,6 +167,25 @@ def pann_bitplane_linear(x: Tensor, pw: PannWeights, act_bits: int,
     return y
 
 
+def pann_linear(x: Tensor, w: Tensor, bias: Optional[Tensor], r: float,
+                act_bits: int, *, axis=0, qat: bool = False) -> Tensor:
+    """Model-level PANN linear layer. ``qat=True``: the differentiable
+    fake-quant path (STE on the weights and the activations);
+    ``qat=False``: the same values through explicit integer codes (PTQ
+    evaluation), ``(x_q @ (w_q * gamma)) * s_x``."""
+    if qat:
+        wq = pann_fake_quant(w, r, dim=axis)
+        xq = quant.fake_quant(x, act_bits, signed=False)
+        y = xq @ wq
+    else:
+        w_q, gamma = pann_quantize(w, r, dim=axis)
+        x_q, s_x = quant.ruq(x, act_bits, signed=False)
+        y = (x_q @ (w_q * gamma)) * s_x
+    if bias is not None:
+        y = y + bias
+    return y
+
+
 def pann_qat_matmul(x: Tensor, w: Tensor, mq,
                     act_range: Optional[Tensor] = None) -> Tensor:
     """The fake-quant (STE) PANN projection at one module's operating

@@ -41,12 +41,15 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.ckpt import checkpoint as ck
 from repro_torch.core import anneal
+from repro_torch.dist.constrain import use_mesh
 from repro_torch.launch import steps as ST
 from repro_torch.launch import train as TR
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as MD
 from repro_torch.models import serving
 from repro_torch.serve_engine import artifact
@@ -95,7 +98,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = MD.resolve_device(args.device)
+    # under a one-column mesh, as the reference exports (a config with
+    # moe_impl="capacity" evaluates through the capacity dispatch)
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(1, args.device)
+    try:
+        with use_mesh(mesh):
+            return _export(args, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _export(args, device) -> dict:
     step = args.step or ck.latest_step(args.ckpt_dir)
     if step is None:
         raise SystemExit(f"[export] no checkpoint in {args.ckpt_dir}")

@@ -397,6 +397,12 @@ def main(argv=None) -> dict:
                          "b~x, layerwise rungs let the allocator trade "
                          "cache bits against weight bits under one "
                          "budget); empty = fp cache")
+    ap.add_argument("--artifact_format", default="views",
+                    help="ladder materialization: 'views' (the only "
+                         "format) quantizes once at the per-module max "
+                         "budget and serves every rung as a zero-copy view "
+                         "over one weight store. The per-rung 'legacy' "
+                         "format was retired.")
     ap.add_argument("--encode", action="store_true",
                     help="serve the encode workload (a vision or speech "
                          "frontend and its encoder) instead of decode: "
@@ -430,6 +436,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.artifact_format == "legacy":
+        raise SystemExit(
+            "--artifact_format legacy was retired: the ladder is always "
+            "materialized as one weight store with zero-copy rung views "
+            "(DESIGN.md §11). Budget-snapping drift is bounded in closed "
+            "form by benchmarks/artifact_parity.py; drop the flag.")
+    if args.artifact_format != "views":
+        raise SystemExit(
+            f"unknown --artifact_format {args.artifact_format!r}; "
+            "the only format is 'views'")
     if args.encode:
         return serve_encode(args)
     if args.fleet_hosts:

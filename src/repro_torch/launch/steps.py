@@ -4,12 +4,15 @@ eagerly on the tensors' device.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core import calibrate as CAL
+from repro_torch.dist import compat
+from repro_torch.dist import sharding as SH
 from repro_torch.models import model as MD
 from repro_torch.optim import optimizers as OPT
 
@@ -28,14 +31,20 @@ class TrainState(NamedTuple):
 
 def make_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                      calibrate: bool = False, seed: Optional[int] = None,
-                     device="cuda") -> TrainState:
+                     device="cuda", shardings: Optional[Any] = None
+                     ) -> TrainState:
     """Fresh params from ``seed`` (``tcfg.seed`` by default), zero AdamW
     moments, step 0 and, with ``calibrate``, an all-unseen calibration
     collection. ``device="meta"`` gives the state's shapes only (a
     checkpoint template); its calibration collection then lives on the
-    host, where a restore can keep it as the init of an absent subtree."""
+    host, where a restore can keep it as the init of an absent subtree.
+    ``shardings`` (``dist.sharding.NamedSharding`` per param, from
+    ``param_specs``) makes the params DTensors, every rank keeping its
+    shard of the same seeded values, and the moments DTensors alike."""
     dev = MD.resolve_device(device)
     params = MD.init_params(cfg, tcfg.seed if seed is None else seed, dev)
+    if shardings is not None:
+        params = SH.distribute(params, shardings)
     opt = OPT.AdamW(tcfg).init(params)
     calib = CAL.init_calib(cfg, "cpu" if dev.type == "meta" else dev) \
         if calibrate else None
@@ -69,7 +78,31 @@ def train_step(state: TrainState, batch: dict, *, cfg: ModelConfig,
     ``par.microbatches > 1`` accumulates the gradients of equal slices of
     the batch (their sum, then / n, as the reference's scan) and merges
     their observations. ``matrix`` is the weight-decay mask
-    (``convert.reference_matrix_mask``)."""
+    (``convert.reference_matrix_mask``).
+
+    Under a mesh (``dist.constrain.use_mesh``) the params and moments are
+    DTensors placed by ``dist.sharding.param_specs`` and the batch by
+    ``input_sharding``; DTensor's sharding rules run the step, with every
+    tensor the model makes on its own taken as replicated. Each gradient
+    comes back with its parameter's placements (a batch-sharded loss
+    leaves them partial over "data": the redistribute is the
+    data-parallel all-reduce), the loss and the calibration's
+    observations as plain tensors on every rank (``compat.full``: the
+    min / max all-reduce of the observed ranges), so ``calib`` and the
+    step counters stay replicated plain tensors."""
+    leaves = OPT.tree_leaves(state.params)
+    if not any(compat.is_dtensor(p) for p in leaves):
+        return _train_step(state, batch, cfg=cfg, tcfg=tcfg, par=par,
+                           matrix=matrix)
+    with compat.implicit_replication():
+        new_state, metrics = _train_step(state, batch, cfg=cfg, tcfg=tcfg,
+                                         par=par, matrix=matrix)
+    return new_state, {k: compat.full(v) for k, v in metrics.items()}
+
+
+def _train_step(state: TrainState, batch: dict, *, cfg: ModelConfig,
+                tcfg: TrainConfig, par: ParallelConfig,
+                matrix: Optional[Any]) -> tuple[TrainState, dict]:
     remat = par.remat != "none"
     calib = state.calib
     collect = calib is not None
@@ -109,6 +142,10 @@ def train_step(state: TrainState, batch: dict, *, cfg: ModelConfig,
     finally:
         for p in leaves:
             p.requires_grad_(False)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if compat.is_dtensor(g) else g for p, g in zip(leaves, grads)]
+    if collect:
+        observed = {k: compat.full(v) for k, v in observed.items()}
     _, new_opt, metrics = OPT.AdamW(tcfg).update(
         grads, state.opt, leaves,
         matrix=None if matrix is None else OPT.tree_leaves(matrix))
@@ -128,11 +165,15 @@ def eval_loss(params: Any, cfg: ModelConfig, batch: dict,
     ``calib`` freezes the activation quantizers to its ranges, as the
     export bakes them into the serving artifact. Takes training params
     (fake-quant forward) and serving artifacts alike."""
-    loss = MD.lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                      enc_inputs=batch.get("enc_inputs"),
-                      image_embeds=batch.get("image_embeds"),
-                      remat=False, calib=calib)
-    return float(loss)
+    ctx = (compat.implicit_replication() if any(
+        compat.is_dtensor(p) for p in OPT.tree_leaves(params))
+        else contextlib.nullcontext())
+    with ctx:
+        loss = MD.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                          enc_inputs=batch.get("enc_inputs"),
+                          image_embeds=batch.get("image_embeds"),
+                          remat=False, calib=calib)
+    return float(compat.full(loss))
 
 
 @torch.no_grad()

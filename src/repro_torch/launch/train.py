@@ -1,9 +1,20 @@
 """End-to-end trainer (CLI; port of ``repro.launch.train``).
 
 Deterministic synthetic data, AdamW, checkpoint / resume, straggler
-telemetry and power-aware QAT with budget annealing, on one device: the
-card by default (``--device cuda``; raises without one), the CPU when
-asked (``--device cpu``).
+telemetry and power-aware QAT with budget annealing, on the card by
+default (``--device cuda``; raises without one), the CPU when asked
+(``--device cpu``). Every run is under a ("data", "model") mesh of
+``--model_axis`` columns (``launch.mesh.make_local_mesh``), as the
+reference's: 1 x 1 in one process, so a config with
+``moe_impl="capacity"`` trains through the capacity dispatch. With more
+ranks (``torchrun``) the params and AdamW moments are DTensors placed
+by ``dist.sharding.param_specs`` (tensor parallelism over "model"), the
+batch is split over "data", every rank runs on
+``cuda:{local_rank % device_count}`` (two ranks may share a card,
+``dist.compat``) and rank 0 prints the summary:
+
+    torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.train \
+        --arch llama3-8b --reduced --model_axis 2 --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
         --reduced --steps 200 --quant pann --r 2.0 --device cpu
@@ -21,10 +32,11 @@ the run, re-running the layer-wise allocator at every knot:
         --artifact_out /tmp/art --artifact_ladder 2,4,6 --device cpu
 
 Checkpoints are the JAX package's (``ckpt.checkpoint``): either trainer
-resumes from the other's. The flags, their defaults and the summary are
-the reference's; ``--model_axis`` above 1 (tensor parallelism) is refused
-(ROADMAP A10), and the summary adds the measured step times by segment,
-tokens/s, peak device memory and the checkpoint's size and write time.
+resumes from the other's, and a checkpoint restores onto a mesh of
+another shape. The flags, their defaults and the summary are the
+reference's; the summary adds the measured step times by segment,
+tokens/s, peak device memory, the checkpoint's size and write time and,
+under a mesh, its shape and the collectives staged through the host.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, convert
 from repro_torch.ckpt import checkpoint as ck
@@ -42,8 +55,12 @@ from repro_torch.configs.base import ParallelConfig, QuantConfig, TrainConfig
 from repro_torch.core import anneal
 from repro_torch.core import calibrate as CAL
 from repro_torch.data.pipeline import SyntheticLM, frontend_stub
+from repro_torch.dist import compat
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.constrain import use_mesh
 from repro_torch.dist.fault import StepMonitor
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as MD
 
 # held-out eval stream: same generator family as training, disjoint seed
@@ -111,15 +128,38 @@ TRAIN_ARG_KEYS = (
 )
 
 
-def _batch(cfg, data: SyntheticLM, step: int, device) -> dict:
+def _batch(cfg, data: SyntheticLM, step: int, device, mesh=None) -> dict:
     """Step ``step`` of ``data`` on ``device``, with the config's frontend
-    stub when it has one."""
+    stub when it has one; under a mesh each input a DTensor placed by
+    ``input_sharding`` (every rank makes the whole batch and keeps its
+    rows)."""
     out = data.device_batch(step, device)
     fe = frontend_stub(cfg, data.global_batch, step, data.seed)
     if fe is not None:
         key = "enc_inputs" if cfg.family == "encdec" else "image_embeds"
         out[key] = torch.as_tensor(fe, device=device)
-    return out
+    return _placed(out, mesh)
+
+
+def _placed(batch: dict, mesh) -> dict:
+    """Each input a DTensor placed by ``input_sharding`` on ``mesh`` (each
+    rank keeps its rows of the whole batch it made); as it is without a
+    mesh."""
+    if mesh is None:
+        return batch
+    return {k: SH.NamedSharding(mesh, SH.input_sharding(mesh, v.shape)).put(
+        v, v.device) for k, v in batch.items()}
+
+
+def _state_shardings(params, cfg, mesh, par) -> tuple:
+    """(NamedSharding per param in the port's layout, the train state's
+    shardings in the checkpoint's (the reference's) layout)."""
+    specs = SH.param_specs(params, mesh, par)
+    ref = SH.to_named(SH.restack(convert.reference_layout(specs, cfg)),
+                      mesh)
+    return (SH.to_named(specs, mesh),
+            {"params": ref, "opt": {"mu": ref, "nu": ref, "count": None},
+             "step": None, "calib": None})
 
 
 def make_eval_batch(cfg, args, device="cuda") -> dict:
@@ -195,20 +235,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model_axis > 1:
-        raise SystemExit("[train] --model_axis > 1 (tensor parallelism "
-                         "over several cards) is not ported (ROADMAP A10)")
     try:
         cfg, tcfg, par = build(args)
     except ValueError as e:
         raise SystemExit(f"[train] {e}")
-    device = MD.resolve_device(args.device)
+    MD.resolve_device(args.device)
+    # always under a mesh, as the reference trains: 1 x 1 in one process
+    # (a config with moe_impl="capacity" trains through the capacity
+    # dispatch), (world // model_axis, model_axis) under torchrun
+    started = not dist.is_initialized()
+    try:
+        mesh = make_local_mesh(args.model_axis, args.device)
+    except ValueError as e:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        raise SystemExit(f"[train] {e}")
+    device = compat.rank_device(args.device)
+    try:
+        with use_mesh(mesh):
+            return _run(args, cfg, tcfg, par, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, tcfg, par, device, mesh) -> dict:
+    """The run of ``main`` on this rank, under the ambient ``mesh``; rank 0
+    prints the logs and the summary."""
+    rank = dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    # the state and the batch are DTensors on a mesh of several ranks; a
+    # one-rank mesh keeps plain tensors (every placement would replicate)
+    placed_on = mesh if mesh.size() > 1 else None
+
     train_quant = resolve_train_quant(args)
     qat = train_quant == "qat"
     annealer = anneal.BudgetAnnealer.from_train_config(cfg, tcfg)
     if annealer is not None:
-        print(f"[train] budget schedule {annealer.schedule.describe()} "
-              f"({tcfg.budget_allocation} allocation)")
+        say(f"[train] budget schedule {annealer.schedule.describe()} "
+            f"({tcfg.budget_allocation} allocation)")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed)
 
@@ -223,6 +288,7 @@ def main(argv=None) -> dict:
 
     meta_args = {k: getattr(args, k) for k in TRAIN_ARG_KEYS}
     if device.type == "cuda":
+        torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
 
     start_step = 0
@@ -230,22 +296,33 @@ def main(argv=None) -> dict:
     if last is not None:
         # the template holds shapes only; the state is made from the
         # checkpoint, so the params never exist twice
-        tmpl = convert.train_state_to_reference(ST.make_train_state(
-            cfg, tcfg, calibrate=qat, seed=args.seed, device="meta"), cfg)
-        restored = ck.restore(args.ckpt_dir, last, tmpl,
+        meta_state = ST.make_train_state(cfg, tcfg, calibrate=qat,
+                                         seed=args.seed, device="meta")
+        tmpl = convert.train_state_to_reference(meta_state, cfg)
+        placed = None
+        if placed_on is not None:
+            placed = _state_shardings(meta_state.params, cfg, placed_on,
+                                      par)[1]
+        restored = ck.restore(args.ckpt_dir, last, tmpl, shardings=placed,
                               strict=("calib/",))
         state = convert.train_state_from_reference(restored, cfg, device)
         del restored
         start_step = last
-        print(f"[train] resumed from step {last}")
+        say(f"[train] resumed from step {last}")
         if start_step >= args.steps:
             raise SystemExit(
                 f"[train] checkpoint is already at step {start_step} >= "
                 f"--steps {args.steps}; raise --steps to continue or point "
                 f"--ckpt_dir at a fresh directory")
     else:
+        shardings = None
+        if placed_on is not None:
+            shardings = _state_shardings(
+                MD.init_params(cfg, args.seed, "meta"), cfg, placed_on,
+                par)[0]
         state = ST.make_train_state(cfg, tcfg, calibrate=qat,
-                                    seed=args.seed, device=device)
+                                    seed=args.seed, device=device,
+                                    shardings=shardings)
     matrix = convert.reference_matrix_mask(state.params, cfg)
 
     segments = annealer.schedule.segments(start_step, args.steps) \
@@ -262,16 +339,16 @@ def main(argv=None) -> dict:
         if annealer is not None:
             gbf = annealer.gbitflips_per_token(bits)
             label = "fp" if not bits else f"{bits}b"
-            print(f"[train] segment [{seg_start}, {seg_end}): "
-                  f"budget {label}, planned {gbf:.3f} Gbit-flips/token")
+            say(f"[train] segment [{seg_start}, {seg_end}): "
+                f"budget {label}, planned {gbf:.3f} Gbit-flips/token")
             if plan is not None:
-                print("[train] " + plan.describe())
+                say("[train] " + plan.describe())
             plans_meta.append({"step": seg_start, "bits": bits or 0,
                                "gbitflips_per_token": gbf,
                                "allocation": tcfg.budget_allocation})
         step_s = []
         for step in range(seg_start, seg_end):
-            batch = _batch(cfg, data, step, device)
+            batch = _batch(cfg, data, step, device, placed_on)
             t0 = time.monotonic()
             state, metrics = ST.train_step(state, batch, cfg=cfg_seg,
                                            tcfg=tcfg, par=par, matrix=matrix)
@@ -281,9 +358,9 @@ def main(argv=None) -> dict:
             step_s.append(dt)
             losses.append(loss)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step:5d} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.3f}")
+                say(f"[train] step {step:5d} loss {loss:.4f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"gnorm {float(metrics['grad_norm']):.3f}")
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 checkpoints.append(_save(
                     args, cfg, step + 1, state,
@@ -305,12 +382,12 @@ def main(argv=None) -> dict:
     # launch/export.py must reproduce from the serving artifact
     cfg_final, _, final_bits = cfg_for_step(max(args.steps - 1, 0))
     eval_l = ST.eval_loss(state.params, cfg_final,
-                          make_eval_batch(cfg, args, device),
-                          calib=state.calib)
-    print(f"[train] eval loss {eval_l:.6f} (held-out batch, final "
-          f"operating point)")
+                          _placed(make_eval_batch(cfg, args, device),
+                                  placed_on), calib=state.calib)
+    say(f"[train] eval loss {eval_l:.6f} (held-out batch, final "
+        f"operating point)")
     if qat:
-        print("[train] " + CAL.describe(state.calib))
+        say("[train] " + CAL.describe(state.calib))
     if args.ckpt_dir:
         checkpoints.append(_save(
             args, cfg, args.steps, state,
@@ -329,7 +406,20 @@ def main(argv=None) -> dict:
                                for c in checkpoints]}
     if device.type == "cuda":
         summary["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
-    print("[train] " + json.dumps(summary))
+    summary["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    summary["backend"] = dist.get_backend()
+    summary["rank"] = rank
+    summary["staged_collectives"] = compat.staged_collectives()
+    # every rank's own times and memory, rank by rank
+    mine = {k: summary.get(k) for k in ("rank", "peak_mem_gb",
+                                      "staged_collectives")}
+    mine["ms_per_step_after_first"] = [
+        seg["ms_per_step_after_first"] for seg in seg_times]
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            print("[train] rank " + json.dumps(mine), flush=True)
+        dist.barrier()
+    say("[train] " + json.dumps(summary))
     return summary
 
 

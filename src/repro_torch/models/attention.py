@@ -21,6 +21,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.dist import constrain as C
+from repro_torch.dist import local_ops
 from repro_torch.kernels import dispatch as KD
 from repro_torch.kernels import ref as KREF
 from repro_torch.models import layers as L
@@ -190,11 +192,24 @@ def attend(x: Tensor, p: dict, cfg: ModelConfig, *,
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
-    qg = q.reshape(b, t, cfg.num_heads, 1, hd)
-    out = _chunked_attention(qg, k, v, causal=causal and kv_src is None,
-                             window=window, softcap_val=cfg.attn_softcap)
+    q = C.constrain_axis(q, 2)
+    k = C.constrain_axis(k, 2)
+    v = C.constrain_axis(v, 2)
+    # heads are independent: under a mesh the core runs on each rank's
+    # heads (and batch rows) alone
+    out = local_ops.local_apply(_attention_core, q, k, v,
+                                causal=causal and kv_src is None,
+                                window=window,
+                                softcap_val=cfg.attn_softcap)
     out = out.to(x.dtype).reshape(b, t, -1)
     return L.project(out, p["wo"], cfg, "attn.wo")
+
+
+def _attention_core(q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+    """(B, T, H, hd) queries over (B, S, H, hd) K / V, one group a head:
+    ``_chunked_attention``'s (B, T, H, 1, hd) output, fp32."""
+    b, t, h, hd = q.shape
+    return _chunked_attention(q.reshape(b, t, h, 1, hd), k, v, **kw)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -235,6 +250,8 @@ def _write_pos(buf: Tensor, idx: Tensor, new: Tensor) -> None:
 def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
                   window: Optional[int] = None, use_rope: bool = True):
     """One-token decode step. x: (B, 1, d). Returns (out, updated cache)."""
+    # the reference's decode constraints come with serving under a mesh
+    # (ROADMAP A10)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = cache.length
@@ -338,6 +355,8 @@ def cross_attend_cached(x: Tensor, enc_kv: tuple[Tensor, Tensor], p: dict,
     """Decode cross-attention against the precomputed source K/V
     (``project_cross_kv``): fp32 einsum and softmax over every source
     token. x: (B, T, d)."""
+    # the reference's decode constraints come with serving under a mesh
+    # (ROADMAP A10)
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     q = L.project(x, p["wq"], cfg, "attn.wq").reshape(

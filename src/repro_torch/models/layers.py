@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.core import pann as pann_core
 from repro_torch.core import quant
+from repro_torch.dist import compat as dist_compat
+from repro_torch.dist import local_ops
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import pann_conv as _pc
 
@@ -309,7 +311,11 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, device) -> dict:
 
 
 def embed(tokens: Tensor, p: dict, dtype) -> Tensor:
-    return p["table"].to(dtype)[tokens]
+    table = p["table"].to(dtype)
+    if dist_compat.is_dtensor(table):
+        # the gather's local form over a vocab-sharded table
+        return local_ops.vocab_parallel_embed(table, tokens)
+    return table[tokens]
 
 
 def unembed(x: Tensor, p: dict, qc) -> Tensor:

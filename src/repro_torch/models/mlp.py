@@ -1,12 +1,12 @@
 """Feed-forward blocks (port of ``repro.models.mlp``): dense (SwiGLU /
 GeGLU / GELU / ReLU) and Mixture-of-Experts.
 
-MoE, as the reference without a mesh: a top-k softmax router and a scan
-over ALL experts, every expert on every token, its output weighted by the
-token's gate (zero for the experts not selected) and summed in expert
-order. The reference's expert-parallel capacity dispatch
-(``repro.dist.moe_ep``) runs only under an active mesh and comes with
-``dist/`` (ROADMAP A10).
+MoE: a top-k softmax router and a scan over ALL experts, every expert on
+every token, its output weighted by the token's gate (zero for the
+experts not selected) and summed in expert order. The expert-parallel
+capacity dispatch (``dist.moe_ep``) replaces the scan under an active
+mesh when ``cfg.moe_impl == "capacity"`` (``transformer.
+_apply_moe_dispatch``); both share ``route`` and ``expert_ffn``.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain as C
 from repro_torch.models import layers as L
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -109,6 +110,7 @@ def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                           path="moe.w_gate")) \
             * L.qlinear(x, w_up.to(x.dtype), None,
                         L.module_quant(cfg, "moe.w_up"), path="moe.w_up")
+        h = C.constrain_axis(h, -1, "model")
         return L.qlinear(h, w_down.to(x.dtype), None,
                          L.module_quant(cfg, "moe.w_down"),
                          path="moe.w_down")

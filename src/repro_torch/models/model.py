@@ -30,6 +30,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import calibrate as CAL
+from repro_torch.dist import constrain as C
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -258,7 +259,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
     ranges this pass observed (the encoder's, the decoder's and the
     head's, merged)."""
     collect = bool(calib)
-    x = L.embed(tokens, params["embed"], _dtype(cfg))
+    x = C.constrain_batch(L.embed(tokens, params["embed"], _dtype(cfg)))
     if cfg.scale_embed:
         x = x * embed_scale(cfg)
     obs = CAL.unseen_like(calib) if collect else None
@@ -350,6 +351,8 @@ def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
     states (``ssm.SSMState``, ``rwkv.RWKVState``) come back as new
     tensors in the new state."""
     dtype = _dtype(cfg)
+    # the reference's batch constraint here comes with serving under a
+    # mesh (ROADMAP A10)
     x = L.embed(tokens, params["embed"], dtype)
     if cfg.scale_embed:
         x = x * embed_scale(cfg)

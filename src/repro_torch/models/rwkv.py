@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain as C
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -112,9 +113,12 @@ def apply_time_mix(x: Tensor, p: dict, cfg: ModelConfig,
     xs = _token_shift(x, prev)
     mu = p["mu"].to(x.dtype)
     mix = [x * mu[i] + xs * (1 - mu[i]) for i in range(5)]
-    r = lin(mix[0], p["wr"], "wr").reshape(b, t, h, HEAD_DIM)
-    k = lin(mix[1], p["wk"], "wk").reshape(b, t, h, HEAD_DIM)
-    v = lin(mix[2], p["wv"], "wv").reshape(b, t, h, HEAD_DIM)
+    r = C.constrain_axis(lin(mix[0], p["wr"], "wr").reshape(b, t, h,
+                                                             HEAD_DIM), 2)
+    k = C.constrain_axis(lin(mix[1], p["wk"], "wk").reshape(b, t, h,
+                                                             HEAD_DIM), 2)
+    v = C.constrain_axis(lin(mix[2], p["wv"], "wv").reshape(b, t, h,
+                                                             HEAD_DIM), 2)
     g = F.silu(lin(mix[3], p["wg"], "wg"))
     dlow = torch.tanh(lin(mix[4], p["decay_a"], "decay_a"))
     dd = lin(dlow, p["decay_b"], "decay_b") + p["decay_base"]

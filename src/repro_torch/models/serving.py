@@ -1,7 +1,8 @@
 """Serving-time weight quantization (port of ``repro.models.serving``):
-the single-point artifact (``quantize_params_for_serving``) and one
-max-budget weight store with a zero-copy view per ladder rung
-(``build_weight_store``).
+the single-point artifact (``quantize_params_for_serving``), one such
+artifact per rung (``build_variant_cache``), one max-budget weight store
+with a zero-copy view per ladder rung (``build_weight_store``), and a
+view copied out as a standalone variant (``materialize_view``).
 
 Each projection weight is quantized with PANN Eq. 12 (per-output-channel
 gamma) and stored as int8 codes and, for the 'packed' backend, as
@@ -397,3 +398,115 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
 
     store, views = walk(params)
     return WeightStore(store=store, views=views)
+
+
+# ---------------------------------------------------------------------------
+# One variant per rung; a rung view copied out
+# ---------------------------------------------------------------------------
+
+def variant_shardings(variant: Any, mesh, par=None) -> Any:
+    """NamedShardings for one quantized variant on ``mesh``: the training
+    params' Megatron column / row rules (``w_q`` and the plane leaves
+    follow ``w``, ``w_scale`` is replicated; ``dist.sharding``)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.dist import sharding as SH
+    specs = SH.param_specs(variant, mesh, par or ParallelConfig())
+    return SH.to_named(specs, mesh)
+
+
+def _tree_copy(node: Any) -> Any:
+    """The dict / list structure of ``node`` copied, its tensors shared
+    (so a quantizer that pops leaves keeps the caller's tree whole)."""
+    if isinstance(node, dict):
+        return {k: _tree_copy(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree_copy(v) for v in node)
+    return node
+
+
+def build_variant_cache(params: Any, cfg, r_by_rung: Mapping[Any, Any],
+                        mesh=None, par=None, pack_planes: bool = False,
+                        plane_count: Optional[int] = None,
+                        calib: Optional[Mapping[str, Any]] = None,
+                        cache_bits: Any = None,
+                        spec: Optional[ServingQuantSpec] = None) -> dict:
+    """One single-point artifact per operating point
+    (``quantize_params_for_serving``): ``r_by_rung`` maps a rung key to R,
+    to (R, b~x), or to a ``core.policy.PolicyTree``. Every variant has the
+    same structure and shapes (b~x is data), so one decode step serves
+    them all. With ``mesh`` each variant's leaves are DTensors placed by
+    ``variant_shardings``. ``params`` is left whole (each rung quantizes
+    its own copy of the tree's structure).
+
+    ``pack_planes`` over several rungs needs a pinned ``plane_count``
+    (e.g. ``LADDER_PLANE_COUNT``), so the rungs' plane leaves share
+    shapes. ``cache_bits`` is an int for every rung or a {rung key: bits}
+    mapping covering each. ``spec`` (a ``ServingQuantSpec``) supersedes
+    the per-knob arguments. The codes are int8."""
+    if spec is not None:
+        pack_planes, plane_count = spec.pack_planes, spec.plane_count
+        calib, cache_bits = spec.calib, spec.cache_bits
+    if isinstance(cache_bits, Mapping):
+        missing = set(r_by_rung) - set(cache_bits)
+        if missing:
+            raise ValueError(
+                f"cache_bits mapping must cover every rung (missing "
+                f"{sorted(missing)}): rungs with and without kv_cache "
+                "leaves cannot share one pytree structure")
+    if pack_planes and plane_count is None and len(r_by_rung) > 1:
+        raise ValueError(
+            "pack_planes over multiple rungs needs a pinned plane_count "
+            "(e.g. serving.LADDER_PLANE_COUNT); per-rung value-exact plane "
+            "counts give rungs different avals and break the one-compiled-"
+            "decode-step invariant")
+    base = ServingQuantSpec(pack_planes=pack_planes, plane_count=plane_count,
+                            calib=calib)
+    cache = {}
+    shardings = None
+    for key, rung_spec in r_by_rung.items():
+        cb = (cache_bits.get(key) if isinstance(cache_bits, Mapping)
+              else cache_bits)
+        rq = dataclasses.replace(base,
+                                 cache_bits=None if cb is None else int(cb))
+        if isinstance(rung_spec, pol.PolicyTree):
+            rq = dataclasses.replace(rq, policy=rung_spec)
+        else:
+            r, act_bits = rung_spec if isinstance(rung_spec, tuple) \
+                else (rung_spec, None)
+            rq = dataclasses.replace(rq, r=float(r), act_bits=act_bits)
+        v = quantize_params_for_serving(_tree_copy(params), cfg, spec=rq)
+        if mesh is not None:
+            from repro_torch.dist import sharding as SH
+            if shardings is None:     # the variants share shapes
+                shardings = variant_shardings(v, mesh, par)
+            v = SH.distribute(v, shardings)
+        cache[key] = v
+    return cache
+
+
+def materialize_view(view: Any) -> Any:
+    """Copy one rung view out as a standalone variant: ``w_q`` becomes the
+    masked codes the plane-skipping kernels realize
+    (``core.pann.masked_codes``), the plane leaves are repacked from them,
+    ``w_colsum`` is their column sum and the ``plane_shift`` leaf is
+    dropped. Same gamma_R scale, same bias grid, same integer dataflow:
+    its decode is bit-identical to the view's."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "w_q" in node and "plane_shift" in node:
+                sh = int(node["plane_shift"].reshape(-1)[0])
+                masked = pann_core.masked_codes(node["w_q"], sh)
+                out = {k: v for k, v in node.items() if k != "plane_shift"}
+                out["w_q"] = masked.to(node["w_q"].dtype)
+                out["w_colsum"] = torch.sum(masked, dim=-2,
+                                            dtype=torch.int32)
+                if "w_planes_pos" in node:
+                    out.update(_planes_artifact(out["w_q"],
+                                                LADDER_PLANE_COUNT))
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(view)

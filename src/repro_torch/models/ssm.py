@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain as C
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -162,7 +163,7 @@ def apply_ssm(x: Tensor, p: dict, cfg: ModelConfig) -> Tensor:
     conv_out, _ = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
     xs, b_ssm, c_ssm = torch.tensor_split(conv_out, [d_inner, d_inner + n],
                                           dim=-1)
-    xh = xs.reshape(*xs.shape[:-1], h, p_dim)
+    xh = C.constrain_axis(xs.reshape(*xs.shape[:-1], h, p_dim), 2)
     y, _ = _ssd_chunked(xh, dt, p["a_log"], b_ssm, c_ssm)
     y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(*x.shape[:-1], d_inner).to(x.dtype)

@@ -166,8 +166,8 @@ def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
                 causal: bool = True) -> tuple[Tensor, Tensor]:
     """Prefill / ``forward`` of one layer. Returns (x, aux_loss): the aux
     loss is an attn_moe layer's router load-balance loss, else 0. MoE runs
-    the scan over experts, as the reference does without a mesh (its
-    capacity dispatch comes with ``dist/``, ROADMAP A10). ``shared`` is
+    the scan over experts, or the capacity dispatch under a mesh
+    (``_apply_moe_dispatch``). ``shared`` is
     zamba2's shared block, which every mamba_attn layer runs;
     ``cross_src`` (B, S, d) the tokens a cross_attn layer attends to (the
     layer skips its cross-attention without them, as the reference's)."""
@@ -199,11 +199,26 @@ def apply_layer(x: Tensor, p: dict, cfg: ModelConfig, spec: LayerSpec, *,
                                causal=False), p)
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     if spec.kind == "attn_moe":
-        h, aux = M.apply_moe(h, p["moe"], cfg)
+        h, aux = _apply_moe_dispatch(h, p["moe"], cfg)
     else:
         h = M.apply_mlp(h, p["mlp"], cfg)
     x = _residual(x, h, p, cfg, "post2")
     return x, aux
+
+
+def _apply_moe_dispatch(h: Tensor, p: dict, cfg: ModelConfig
+                        ) -> tuple[Tensor, Tensor]:
+    """The dense scan, or the capacity dispatch (``dist.moe_ep``) when a
+    mesh is active and the config opts in (``moe_impl == "capacity"``),
+    as the reference's (an abstract stand-in mesh takes the scan)."""
+    if cfg.moe_impl == "capacity":
+        from repro_torch.dist.compat import DeviceMesh
+        from repro_torch.dist.constrain import _context_mesh
+        from repro_torch.dist.moe_ep import apply_moe_capacity
+        mesh = _context_mesh()
+        if isinstance(mesh, DeviceMesh):
+            return apply_moe_capacity(h, p, cfg, mesh)
+    return M.apply_moe(h, p, cfg)
 
 
 def decode_layer(x: Tensor, cache: Any, p: dict, cfg: ModelConfig,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.dist import compat
 
 Tensor = torch.Tensor
 
@@ -116,7 +117,9 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, Tensor]:
     leaves = tree_leaves(grads)
     total = None
     for g in leaves:
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+        # a sharded leaf's sum is a collective (compat.full): the norm
+        # and the scale are plain tensors, the same on every rank
+        sq = compat.full(torch.sum(torch.square(g.to(torch.float32))))
         total = sq if total is None else total + sq
     gnorm = torch.sqrt(total)
     scale = torch.clamp(_f32(max_norm, gnorm)

@@ -193,6 +193,20 @@ def _read_manifest(directory: str) -> dict:
     return m
 
 
+def read_meta(directory: str) -> dict:
+    """The manifest's metadata block (checks the magic and the version),
+    with the reference's errors."""
+    try:
+        with open(os.path.join(directory, MANIFEST)) as f:
+            m = json.load(f)
+    except (OSError, ValueError) as e:
+        raise ArtifactError(f"no readable {MANIFEST} in {directory}: {e}")
+    if m.get("magic") != ARTIFACT_MAGIC or \
+            m.get("version") != ARTIFACT_VERSION:
+        raise ArtifactError("not a loadable serving artifact")
+    return dict(m.get("meta", {}))
+
+
 def load_artifact(directory: str, device="cuda") -> WeightStore:
     """Map ``weights.bin`` once and return the port's ``WeightStore`` on
     ``device``: every leaf is split into the port's per-layer layout

@@ -151,7 +151,18 @@ class ServeEngine:
                  slots: int = 2,
                  device="cuda",
                  frontend_kwargs_fn: Optional[Callable[[int], dict]] = None,
-                 autotune: bool = False):
+                 autotune: bool = False,
+                 artifact_format: str = "views"):
+        # the ladder is always one weight store with zero-copy rung views;
+        # the reference's per-rung 'legacy' format is refused, as there
+        if artifact_format != "views":
+            raise ValueError(
+                f"artifact_format {artifact_format!r} is gone: the per-rung "
+                "'legacy' materialization was retired — 'views' (one weight "
+                "store, zero-copy rung views) is the only format. Budget "
+                "snapping drift is bounded by benchmarks/artifact_parity.py; "
+                "drop the artifact_format argument.")
+        self.artifact_format = artifact_format
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "
@@ -691,6 +702,7 @@ class ServeEngine:
         total_macs = sum(m.macs for m in self.profile)
         return {
             "allocation": self.allocation,
+            "artifact_format": self.artifact_format,
             "backend": self.backend,
             "cache_bits": self.cache_bits,
             "cache_bits_by_rung": dict(self._cache_bits_by_rung) or None,

@@ -1,0 +1,309 @@
+"""One rank of a spawned group of CPU gloo ranks, for
+``test_torch_dist.py`` (the compressed all-reduce, the GPipe pipeline,
+the elastic checkpoint restore), ``test_torch_dist_moe.py`` (the MoE
+capacity dispatch with its experts over "data") and
+``test_torch_dist_tp.py`` (tensor-parallel training).
+
+Each test file starts ONE group (``spawn_group``) on a ``FileStore``
+under its temporary directory (no fixed port) and names the cases its
+ranks run. Each case writes what it computed to that directory; the test
+process holds it against the JAX package. This module imports torch and
+``repro_torch`` only.
+"""
+import json
+import multiprocessing
+import os
+import time
+import traceback
+
+import numpy as np
+
+WORLD = 4
+PSUM_SHAPES = {"a": (64,), "b": (8, 16)}
+PIPE = {"d": 16, "groups": 4, "batch": 8, "micro": 4}
+TRAIN_STEPS = 1
+READY = "ckpt_ready"           # the test process wrote its checkpoints
+TRAIN_ARGV = ["--arch", "llama3-8b", "--reduced", "--batch", "4", "--seq",
+              "16", "--steps", str(TRAIN_STEPS), "--device", "cpu"]
+# one step of reduced mixtral (capacity dispatch, 4 experts) on a (4, 1)
+# mesh: the experts go over "data"
+MOE_ARGV = ["--arch", "mixtral-8x7b", "--reduced", "--batch", "4", "--seq",
+            "16", "--steps", "1", "--device", "cpu", "--model_axis", "1"]
+
+
+def reference_args(argv: list):
+    """``argv`` of ``launch.train`` as the arguments the JAX package's
+    ``launch.train.build`` takes: the trainer's defaults, the argv's
+    values (flags the build does not read dropped)."""
+    import types
+    ns = types.SimpleNamespace(
+        arch="llama3-8b", reduced=False, d_model=0, d_ff=0, layers=0,
+        steps=100, total_steps=0, batch=8, seq=128, lr=3e-4, seed=0,
+        quant="none", train_quant="", r=2.0, act_bits=8, weight_bits=8,
+        budget_schedule="", allocation="layerwise", calib_decay=0.99,
+        anneal_warmup=0, remat=False, microbatches=1)
+    it = iter(argv)
+    for flag in it:
+        key = flag[2:]
+        if key == "reduced":
+            ns.reduced = True
+        elif not hasattr(ns, key):    # a flag ``build`` does not read
+            next(it)
+        else:
+            setattr(ns, key, type(getattr(ns, key))(next(it)))
+    return ns
+
+
+def psum_inputs(rank: int) -> tuple:
+    """This rank's gradient and error-feedback trees (numpy, seeded)."""
+    rng = np.random.default_rng(100 + rank)
+    g = {k: (rng.standard_normal(s) * 1e-2).astype(np.float32)
+         for k, s in PSUM_SHAPES.items()}
+    e = {k: (rng.standard_normal(s) * 1e-5).astype(np.float32)
+         for k, s in PSUM_SHAPES.items()}
+    return g, e
+
+
+def pipe_inputs() -> tuple:
+    rng = np.random.default_rng(7)
+    d = PIPE["d"]
+    ws = (rng.standard_normal((PIPE["groups"], d, d))
+          * d ** -0.5).astype(np.float32)
+    x = rng.standard_normal((PIPE["batch"], d)).astype(np.float32)
+    return ws, x
+
+
+def _psum(rank: int, tmp: str) -> None:
+    import torch
+    from repro_torch.dist.collectives import _compress_one, \
+        compressed_psum_mean
+    g, e = psum_inputs(rank)
+    tg = {k: torch.as_tensor(v) for k, v in g.items()}
+    te = {k: torch.as_tensor(v) for k, v in e.items()}
+    mean, err = compressed_psum_mean(tg, te)
+    codes = {k: _compress_one(tg[k], te[k])[2] for k in tg}
+    np.savez(os.path.join(tmp, f"psum_{rank}.npz"),
+             **{f"mean_{k}": mean[k].numpy() for k in mean},
+             **{f"err_{k}": err[k].numpy() for k in err},
+             **{f"codes_{k}": codes[k].numpy() for k in codes})
+
+
+def _pipeline(rank: int, tmp: str) -> None:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.compat import DeviceMesh
+    from repro_torch.dist.pipeline import pipeline_stack
+    mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                      mesh_dim_names=("pod", "data"))
+    ws, x = (torch.as_tensor(a).requires_grad_(True) for a in pipe_inputs())
+
+    def block(stage_ws, h):
+        for w in stage_ws:
+            h = torch.tanh(h @ w)
+        return h
+
+    out = pipeline_stack(block, ws, x, mesh=mesh, axis="pod",
+                         n_micro=PIPE["micro"])
+    gw, gx = torch.autograd.grad((out ** 2).sum(), (ws, x))
+    group = mesh.get_group("pod")
+    dist.all_reduce(gw, group=group)
+    dist.all_reduce(gx, group=group)
+    if rank == 0:
+        np.savez(os.path.join(tmp, "pipe.npz"), out=out.detach().numpy(),
+                 gw=gw.numpy(), gx=gx.numpy())
+
+
+def _elastic(rank: int, tmp: str) -> None:
+    """Save a (4, 1) FSDP-sharded train state; restore it onto (2, 2)
+    and, without shardings, as one rank's plain arrays."""
+    import torch
+    from repro_torch import configs, convert
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.dist.compat import DeviceMesh, full
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as MD
+    cfg = configs.reduced(configs.get_config("llama3-8b"))
+    tcfg = TrainConfig(seed=3)
+    par = ParallelConfig(fsdp=True)
+    meta = MD.init_params(cfg, 3, "meta")
+    mesh41 = DeviceMesh("cpu", torch.arange(WORLD).reshape(4, 1),
+                        mesh_dim_names=("data", "model"))
+    mesh22 = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                        mesh_dim_names=("data", "model"))
+    state = ST.make_train_state(
+        cfg, tcfg, seed=3, device="cpu",
+        shardings=TR._state_shardings(meta, cfg, mesh41, par)[0])
+    want = convert.train_state_to_reference(state, cfg)
+    want_flat = {k: full(v) if not hasattr(v, "parts")
+                 else torch.stack([full(p) for p in v.parts])
+                 for k, v in ck.flatten(want)}
+    sharded41 = sum(1 for _, v in ck.flatten(want)
+                    for p in getattr(v, "parts", (v,))
+                    if hasattr(p, "placements")
+                    and any(pl.is_shard() for pl in p.placements))
+    d = os.path.join(tmp, "elastic")
+    ck.save(d, 1, want)
+    tmpl = convert.train_state_to_reference(ST.make_train_state(
+        cfg, tcfg, seed=3, device="meta"), cfg)
+    placed = TR._state_shardings(meta, cfg, mesh22, par)[1]
+    on22 = dict(ck.flatten(ck.restore(d, 1, tmpl, shardings=placed)))
+    plain = dict(ck.flatten(ck.restore(d, 1, tmpl)))
+    diff22 = {k: bool(torch.equal(
+        full(v) if isinstance(v, torch.Tensor)
+        else torch.as_tensor(np.array(v)), want_flat[k]))
+        for k, v in on22.items()}
+    sharded22 = sum(1 for v in on22.values()
+                    if hasattr(v, "placements")
+                    and any(pl.is_shard() for pl in v.placements))
+    diff11 = {k: bool(np.array_equal(np.asarray(v),
+                                      want_flat[k].numpy()))
+              for k, v in plain.items()}
+    # the port's own layout restored from the (2, 2) arrays
+    port22 = convert.train_state_from_reference(
+        ck.restore(d, 1, tmpl, shardings=placed), cfg, "cpu")
+    same_port = all(torch.equal(full(a), full(b)) for a, b in zip(
+        _leaves(port22.params), _leaves(state.params)))
+    if rank == 0:
+        with open(os.path.join(tmp, "elastic.json"), "w") as f:
+            json.dump({"equal_22": diff22, "equal_11": diff11,
+                       "sharded_leaves_41": sharded41,
+                       "sharded_leaves_22": sharded22,
+                       "port_layout_equal": same_port}, f)
+
+
+def _leaves(tree):
+    from repro_torch.optim.optimizers import tree_leaves
+    return tree_leaves(tree)
+
+
+def _wait_ready(tmp: str) -> None:
+    deadline = time.monotonic() + 300
+    while not os.path.exists(os.path.join(tmp, READY)):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the test process wrote no checkpoint")
+        time.sleep(0.05)
+
+
+def _train(rank: int, argv: list) -> dict:
+    """``launch.train.main`` on the standing group, as torchrun starts
+    it."""
+    from repro_torch.launch import train as TR
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(WORLD),
+                       "LOCAL_RANK": str(rank)})
+    return TR.main(argv)
+
+
+def _tp_train(rank: int, tmp: str) -> None:
+    """``launch.train.main`` on the (2, 2) mesh, resumed from the
+    reference's step-0 checkpoint the test wrote."""
+    _wait_ready(tmp)
+    summary = _train(rank, TRAIN_ARGV + ["--model_axis", "2", "--ckpt_dir",
+                                         os.path.join(tmp, "tp_ckpt")])
+    if rank == 0:
+        with open(os.path.join(tmp, "tp.json"), "w") as f:
+            json.dump(summary, f)
+
+
+def _moe_ep(rank: int, tmp: str) -> None:
+    """One train step of reduced mixtral on the (4, 1) mesh, resumed from
+    the reference's step-0 checkpoint the test wrote; its step-1
+    checkpoint (the AdamW moments hold the gradients) and summary go to
+    the test, with each capacity dispatch's routes and kept routes and
+    the placements of its (E, C, d) expert buffer."""
+    from repro_torch.dist import moe_ep as TMOE
+    from repro_torch.dist.compat import full
+    _wait_ready(tmp)
+    plans, placements = [], []
+    real_plan, real_constrain = TMOE.dispatch_plan, TMOE._constrain
+
+    def plan(mask, capacity):
+        keep, pos = real_plan(mask, capacity)
+        plans.append((int(full(mask).sum()), int(full(keep).sum())))
+        return keep, pos
+
+    def constrain(x, mesh, entries):
+        out = real_constrain(x, mesh, entries)
+        placements.append([f"Shard({p.dim})" if p.is_shard() else
+                           "Replicate" if p.is_replicate() else str(p)
+                           for p in getattr(out, "placements", ())])
+        return out
+
+    TMOE.dispatch_plan, TMOE._constrain = plan, constrain
+    try:
+        summary = _train(rank, MOE_ARGV + ["--ckpt_dir",
+                                           os.path.join(tmp, "moe_ckpt")])
+    finally:
+        TMOE.dispatch_plan, TMOE._constrain = real_plan, real_constrain
+    if rank == 0:
+        with open(os.path.join(tmp, "moe.json"), "w") as f:
+            json.dump({"summary": summary, "plans": plans,
+                       "placements": placements}, f)
+
+
+CASES = {"psum": _psum, "pipeline": _pipeline, "elastic": _elastic,
+         "moe_ep": _moe_ep, "tp": _tp_train}
+
+
+def run(rank: int, tmp: str, cases: tuple) -> None:
+    """The spawned rank's entry point: ``cases`` in order; a failure is
+    written to ``error_<rank>.txt`` and re-raised."""
+    t0 = time.monotonic()
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    seconds = {}
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), WORLD),
+            rank=rank, world_size=WORLD)
+        seconds["start"] = time.monotonic() - t0
+        try:
+            for name in cases:
+                t0 = time.monotonic()
+                CASES[name](rank, tmp)
+                seconds[name] = time.monotonic() - t0
+        finally:
+            dist.destroy_process_group()
+        # each case's seconds on this rank, for the file's report
+        with open(os.path.join(tmp, f"seconds_{rank}.json"), "w") as f:
+            json.dump(seconds, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_group(tmp: str, cases: tuple, prepare=None, meanwhile=None):
+    """Run ``cases`` on WORLD spawned ranks and return ``meanwhile()``.
+    ``prepare()`` (the test process's checkpoints) runs while they start,
+    READY tells them it is done, and ``meanwhile()`` (the test process's
+    reference) runs while they work. Fails if a rank fails or hangs; no
+    process group is started in the caller."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=run, args=(r, tmp, cases))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        if prepare is not None:
+            prepare()
+        open(os.path.join(tmp, READY), "w").close()
+        result = meanwhile() if meanwhile is not None else None
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.join()
+        raise
+    for p in procs:
+        p.join(timeout=240)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    errors = [open(os.path.join(tmp, f)).read() for f in sorted(
+        os.listdir(tmp)) if f.startswith("error_")]
+    assert not alive and not errors and all(
+        p.exitcode == 0 for p in procs), errors or "a rank hung"
+    return result

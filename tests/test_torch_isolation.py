@@ -117,3 +117,27 @@ def test_fleet_and_autotune_modules_are_checked(module):
     allowed = {"torch", "numpy", "repro_torch"} | std
     assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
 
+
+
+DIST_MODULES = ["dist/compat.py", "dist/constrain.py", "dist/sharding.py",
+                "dist/local_ops.py", "dist/collectives.py",
+                "dist/pipeline.py", "dist/moe_ep.py", "launch/mesh.py"]
+
+
+@pytest.mark.parametrize("module", DIST_MODULES)
+def test_dist_modules_are_checked(module):
+    """``dist/`` on torch.distributed (the version shim and the host-staged
+    group, the constraints, the specs and placements, the local forms,
+    the compressed all-reduce, the pipeline, the capacity dispatch) and
+    the mesh constructors are among the files and submodules checked
+    above (imported without jax) and import only torch, numpy, the
+    standard library and the port."""
+    path = PORT / module
+    assert path in _port_files()
+    name = "repro_torch." + module[:-3].replace("/", ".")
+    assert name in [m.name for m in pkgutil.walk_packages(
+        [str(PORT)], "repro_torch.")]
+    std = {"__future__", "contextlib", "contextvars", "dataclasses",
+           "datetime", "math", "os", "tempfile", "typing"}
+    allowed = {"torch", "numpy", "repro_torch"} | std
+    assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
