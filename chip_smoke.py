@@ -282,6 +282,26 @@ Phases (any failure raises and the script exits non-zero):
               weight store's top view, and the rung view with the most
               skipped planes and its materialized copy decoding 8 tokens
               at batch 4 bit for bit on 'packed' and 'fused' (B2, B1).
+13. mesh    — serving under a device mesh: (a) in 12b's ``--dist-worker``
+              launch, llama3-8b at full width cut to MESH_LAYERS = 8, the
+              whole store quantized on both ranks from the same seeded
+              params, served by ``ServeEngine(mesh=...)`` on a (1, 2)
+              ("data", "model") mesh on 'packed' and 'fused' and a (2, 1)
+              mesh on 'packed' (ladder 2,4,6, 4-bit cache, batch 4,
+              prompt 32, gen 16, a request a rung): rank 0's tokens and
+              every step's logits bit for bit against a one-rank engine
+              on the same store (graph replays), each rank's store at most
+              1/2 + 0.02 of the whole on (1, 2), the accumulator-mode and
+              epilogue launches counted; host ms a step, tok/s, staged
+              collectives a step and peak memory of each rank; (b) B1 and
+              B2 in the accumulator mode and the epilogue entry at the
+              row-parallel shard shapes ((4 | 512) x (2048 | 7168) x 4096)
+              bit for bit against their plain versions, and the shards'
+              sums through the epilogue against the whole projection; the
+              column shards' B1 / B2; timed at M = 4; (c) the dry run
+              (``repro_torch.launch.dryrun``) of llama3-8b ``decode_32k``
+              and ``train_4k --reduced`` on a fake 256-rank group, two
+              subprocesses that see no card.
 
 TF32 must stay off for the fp32 matmuls (PyTorch's defaults, asserted at
 the start and the end). A ``[time]`` line marks the end of each phase.
@@ -1268,7 +1288,11 @@ COUNTERS = (("pann_matmul_act", "pann_matmul", "launches"),
             ("pann_matmul_packed", "pann_matmul_packed",
              "pann_matmul_packed_launches"),
             ("unsigned_matmul", "unsigned_matmul", "launches"),
-            ("quantize_act", "quantize_act", "launches"))
+            ("quantize_act", "quantize_act", "launches"),
+            ("pann_matmul_act_acc", "pann_matmul", "acc_launches"),
+            ("pann_matmul_packed_act_acc", "pann_matmul_packed",
+             "acc_launches"),
+            ("pann_epilogue", "pann_matmul", "epilogue_launches"))
 
 
 def _counter_module(name: str):
@@ -4378,6 +4402,8 @@ def tp_train() -> dict:
         _torchrun(2, [str(ROOT / "chip_smoke.py"), "--dist-worker", path])
         checks = json.loads(Path(path).read_text())
         checks["wall_s"] = time.perf_counter() - t0
+        mesh = [json.loads(Path(f"{path}.mesh.rank{r}").read_text())
+                for r in range(2)]
     return {"argv": TP_ARGV, "mesh": summary["mesh"],
             "backend": summary["backend"],
             "losses_2_ranks": summary["losses_exact"],
@@ -4386,7 +4412,8 @@ def tp_train() -> dict:
             "one_rank_ms_per_step_after_first": one["segments"][0][
                 "ms_per_step_after_first"],
             "one_rank_peak_mem_gb": one["peak_mem_gb"],
-            "tp_wall_s": tp_s, "one_rank_wall_s": one_s, "checks": checks}
+            "tp_wall_s": tp_s, "one_rank_wall_s": one_s, "checks": checks,
+            "mesh_serve": mesh}
 
 
 def dist_worker(out_path: str) -> int:
@@ -4465,6 +4492,9 @@ def dist_worker(out_path: str) -> int:
     res["staged_collectives"] = compat.staged_collectives()
     if rank == 0:
         Path(out_path).write_text(json.dumps(res))
+    dist.barrier()
+    # 13a in the same launch: no second torchrun start
+    mesh_serve_worker(out_path + ".mesh")
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -4545,6 +4575,352 @@ def a11_on_kernels(seed: int = 45) -> dict:
             "rung": rung, "plane_shift": shifts[rung], "tokens": A11_TOKENS,
             "batch": BATCH, "variant_leaves_equal": True, "runs": runs,
             "wall_s": time.perf_counter() - t_start}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving under a device mesh
+# ---------------------------------------------------------------------------
+
+# 13a: llama3-8b at full width cut to MESH_LAYERS on two ranks sharing the
+# card (host-staged collectives): each rank quantizes the whole 8-layer
+# store (~8.3 GB) from the same seeded params and keeps its shard, beside a
+# one-rank engine on the same store in the same run; 8 layers keep both
+# ranks' stores and transients well inside 80 GB and the three cases inside
+# ~2 minutes of the script's 1,200 s
+MESH_LAYERS = 8
+MESH_SEED = 50
+# (name, (data, model), backend, requests): a request a rung (3 waves of
+# prompt + gen steps; 'fused', twice as slow a step, serves the first two)
+MESH_CASES = (("model2_packed", (1, 2), "packed", 3),
+              ("model2_fused", (1, 2), "fused", 2),
+              ("data2_packed", (2, 1), "packed", 3))
+# 13b: the accumulator mode's local shapes on the (1, 2) mesh, (K, N, the
+# module, launches of the shape a decode step on each rank), and the
+# column shards' (K, N) the ordinary B1/B2 launch there
+ACC_SHAPES = ((2048, 4096, "wo", MESH_LAYERS),
+              (7168, 4096, "w_down", MESH_LAYERS))
+COLUMN_SHARDS = ((4096, 2048, "wq"), (4096, 512, "wk,wv"),
+                 (4096, 7168, "w_gate,w_up"), (4096, 64128, "lm_head"))
+ACC_M = (BATCH, 512)
+# 13c: the dry run's cells, each a subprocess that sees no card: decode at
+# full size (seconds on meta tensors), train_4k cut to --reduced (the full
+# 32-layer DTensor step takes about a minute of CPU, past the phase's
+# share of the script's time)
+DRYRUN_CELLS = (("decode_32k", ()), ("train_4k", ("--reduced",)))
+
+
+def _mesh_cfg():
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    return dataclasses.replace(
+        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
+        num_layers=MESH_LAYERS)
+
+
+def _mesh_engine(ws, backend: str, mesh=None):
+    from repro_torch.serve_engine import ServeEngine
+    return ServeEngine(_mesh_cfg(), weight_store=ws, ladder_bits=LADDER,
+                       max_batch=BATCH, max_len=PROMPT + GEN,
+                       backend=backend, cache_bits=CACHE_BITS, mesh=mesh)
+
+
+def _mesh_serve(engine, n_requests: int) -> dict:
+    """Serve ``n_requests`` of 13a's requests on ``engine`` (every step's
+    logits recorded, copied to the host), timed; the launch counters from
+    0 across the serve."""
+    from repro_torch.dist import compat
+    steps = []
+    run = engine._run_step
+
+    def recorded(bits, slot):
+        logits = run(bits, slot)
+        steps.append(logits.detach().cpu())
+        return logits
+
+    engine._run_step = recorded
+    engine.warmup()
+    torch.cuda.synchronize()
+    staged0 = compat.staged_collectives()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(_requests(engine.cfg, MESH_SEED, n_requests))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    staged = {k: v - staged0.get(k, 0)
+              for k, v in compat.staged_collectives().items()}
+    n = len(steps)
+    gen = sum(len(r.tokens) for r in out)
+    return {"tokens": [r.tokens for r in out], "logits": torch.stack(steps),
+            "steps": n, "ms_per_step": 1e3 * wall / n,
+            "tok_per_s": gen / wall, "launches": counts,
+            "staged_per_step": {k: v / n for k, v in staged.items()},
+            "describe": {k: engine.describe()[k]
+                         for k in ("mesh", "graphed", "steps")}}
+
+
+def mesh_serve_worker(out_path: str) -> None:
+    """13a, one rank of two sharing the card (run by ``dist_worker``): the
+    whole store of MESH_LAYERS full-width layers quantized from the same
+    seeded params on both ranks; rank 0 serves it on a one-rank engine
+    per backend (graph replays); then each case of MESH_CASES on its mesh
+    (eager steps, host-staged collectives), tokens and every step's logits
+    held bit for bit to the one-rank engine's on rank 0, the store bytes,
+    host ms a step, tok/s, staged collectives a step and the peak of each
+    rank written to ``out_path`` (a file a rank)."""
+    import torch.distributed as dist
+    from repro_torch.dist.compat import DeviceMesh
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import build_ladder
+    rank = dist.get_rank()
+    cfg = _mesh_cfg()
+    ladder = build_ladder(LADDER, d=float(cfg.d_model))
+    points = {op.bits: (op.r, op.b_x_tilde) for op in ladder}
+    t0 = time.perf_counter()
+    ws = serving.build_weight_store(
+        _init_params(cfg, MESH_SEED), cfg, points,
+        serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+    _free()
+    build_s = time.perf_counter() - t0
+    whole = serving.store_bytes(ws.store, *ws.views.values())
+    one = {}
+    if rank == 0:
+        for backend, n in sorted({c[2:] for c in MESH_CASES}):
+            engine = _mesh_engine(ws, backend)
+            one[backend, n] = _mesh_serve(engine, n)
+            del engine
+            _free()
+    dist.barrier()
+    res = {"rank": rank, "build_s": build_s, "store_gb_one_rank": whole / 1e9,
+           "cases": {}}
+    for name, (d, m), backend, n in MESH_CASES:
+        mesh = DeviceMesh("cuda", torch.arange(2).reshape(d, m),
+                          mesh_dim_names=("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = _mesh_engine(ws, backend, mesh)
+        place_s = time.perf_counter() - t0
+        nbytes = serving.store_bytes(engine.weight_store,
+                                     *engine.variants.values())
+        got = _mesh_serve(engine, n)
+        del engine
+        _free()
+        case = {"mesh": {"data": d, "model": m}, "backend": backend,
+                "requests": n,
+                "place_s": place_s, "store_gb": nbytes / 1e9,
+                "store_share": nbytes / whole,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                **{k: got[k] for k in ("steps", "ms_per_step", "tok_per_s",
+                                       "launches", "staged_per_step",
+                                       "describe")}}
+        if rank == 0:
+            ref = one[backend, n]
+            if got["tokens"] != ref["tokens"] or \
+                    not torch.equal(got["logits"], ref["logits"]):
+                diff = (got["logits"] - ref["logits"]).abs().max().item() \
+                    if got["logits"].shape == ref["logits"].shape else None
+                raise AssertionError(f"13a {name}: the mesh's tokens or "
+                                     f"logits differ from one rank's "
+                                     f"(max |diff| {diff})")
+            if not torch.isfinite(got["logits"]).all():
+                raise AssertionError(f"13a {name}: non-finite logits")
+            case["one_rank"] = {k: ref[k] for k in (
+                "steps", "ms_per_step", "tok_per_s", "describe")}
+            case["bit_identical_steps"] = got["steps"]
+        if m > 1 and case["store_share"] > 1 / m + 0.02:
+            raise AssertionError(f"13a {name}: a rank holds "
+                                 f"{case['store_share']:.4f} of the store")
+        kernel = ("pann_matmul_packed_act_acc" if backend == "packed"
+                  else "pann_matmul_act_acc")
+        if m > 1 and not (got["launches"][kernel]
+                          and got["launches"]["pann_epilogue"]):
+            raise AssertionError(f"13a {name}: no accumulator-mode or "
+                                 f"epilogue launch: {got['launches']}")
+        res["cases"][name] = case
+    del ws
+    _free()
+    Path(f"{out_path}.rank{rank}").write_text(json.dumps(res))
+
+
+def acc_mode_kernels(seed: int = 51) -> dict:
+    """13b: B1 and B2 in the accumulator mode and the epilogue entry at
+    13a's row-parallel local shapes (M = BATCH and 512), each bit for bit
+    against its plain version, the shards' sums (the all-reduce) and the
+    epilogue against the whole projection's B1/B2; the ordinary B1/B2 at
+    the column shards' shapes. Timed at M = BATCH beside their bound, the
+    plain version and a library call (``torch._int_mm`` on the codes for
+    the sums; none computes the epilogue in one call)."""
+    from repro_torch.kernels import pann_matmul as pm
+    from repro_torch.kernels import pann_matmul_packed as pk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    err: dict = {}
+    rows = {"pann_matmul_act_acc": [], "pann_matmul_packed_act_acc": [],
+            "pann_epilogue": []}
+    cases = 0
+    for k, n, module, per_step in ACC_SHAPES:
+        for m in ACC_M:
+            # the whole K of two shards: each shard's sums, added, then the
+            # epilogue, against the whole projection
+            x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = \
+                _matmul_operands(gen, m, 2 * k, n)
+            for shift in (0, 5):
+                qp = torch.stack([s, z, n127, torch.full(
+                    (), float(shift), device="cuda")])
+                for name, acc_fn, plain_fn, whole_fn, planes in (
+                        ("pann_matmul_act_acc", pm.pann_matmul_act_acc,
+                         pm.pann_matmul_act_acc_plain,
+                         lambda: pm.pann_matmul_act(x, pos, neg, qp, gamma,
+                                                    zcol),
+                         lambda r: (pos[:, r * k:(r + 1) * k].contiguous(),
+                                    neg[:, r * k:(r + 1) * k].contiguous())),
+                        ("pann_matmul_packed_act_acc",
+                         pk.pann_matmul_packed_act_acc,
+                         pk.pann_matmul_packed_act_acc_plain,
+                         lambda: pk.pann_matmul_packed_act(x, ppk, npk, qp,
+                                                           gamma, zcol),
+                         lambda r: (ppk[:, r * k // 8:(r + 1) * k // 8]
+                                    .contiguous(),
+                                    npk[:, r * k // 8:(r + 1) * k // 8]
+                                    .contiguous()))):
+                    total = None
+                    for r in range(2):
+                        xs = x[:, r * k:(r + 1) * k].contiguous()
+                        ps, ns = planes(r)
+                        sums = acc_fn(xs, ps, ns, qp)
+                        _agree(name, sums, plain_fn(xs, ps, ns, qp), err)
+                        total = sums if total is None else total + sums
+                    y = pm.pann_epilogue(total, qp, gamma, zcol)
+                    _agree("pann_epilogue", y, pm.pann_epilogue_plain(
+                        total, qp, gamma, zcol), err)
+                    _agree(name + " (shards + epilogue)", y, whole_fn(), err)
+                    cases += 1
+            if m != BATCH:
+                del x, pos, neg, ppk, npk
+                continue
+            # timed on one shard, every plane live
+            qp = torch.stack([s, z, n127, torch.zeros((), device="cuda")])
+            xs = x[:, :k].contiguous()
+            shard = {"pann_matmul_act_acc": (pos[:, :k].contiguous(),
+                                             neg[:, :k].contiguous()),
+                     "pann_matmul_packed_act_acc": (
+                         ppk[:, :k // 8].contiguous(),
+                         npk[:, :k // 8].contiguous())}
+            xq = quant_codes(xs, qp)
+            w_q = pm.rebuild_weight(*shard["pann_matmul_act_acc"]).to(
+                torch.int8)
+            lib = int_mm_padded_ms(xq, w_q)
+            del w_q
+            for name, fn, plain, plane_bytes in (
+                    ("pann_matmul_act_acc",
+                     lambda: pm.pann_matmul_act_acc(
+                         xs, *shard["pann_matmul_act_acc"], qp),
+                     lambda: pm.pann_matmul_act_acc_plain(
+                         xs, *shard["pann_matmul_act_acc"], qp),
+                     2 * 7 * k * n),
+                    ("pann_matmul_packed_act_acc",
+                     lambda: pk.pann_matmul_packed_act_acc(
+                         xs, *shard["pann_matmul_packed_act_acc"], qp),
+                     lambda: pk.pann_matmul_packed_act_acc_plain(
+                         xs, *shard["pann_matmul_packed_act_acc"], qp),
+                     2 * 7 * (k // 8) * n)):
+                nbytes = 4 * (m * k + 4 + m * n) + plane_bytes
+                b_ms, b_by = bound_ms(nbytes, 2 * m * k * n)
+                ms = time_ms(fn, 20)
+                rows[name].append({
+                    "K": k, "N": n, "M": m, "modules": module,
+                    "per_step": per_step, "ms": ms,
+                    "plain_ms": time_ms(plain, 3), "library_ms": lib,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "share_of_bound": b_ms / ms})
+            sums = pk.pann_matmul_packed_act_acc(
+                xs, *shard["pann_matmul_packed_act_acc"], qp)
+            ep_bytes = 4 * (2 * m * n + 2 * n + 4)
+            b_ms, b_by = bound_ms(ep_bytes, 2 * m * n)
+            ms = time_ms(lambda: pm.pann_epilogue(sums, qp, gamma, zcol), 20)
+            rows["pann_epilogue"].append({
+                "K": k, "N": n, "M": m, "modules": module,
+                "per_step": per_step, "ms": ms,
+                "plain_ms": time_ms(lambda: pm.pann_epilogue_plain(
+                    sums, qp, gamma, zcol), 3),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "share_of_bound": b_ms / ms})
+            for name in rows:
+                r = rows[name][-1]
+                print(f"[acc] {name} K={k} N={n} M={m} ({module}): "
+                      f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                      f"library {r['library_ms']}", flush=True)
+            del x, pos, neg, ppk, npk, xs, shard, sums
+        torch.cuda.empty_cache()
+    for k, n, module in COLUMN_SHARDS:
+        for m in ACC_M:
+            x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = \
+                _matmul_operands(gen, m, k, n)
+            qp = torch.stack([s, z, n127, torch.full((), 5.0,
+                                                     device="cuda")])
+            _agree("pann_matmul_act (column shard)",
+                   pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol),
+                   pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol),
+                   err)
+            _agree("pann_matmul_packed_act (column shard)",
+                   pk.pann_matmul_packed_act(x, ppk, npk, qp, gamma, zcol),
+                   pk.pann_matmul_packed_act_plain(x, ppk, npk, qp, gamma,
+                                                   zcol), err)
+            cases += 1
+            del x, pos, neg, ppk, npk
+        torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": err, "cases": cases,
+            "shapes": [list(a[:3]) for a in ACC_SHAPES],
+            "column_shards": [list(a) for a in COLUMN_SHARDS],
+            "m": list(ACC_M)}
+
+
+def quant_codes(x, qp):
+    """The int8 activation codes the prologue kernels encode from x."""
+    from repro_torch.core import quant
+    return quant.affine_encode(x, qp[0], qp[1], qp[2]).to(torch.int8)
+
+
+def dryrun_cells(tmp: str) -> dict:
+    """13c: ``python -m repro_torch.launch.dryrun --arch llama3-8b --shape
+    <cell> --mesh single [--reduced]`` for each of DRYRUN_CELLS, a subprocess that
+    sees no card (``CUDA_VISIBLE_DEVICES`` empty): the fake 256-rank group
+    on the card machine's torch. Each cell's record and seconds."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    out = {}
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3-8b", "--shape", cell, "--mesh", "single", "--out",
+         os.path.join(tmp, cell), *extra], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell, extra in DRYRUN_CELLS}      # both at once
+    try:
+        for cell, extra in DRYRUN_CELLS:
+            proc = procs[cell]
+            stdout, stderr = proc.communicate(timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(
+                    f"dry run {cell} exited {proc.returncode}:\n"
+                    f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            tag = "single" + ("_reduced" if extra else "")
+            rec = json.loads(Path(tmp, cell, f"dryrun_{tag}.json")
+                             .read_text())
+            (record,) = rec["records"]
+            out[cell] = {"wall_s": wall, "argv": list(extra),
+                         "record": record}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
 
 def _kernel_entry(name, source, replaces, rows, launches, count_key,
@@ -5012,6 +5388,46 @@ def main() -> int:
     mark("12c")
     phase12_s = time.perf_counter() - t12
     print(f"[phase12] {phase12_s:.1f} s", flush=True)
+
+    # phase 13: serving under a device mesh (13a ran in 12b's launch)
+    t13 = time.perf_counter()
+    mesh = tp["mesh_serve"]
+    for r in mesh:
+        for name, c in r["cases"].items():
+            print(f"[mesh] {smi}: {name} rank {r['rank']} of 2 on the card "
+                  f"({c['mesh']}, {c['backend']}, {c['requests']} requests):"
+                  f" {c['ms_per_step']:.2f} host ms a step, "
+                  f"{c['tok_per_s']:.2f} tok/s; staged a step "
+                  f"{c['staged_per_step']}; store {c['store_gb']:.3f} GB "
+                  f"of the one-rank {r['store_gb_one_rank']:.3f} GB "
+                  f"({c['store_share']:.4f}); peak {c['peak_gb']:.2f} GB",
+                  flush=True)
+            if "one_rank" in c:
+                print(f"[mesh] {smi}: {name} bit-identical to one rank over "
+                      f"{c['bit_identical_steps']} steps; one rank "
+                      f"{c['one_rank']['ms_per_step']:.2f} host ms a step "
+                      f"({c['one_rank']['describe']['steps']})", flush=True)
+    acc = acc_mode_kernels()
+    for name, rows in acc["rows"].items():
+        for r in rows:
+            print(f"[acc] {smi} {name} " + json.dumps(r), flush=True)
+    print(f"[acc] {acc['cases']} cases bit for bit: "
+          + json.dumps(acc["max_abs_err"]), flush=True)
+    mark("13b")
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = dryrun_cells(tmp)
+    for cell, d in dry.items():
+        r = d["record"]
+        print(f"[dryrun] {cell} {d['argv']}: {r['n_devices']} ranks, "
+              f"{r['flops_per_device']:.4e} FLOPs a device, collectives "
+              f"{r['collective_bytes_per_device']['total']:.4e} B a device, "
+              f"arguments {r['argument_size_in_bytes']:.4e} B, "
+              f"{r['compile_s']} s in the step, {d['wall_s']:.1f} s wall",
+              flush=True)
+    mark("13c")
+    phase13_s = time.perf_counter() - t13
+    print(f"[phase13] {phase13_s:.1f} s after 12b (13a ran inside 12b's "
+          "launch)", flush=True)
     cache_dir.cleanup()
     _assert_fp32_matmuls()
 
@@ -5217,6 +5633,36 @@ def main() -> int:
         "pann_matmul_packed_act"]
     kernels[2]["launches_a11"] = sum(a11["runs"][b]["launches"][
         "decode_attention"] for b in ("fused", "packed"))
+    # phase 13: the accumulator mode and the epilogue entry, launched on
+    # 13a's (1, 2) meshes (counted from 0 before each serve, rank 0), timed
+    # at 13b's local shapes
+    cases0 = mesh[0]["cases"]
+    mesh_times = ("13b's call at each row-parallel shard shape (M = 4), cold "
+                  "L2, weighted by its launches a mesh decode step")
+    for name, source, replaces, case in (
+            ("pann_matmul_act_acc", "src/repro_torch/csrc/pann_matmul.cu",
+             "src/repro/kernels/pann_matmul.py:329", "model2_fused"),
+            ("pann_matmul_packed_act_acc",
+             "src/repro_torch/csrc/pann_matmul_packed.cu",
+             "src/repro/kernels/pann_matmul_packed.py:255",
+             "model2_packed")):
+        e = _kernel_entry(name, source, replaces, acc["rows"][name],
+                          cases0[case]["launches"][name], "per_step",
+                          max(acc["max_abs_err"][name],
+                              acc["max_abs_err"][name
+                                                 + " (shards + epilogue)"]),
+                          mesh_times)
+        e["launches_are"] = f"rank 0's serve of 13a's {case}"
+        kernels.append(e)
+    e = _kernel_entry("pann_epilogue", "src/repro_torch/csrc/pann_matmul.cu",
+                      "src/repro/kernels/pann_matmul.py:329",
+                      acc["rows"]["pann_epilogue"],
+                      sum(cases0[c]["launches"]["pann_epilogue"]
+                          for c in ("model2_packed", "model2_fused")),
+                      "per_step", acc["max_abs_err"]["pann_epilogue"],
+                      mesh_times)
+    e["launches_are"] = "rank 0's serves of 13a's two (1, 2) cases"
+    kernels.append(e)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")
@@ -5243,7 +5689,8 @@ def main() -> int:
               "phase9_s": phase9_s, "fleet": fleet, "fleet_cli": fleet_cli_out,
               "phase10_s": phase10_s, "autotune": tuned,
               "phase11_s": phase11_s, "capacity": capacity, "tp": tp,
-              "a11": a11, "phase12_s": phase12_s,
+              "a11": a11, "phase12_s": phase12_s, "mesh_serve": mesh,
+              "acc_mode": acc, "dryrun": dry, "phase13_s": phase13_s,
               "phase_done_at_s": phase_s,
               "wall_s": time.perf_counter() - start}
     print(f"[time] {report['wall_s']:.1f} s from the device check to the "

@@ -54,8 +54,9 @@ def _unseen(device) -> Tensor:
     return torch.tensor(UNSEEN, dtype=torch.float32, device=device)
 
 
-def init_calib(cfg: ModelConfig, device="cpu") -> Dict[str, Tensor]:
-    """A fresh collection: every role at the unseen sentinel."""
+def init_calib(cfg: ModelConfig, device) -> Dict[str, Tensor]:
+    """A fresh collection on ``device``: every role at the unseen
+    sentinel."""
     return {p: _unseen(device) for p in calib_paths(cfg)}
 
 

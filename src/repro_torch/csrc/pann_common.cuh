@@ -152,7 +152,11 @@ __device__ __forceinline__ void load_stream_panel(const Rd& rd, int8_t* codes,
 // the last one reads the sums back with atomicExch(.., 0), which leaves acc
 // 0 again, resets the ticket and writes y. y = ((sum - zcol) * s) * gamma
 // with __fmul_rn, in the reference's association; zcol may be null, and
-// s_stride is 0 for a per-tensor scale and 1 for per-row scales.
+// s_stride is 0 for a per-tensor scale and 1 for per-row scales. In the
+// accumulator mode (sums set; y, gamma and zcol unused) the finishing block
+// stores the int32 sum itself and applies no epilogue: a row-parallel
+// projection adds the sums of its K shards across ranks first, then runs
+// the epilogue entry (pann_matmul.cu) on the whole sum.
 struct Finish {
   int* acc;
   int* tickets;
@@ -162,11 +166,19 @@ struct Finish {
   const int* zcol;
   float* y;
   int ksplit;
+  int* sums = nullptr;
 
   __device__ float value(int sum, int m, int n) const {
     if (zcol != nullptr) sum -= zcol[n];
     return __fmul_rn(__fmul_rn(static_cast<float>(sum), s[m * s_stride]),
                      gamma[n]);
+  }
+
+  __device__ void store(size_t at, int sum, int m, int n) const {
+    if (sums != nullptr)
+      sums[at] = sum;
+    else
+      y[at] = value(sum, m, n);
   }
 };
 
@@ -194,8 +206,7 @@ __device__ __forceinline__ void finish_block(const Finish& f, int* red,
     for (int i = threadIdx.x; i < rows * kBN; i += blockDim.x) {
       const int m = i / kBN, c = i - m * kBN;
       if (c < cols)
-        f.y[(size_t)(m0 + m) * N + n_blk + c] =
-            f.value(red[i], m0 + m, n_blk + c);
+        f.store((size_t)(m0 + m) * N + n_blk + c, red[i], m0 + m, n_blk + c);
     }
     return;
   }
@@ -216,7 +227,7 @@ __device__ __forceinline__ void finish_block(const Finish& f, int* red,
     const int m = i / kBN, c = i - m * kBN;
     if (c < cols) {
       const size_t at = (size_t)(m0 + m) * N + n_blk + c;
-      f.y[at] = f.value(atomicExch(&f.acc[at], 0), m0 + m, n_blk + c);
+      f.store(at, atomicExch(&f.acc[at], 0), m0 + m, n_blk + c);
     }
   }
   if (threadIdx.x == 0) f.tickets[tile] = 0;
@@ -261,6 +272,39 @@ inline int launch_epilogue(const int* partial, const int* partial_neg,
   epilogue_kernel<<<blocks, threads, 0, stream>>>(
       partial, partial_neg, s, s_stride, gamma, zcol, y, M, N, ksplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sums = sum_k partial[k]: the accumulator mode's end of a tile launch (the
+// split sums of pann_tc.cuh added, no epilogue). Integer sums, so the order
+// of the splits cannot change them.
+__global__ void sum_splits_kernel(const int* __restrict__ partial,
+                                  int* __restrict__ sums, size_t mn,
+                                  int ksplit) {
+  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= mn) return;
+  int acc = 0;
+  for (int k = 0; k < ksplit; ++k) acc += partial[(size_t)k * mn + idx];
+  sums[idx] = acc;
+}
+
+inline int launch_sum_splits(const int* partial, int* sums, int M, int N,
+                             int ksplit, cudaStream_t stream) {
+  size_t mn = (size_t)M * N;
+  int threads = 256;
+  unsigned blocks = static_cast<unsigned>((mn + threads - 1) / threads);
+  sum_splits_kernel<<<blocks, threads, 0, stream>>>(partial, sums, mn,
+                                                    ksplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The end of a tile launch (M > kDecodeRows): the epilogue kernel, or in
+// the accumulator mode the split sums alone.
+inline int finish_tiles(const Finish& fin, const int* partial, int M, int N,
+                        int ksplit, cudaStream_t stream) {
+  if (fin.sums != nullptr)
+    return launch_sum_splits(partial, fin.sums, M, N, ksplit, stream);
+  return launch_epilogue(partial, nullptr, fin.s, fin.s_stride, fin.gamma,
+                         fin.zcol, fin.y, M, N, ksplit, stream);
 }
 
 // ---------------------------------------------------------------------------

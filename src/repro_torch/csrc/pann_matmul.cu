@@ -203,8 +203,7 @@ int launch_product(Src src, Planes wts, pann::Finish fin, int* partial,
   int err = pann::tc::launch<Src, kMode>(src, wts, partial, M, K, N, ksplit,
                                          kchunk, st);
   if (err != 0) return err;
-  return pann::launch_epilogue(partial, nullptr, fin.s, fin.s_stride,
-                               fin.gamma, fin.zcol, fin.y, M, N, ksplit, st);
+  return pann::finish_tiles(fin, partial, M, N, ksplit, st);
 }
 
 template <class Src>
@@ -251,4 +250,35 @@ extern "C" int pann_matmul_launch(const int8_t* xq, const int8_t* pos,
                                   ksplit},
                      partial, M, K, N, ksplit, kchunk, planes,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The accumulator mode of pann_matmul_act_launch (a row-parallel
+// projection's K shard under a mesh, repro_torch/kernels/dispatch.py): the
+// same launches, but the finishing step writes the int32 sums (M, N) of
+// this shard into `sums` and applies no epilogue, which waits for the sum
+// over every shard (the ranks' int32 all-reduce). gamma, zcol and y are not
+// read.
+extern "C" int pann_matmul_act_acc_launch(const float* x, const int8_t* pos,
+                                          const int8_t* neg, const float* qp,
+                                          int* sums, int* partial, int* acc,
+                                          int* tickets, int M, int K, int N,
+                                          int P, int ksplit, int kchunk,
+                                          int planes, void* stream) {
+  pann::Finish fin{acc, tickets, qp, 0, nullptr, nullptr, nullptr, ksplit};
+  fin.sums = sums;
+  return launch_mode(pann::FloatRows{x, qp, K}, Planes{pos, neg, K, N, P},
+                     fin, partial, M, K, N, ksplit, kchunk, planes,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The epilogue as an entry of its own: y = ((sums - zcol) * qp[0]) * gamma
+// in the reference's association (__fmul_rn, no contraction), one (M, N)
+// int32 sum in, for the accumulator mode's sums after their all-reduce
+// (B1 and B2 alike). Elementwise, so it is bound by its bytes: 4 read and 4
+// written an output, plus gamma and zcol.
+extern "C" int pann_epilogue_launch(const int* sums, const float* qp,
+                                    const float* gamma, const int* zcol,
+                                    float* y, int M, int N, void* stream) {
+  return pann::launch_epilogue(sums, nullptr, qp, 0, gamma, zcol, y, M, N, 1,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -193,8 +193,7 @@ int launch_product(Src src, PackedPlanes wts, pann::Finish fin, int* partial,
   int err = pann::tc::launch<Src, pann::tc::Mode::kPacked>(
       src, wts, partial, M, K, N, ksplit, kchunk, st);
   if (err != 0) return err;
-  return pann::launch_epilogue(partial, nullptr, fin.s, fin.s_stride,
-                               fin.gamma, fin.zcol, fin.y, M, N, ksplit, st);
+  return pann::finish_tiles(fin, partial, M, N, ksplit, st);
 }
 
 }  // namespace
@@ -225,4 +224,19 @@ extern "C" int pann_matmul_packed_launch(
       pann::CodeRows{xq, K}, PackedPlanes{pos, neg, K, N, P},
       pann::Finish{acc, tickets, s_x, 1, gamma, zcol, y, ksplit}, partial, M,
       K, N, ksplit, kchunk, static_cast<cudaStream_t>(stream));
+}
+
+// The accumulator mode of pann_matmul_packed_act_launch (a row-parallel
+// projection's K shard under a mesh): the int32 sums (M, N) of this shard
+// into `sums`, no epilogue; the epilogue entry (pann_matmul.cu) runs after
+// the ranks' all-reduce.
+extern "C" int pann_matmul_packed_act_acc_launch(
+    const float* x, const uint8_t* pos, const uint8_t* neg, const float* qp,
+    int* sums, int* partial, int* acc, int* tickets, int M, int K, int N,
+    int P, int ksplit, int kchunk, void* stream) {
+  pann::Finish fin{acc, tickets, qp, 0, nullptr, nullptr, nullptr, ksplit};
+  fin.sums = sums;
+  return launch_product(pann::FloatRows{x, qp, K},
+                        PackedPlanes{pos, neg, K, N, P}, fin, partial, M, K,
+                        N, ksplit, kchunk, static_cast<cudaStream_t>(stream));
 }

@@ -166,3 +166,20 @@ def dp_model_plan(batch: int, seq: int) -> tuple[Axis, Axis]:
     else:
         seq_ax = None
     return batch_ax, seq_ax
+
+
+def split_heads(x, heads: int, head_dim: int):
+    """``x`` (..., heads * head_dim) viewed as (..., heads, head_dim). A
+    DTensor whose last dim is sharded over a mesh axis that does not divide
+    ``heads`` (16 "model" ranks over 8 KV heads, or over a reduced
+    config's 4 heads) is first gathered along that axis, so every rank
+    holds whole heads: the view cannot split a head across ranks."""
+    if _is_dtensor(x):
+        from repro_torch.dist.compat import Replicate
+        sizes = list(mesh_sizes(x.device_mesh).values())
+        place = [Replicate() if p.is_shard() and p.dim % x.ndim == x.ndim - 1
+                 and heads % sizes[i] else p
+                 for i, p in enumerate(x.placements)]
+        if tuple(place) != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, place)
+    return x.reshape(*x.shape[:-1], heads, head_dim)

@@ -197,6 +197,40 @@ def cache_specs(tree: Any, mesh) -> Any:
     return _walk(rule, tree)
 
 
+# the head dim of each leaf of an attention cache (models.attention's
+# KVCache and QuantKVCache); the per-position quantizer rows have none
+_SLOT_HEAD_DIM = {"k": 2, "v": 2, "k_planes": 3, "v_planes": 3}
+
+
+def slot_specs(tree: Any, mesh) -> Any:
+    """Specs of a serve engine's decode state on a serving mesh
+    (``serve_engine.ServeEngine(mesh=...)``): the batch dim on "data" and
+    an attention cache's KV-head dim on "model"; the quantizer rows follow
+    the batch, the lengths and positions are replicated.
+
+    This is the port's layout, not the reference's. ``cache_specs`` puts
+    the cached sequence on "model" (the reference's sequence-parallel
+    decode on the TPU). Split along S, each rank would hold a piece of
+    every head's softmax, and the attention kernel's reduction over S
+    would run in another float order on each rank, so a step would no
+    longer equal one rank's bit for bit. With whole heads on each rank the
+    kernel runs as it does on one rank, on fewer heads."""
+
+    def rule(path, leaf):
+        shape = tuple(leaf.shape)
+        entries: list[Any] = [None] * len(shape)
+        if not shape:
+            return P()
+        if _ok(mesh, "data", shape[0]):
+            entries[0] = "data"
+        head = _SLOT_HEAD_DIM.get(path[-1])
+        if head is not None and _ok(mesh, "model", shape[head]):
+            entries[head] = "model"
+        return P(*entries)
+
+    return _walk(rule, tree)
+
+
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------

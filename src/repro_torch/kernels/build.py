@@ -127,6 +127,20 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# Integer (and epilogue) operations of the kernels a dry run launched on
+# meta tensors, by kernel name (``launch.dryrun``): a kernel wrapper handed
+# meta tensors builds nothing and launches nothing; it adds the kernel's
+# operations here and returns an empty output of the kernel's shape.
+meta_ops: dict = {}
+
+
+def meta_launch(name: str, ops: int, shape: tuple, dtype) -> torch.Tensor:
+    """Count a meta launch of kernel ``name`` (``ops`` operations) and
+    return its empty meta output."""
+    meta_ops[name] = meta_ops.get(name, 0) + int(ops)
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

@@ -20,6 +20,18 @@ CUDA tensors; there is no other fallback, and the JAX package's
 Every value that differs between rungs — ``plane_shift``, ``act_nlvl``,
 the derived (s, z), ``k_nlvl``/``v_nlvl`` — stays a device tensor that the
 kernels read, so one step function serves every rung without host syncs.
+
+Under a serving mesh (``dist.local_ops.use_shards``) each rank holds its
+shard of every projection. A column-parallel one (wq, wk, wv, w_gate,
+w_up, lm_head) runs on its output columns alone, its per-column leaves
+sliced with them, and is unchanged column for column. A row-parallel one
+(wo, w_down: K sharded) launches its kernel in the accumulator mode (the
+int32 sums of its K shard), adds the shards' sums over "model" and then
+runs the epilogue with the whole ``zcol``, which holds z * colsum(w) over
+all of K and the bias once. The activation quantizer's range is reduced
+over the ranks that split the input (``ServeShards.reduce_range``). Every
+step is an integer sum or a min / max, so the outputs are bit-identical to
+one rank's.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.pann import bitplane_decompose, masked_codes
+from repro_torch.dist import local_ops
 from repro_torch.kernels import autotune
 from repro_torch.kernels import pann_attention as _pa
 from repro_torch.kernels import pann_conv as _pc
@@ -77,18 +90,23 @@ def _scalar(x: Tensor, like: Tensor) -> Tensor:
     return x.to(device=like.device, dtype=torch.float32).reshape(())
 
 
-def _act_scalars(xf: Tensor, p: dict) -> tuple[Tensor, Tensor, Tensor]:
+def _act_scalars(xf: Tensor, p: dict, shards=None,
+                 k_sharded: bool = False) -> tuple[Tensor, Tensor, Tensor]:
     """(s, z, n_lvl) of the projection's activation quantizer as 0-dim
     device tensors: the view's ``act_nlvl`` level count (127, the
     half-range ceiling, when the view has none), and the frozen-calibration
     ``act_s``/``act_z`` leaves when present (stores carried across from the
-    JAX package may hold them), else (s, z) derived from x."""
+    JAX package may hold them), else (s, z) derived from x: under a
+    serving mesh (``shards``) from the range of the whole input, reduced
+    over the ranks that split it (``k_sharded``: a row-parallel input)."""
     nlvl = p.get("act_nlvl")
     n_lvl = (_scalar(nlvl, xf) if nlvl is not None
              else xf.new_full((), HALF_RANGE_LEVELS))
     if p.get("act_s") is not None:
         return _scalar(p["act_s"], xf), _scalar(p["act_z"], xf), n_lvl
     lo, hi = quant.act_range_bounds(xf, include_zero=True)
+    if shards is not None:
+        lo, hi = shards.reduce_range(lo, hi, model=k_sharded)
     s, z = quant.affine_scale_zp(lo, hi, n_lvl)
     return s, z, n_lvl
 
@@ -165,10 +183,36 @@ def _dispatch_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
     return _pm.matmul_epilogue(q, masked_codes(w_q, shift), s, gamma, zcol)
 
 
-def serving_linear(x: Tensor, p: dict, backend: str) -> Tensor:
+def _row_parallel_rows(xf: Tensor, p: dict, s: Tensor, z: Tensor,
+                       n_lvl: Tensor, gamma: Tensor, zcol: Tensor,
+                       name: str, shards) -> Tensor:
+    """``_dispatch_rows`` of a row-parallel projection's K shard: its int32
+    sums (the kernels' accumulator mode on 'fused' / 'packed'), added over
+    "model", then the epilogue ``(sums - zcol) * s * gamma`` (the epilogue
+    entry on the kernels' backends) with the whole ``zcol``."""
+    w_q = p["w_q"]
+    if name == "ref":
+        shift = (_scalar(p["plane_shift"], xf) if "plane_shift" in p
+                 else xf.new_zeros(()))
+        q = quant.affine_encode(xf, s, z, n_lvl)
+        sums = _ref.int_matmul(q, masked_codes(w_q, shift))
+        shards.sum_model(sums)
+        return _pm.epilogue(sums, s, gamma, zcol)
+    x, pos, neg, qparams, gamma, zcol = _kernel_operands(
+        xf, p, s, z, n_lvl, gamma, zcol, name)
+    sums = (_pm.pann_matmul_act_acc(x, pos, neg, qparams) if name == "fused"
+            else _pk.pann_matmul_packed_act_acc(x, pos, neg, qparams))
+    shards.sum_model(sums)
+    return _pm.pann_epilogue(sums, qparams, gamma, zcol)[:, :w_q.shape[-1]]
+
+
+def serving_linear(x: Tensor, p: dict, backend: str,
+                   path: str | None = None) -> Tensor:
     """The serving projection y = affine-quant(x) @ deq(w_q) [+ b] through
     the selected backend; ``p`` is one rung view's (K, N) leaves. Output
-    dtype follows x."""
+    dtype follows x. Under a serving mesh ``p`` holds the rank's shard and
+    ``path`` (the module's, "attn.wo", ...) says whether it is
+    row-parallel."""
     name = resolve_backend(backend, p)
     w_q = p["w_q"]
     if w_q.ndim != 2:
@@ -176,9 +220,16 @@ def serving_linear(x: Tensor, p: dict, backend: str) -> Tensor:
                          f"{tuple(w_q.shape)}")
     lead, k = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, k).to(torch.float32).contiguous()
-    s, z, n_lvl = _act_scalars(xf, p)
+    shards = local_ops.current_shards()
+    row = shards is not None and shards.model > 1 \
+        and local_ops.row_parallel(path)
+    s, z, n_lvl = _act_scalars(xf, p, shards, k_sharded=row)
     gamma, zcol = _gamma_zcol(p, s, z)
-    y = _dispatch_rows(xf, p, s, z, n_lvl, gamma, zcol, name)
+    if row:
+        y = _row_parallel_rows(xf, p, s, z, n_lvl, gamma, zcol, name,
+                               shards)
+    else:
+        y = _dispatch_rows(xf, p, s, z, n_lvl, gamma, zcol, name)
     return y.reshape(*lead, w_q.shape[-1]).to(x.dtype)
 
 
@@ -258,6 +309,9 @@ def decode_attention(q: Tensor, kv, backend, *, num_kv_heads: int,
     qf = q.to(torch.float32).reshape(b, num_kv_heads, g, hd)
     n127 = qf.new_full((), HALF_RANGE_LEVELS)
     lo, hi = quant.act_range_bounds(qf, include_zero=True)
+    shards = local_ops.current_shards()
+    if shards is not None:      # the range of every rank's heads and rows
+        lo, hi = shards.reduce_range(lo, hi, model=True)
     s_q, z_q = quant.affine_scale_zp(lo, hi, n127)
     q_scale = s_q * qf.new_full((), float(hd) ** -0.5)
     qq = quant.affine_encode(qf, s_q, z_q, n127).to(torch.int32).contiguous()

@@ -33,6 +33,8 @@ Tensor = torch.Tensor
 
 launches = 0                # pann_matmul_act launches since the last reset
 pann_matmul_launches = 0    # pann_matmul launches since the last reset
+acc_launches = 0            # pann_matmul_act_acc (accumulator mode) launches
+epilogue_launches = 0       # pann_epilogue launches
 
 MODES = ("fused", "planes")
 
@@ -150,6 +152,22 @@ def pann_matmul_act_plain(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
                     gamma, zcol)
 
 
+def pann_matmul_act_acc_plain(x: Tensor, planes_pos: Tensor,
+                              planes_neg: Tensor, qparams: Tensor,
+                              mode: str = "fused") -> Tensor:
+    """Plain PyTorch version of the accumulator mode, on any device: the
+    prologue kernel's exact int32 product, no epilogue."""
+    s, z, n_lvl, shift = qparams.unbind()
+    q = quant.affine_encode(x, s, z, n_lvl)
+    return int_product(q, planes_pos, planes_neg, shift, mode)
+
+
+def pann_epilogue_plain(sums: Tensor, qparams: Tensor, gamma: Tensor,
+                        zcol: Tensor) -> Tensor:
+    """Plain PyTorch version of the epilogue entry, on any device."""
+    return epilogue(sums, qparams[0], gamma, zcol)
+
+
 def pann_matmul_plain(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
                       s_x: Tensor, gamma: Tensor, zcol=None, *,
                       mode: str = "fused") -> Tensor:
@@ -161,9 +179,10 @@ def pann_matmul_plain(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
 def check_operands(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
                    gamma: Tensor, zcol) -> None:
     """Device, shape and contiguity checks shared by the matmul wrappers;
-    ``k_rows`` is the planes' row count for this x, ``zcol`` may be None."""
+    ``k_rows`` is the planes' row count for this x; ``gamma`` (the
+    accumulator mode's) and ``zcol`` may be None."""
     dev = x.device
-    tensors = [x, *planes, gamma] + ([] if zcol is None else [zcol])
+    tensors = [x, *planes] + [t for t in (gamma, zcol) if t is not None]
     if any(t.device != dev for t in tensors):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -182,7 +201,8 @@ def check_operands(x: Tensor, planes: tuple, plane_dtype, k_rows: int,
         raise ValueError(f"plane count {p} outside [1, 7]")
     if n % 4:
         raise ValueError(f"N = {n} must be a multiple of 4")
-    if gamma.dtype != torch.float32 or gamma.shape != (n,):
+    if gamma is not None and (gamma.dtype != torch.float32
+                              or gamma.shape != (n,)):
         raise ValueError(f"gamma must be ({n},) float32")
     if zcol is not None and (zcol.dtype != torch.int32
                              or zcol.shape != (n,)):
@@ -226,6 +246,16 @@ def _act_launcher():
 def _codes_launcher():
     return build.entry("pann_matmul", "pann_matmul_launch",
                        (build.P,) * 10 + (build.I,) * 7 + (build.P,))
+
+
+def _acc_launcher():
+    return build.entry("pann_matmul", "pann_matmul_act_acc_launch",
+                       (build.P,) * 8 + (build.I,) * 7 + (build.P,))
+
+
+def _epilogue_launcher():
+    return build.entry("pann_matmul", "pann_epilogue_launch",
+                       (build.P,) * 5 + (build.I,) * 2 + (build.P,))
 
 
 @functools.cache
@@ -280,29 +310,44 @@ def launch_product(launcher, what: str, x: Tensor, planes: tuple,
                    scale: Tensor, gamma: Tensor, zcol, *extra,
                    step: int = STEP_PLANES,
                    blocks: dict = BLOCKS_PLANES, backend=None,
-                   params=None) -> Tensor:
+                   params=None, sums: bool = False) -> Tensor:
     """Allocate y and the split-K scratch (``split_scratch``) and call one C
     entry point of the bit-plane matmuls: up to DECODE_ROWS rows the
     streaming decode kernel (one launch), above it the tensor-core tile
     kernel and the epilogue kernel; raises on a CUDA error. A serving
     launch names its ``backend`` ('fused' | 'packed') and reads its split
     from ``autotune.params_for``; ``params`` forces one (``autotune.tune``
-    measures each candidate so), checked legal."""
+    measures each candidate so), checked legal. ``sums``: the accumulator
+    mode's entry, whose output is the (M, N) int32 sums (no gamma, zcol)."""
     m, k = x.shape
     p, _, n = planes[0].shape
     if params is not None:
         params = autotune.check_params(m, k, backend, params)
     elif backend is not None:
         params = autotune.params_for(m, k, n, p, backend, device=x.device)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.int32 if sums else torch.float32,
+                      device=x.device)
     ksplit, kchunk, partial, acc, tickets = split_scratch(x, n, step, blocks,
                                                           params)
-    ptrs = [build.ptr(t) for t in (x, *planes, scale, gamma, zcol, y,
-                                   partial, acc, tickets)]
+    mid = (scale, out) if sums else (scale, gamma, zcol, out)
+    ptrs = [build.ptr(t) for t in (x, *planes, *mid, partial, acc, tickets)]
     err = launcher(*ptrs, m, k, n, p, ksplit, kchunk, *extra,
                    build.stream_of(x))
     build.check(err, what)
-    return y
+    return out
+
+
+def meta_product(name: str, x: Tensor, planes: tuple, mode: str = "fused",
+                 sums: bool = False) -> Tensor:
+    """A B1/B2 launch on meta tensors (``launch.dryrun``): the kernel's
+    integer operations, 2 M K N for each product it runs (one on the
+    rebuilt weight; 'planes' one per plane and sign), counted in
+    ``build.meta_ops``, and its empty (M, N) output."""
+    m, k = x.shape
+    p, _, n = planes[0].shape
+    passes = 2 * p if mode == "planes" else 1
+    return build.meta_launch(name, 2 * m * k * n * passes, (m, n),
+                             torch.int32 if sums else torch.float32)
 
 
 def pann_matmul_act(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
@@ -317,6 +362,10 @@ def pann_matmul_act(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
     if x.device.type == "cpu":
         return pann_matmul_act_plain(x, planes_pos, planes_neg, qparams,
                                      gamma, zcol, mode)
+    if x.device.type == "meta":
+        check_mode(mode)
+        return meta_product("pann_matmul_act", x, (planes_pos, planes_neg),
+                            mode)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     planes = check_mode(mode)
@@ -349,4 +398,68 @@ def pann_matmul(x_q: Tensor, planes_pos: Tensor, planes_neg: Tensor,
                        (planes_pos, planes_neg), s_x, gamma, zcol, planes)
     global pann_matmul_launches
     pann_matmul_launches += 1
+    return y
+
+
+def pann_matmul_act_acc(x: Tensor, planes_pos: Tensor, planes_neg: Tensor,
+                        qparams: Tensor, mode: str = "fused",
+                        params=None) -> Tensor:
+    """The accumulator mode of ``pann_matmul_act``: the same operands but
+    gamma and zcol, the (M, N) int32 product sums out and no epilogue (a
+    row-parallel projection's K shard, ``kernels.dispatch``). CPU tensors
+    run the plain version; CUDA tensors launch the kernel or raise; its K
+    split is backend 'fused''s, as the whole product's."""
+    if x.device.type == "cpu":
+        return pann_matmul_act_acc_plain(x, planes_pos, planes_neg, qparams,
+                                         mode)
+    if x.device.type == "meta":
+        check_mode(mode)
+        return meta_product("pann_matmul_act_acc", x,
+                            (planes_pos, planes_neg), mode, sums=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    planes = check_mode(mode)
+    check_args(x, (planes_pos, planes_neg), torch.int8, x.shape[1], qparams,
+               None, None)
+    sums = launch_product(_acc_launcher(), "pann_matmul_act_acc", x,
+                          (planes_pos, planes_neg), qparams, None, None,
+                          planes, backend="fused", params=params, sums=True)
+    global acc_launches
+    acc_launches += 1
+    return sums
+
+
+def pann_epilogue(sums: Tensor, qparams: Tensor, gamma: Tensor,
+                  zcol: Tensor) -> Tensor:
+    """y = ((sums - zcol) * s) * gamma in fp32 (s = qparams[0]) for (M, N)
+    int32 sums: the accumulator mode's epilogue after the sums of every K
+    shard are added (B1 and B2 alike). CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if sums.device.type == "cpu":
+        return pann_epilogue_plain(sums, qparams, gamma, zcol)
+    m, n = sums.shape
+    if sums.device.type == "meta":
+        return build.meta_launch("pann_epilogue", 2 * m * n, (m, n),
+                                 torch.float32)
+    if sums.device.type != "cuda":
+        raise ValueError(f"no kernel for device {sums.device}")
+    tensors = (sums, qparams, gamma, zcol)
+    if any(t.device != sums.device for t in tensors) \
+            or not all(t.is_contiguous() for t in tensors):
+        raise ValueError("operands must be contiguous, on one device")
+    if sums.dtype != torch.int32 or sums.ndim != 2:
+        raise ValueError(f"sums must be (M, N) int32, got {sums.dtype} "
+                         f"{tuple(sums.shape)}")
+    if gamma.dtype != torch.float32 or gamma.shape != (n,) \
+            or zcol.dtype != torch.int32 or zcol.shape != (n,):
+        raise ValueError(f"gamma must be ({n},) float32, zcol ({n},) int32")
+    if qparams.dtype != torch.float32 or qparams.shape != (4,):
+        raise ValueError("qparams must be a (4,) float32 [s, z, n, shift]")
+    y = torch.empty((m, n), dtype=torch.float32, device=sums.device)
+    err = _epilogue_launcher()(*(build.ptr(t) for t in (sums, qparams, gamma,
+                                                        zcol, y)),
+                               m, n, build.stream_of(sums))
+    build.check(err, "pann_epilogue")
+    global epilogue_launches
+    epilogue_launches += 1
     return y

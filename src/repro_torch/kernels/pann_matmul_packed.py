@@ -19,12 +19,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.pann_matmul import (BLOCKS_PACKED, STEP_PACKED,
                                              check_args, check_codes_args,
                                              epilogue, int_product,
-                                             launch_product)
+                                             launch_product, meta_product)
 
 Tensor = torch.Tensor
 
 launches = 0                       # pann_matmul_packed_act launches
 pann_matmul_packed_launches = 0    # pann_matmul_packed launches
+acc_launches = 0                   # pann_matmul_packed_act_acc launches
 
 
 def pack_planes(planes: Tensor) -> Tensor:
@@ -65,6 +66,18 @@ def pann_matmul_packed_act_plain(x: Tensor, packed_pos: Tensor,
     return epilogue(acc, s, gamma, zcol)
 
 
+def pann_matmul_packed_act_acc_plain(x: Tensor, packed_pos: Tensor,
+                                     packed_neg: Tensor,
+                                     qparams: Tensor) -> Tensor:
+    """Plain PyTorch version of the accumulator mode, on any device: the
+    prologue kernel's exact int32 product, no epilogue."""
+    s, z, n_lvl, shift = qparams.unbind()
+    k = x.shape[1]
+    q = quant.affine_encode(x, s, z, n_lvl)
+    return int_product(q, unpack_planes(packed_pos, k),
+                       unpack_planes(packed_neg, k), shift)
+
+
 def pann_matmul_packed_plain(x_q: Tensor, packed_pos: Tensor,
                              packed_neg: Tensor, s_x: Tensor, gamma: Tensor,
                              zcol=None) -> Tensor:
@@ -85,6 +98,12 @@ def _codes_launcher():
                        (build.P,) * 10 + (build.I,) * 6 + (build.P,))
 
 
+def _acc_launcher():
+    return build.entry("pann_matmul_packed",
+                       "pann_matmul_packed_act_acc_launch",
+                       (build.P,) * 8 + (build.I,) * 6 + (build.P,))
+
+
 def _check_k(k: int) -> None:
     if k % 8:
         raise ValueError(f"K = {k} must be a multiple of 8")
@@ -102,6 +121,9 @@ def pann_matmul_packed_act(x: Tensor, packed_pos: Tensor,
     if x.device.type == "cpu":
         return pann_matmul_packed_act_plain(x, packed_pos, packed_neg,
                                             qparams, gamma, zcol)
+    if x.device.type == "meta":
+        return meta_product("pann_matmul_packed_act", x,
+                            (packed_pos, packed_neg))
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_k(x.shape[1])
@@ -136,3 +158,32 @@ def pann_matmul_packed(x_q: Tensor, packed_pos: Tensor, packed_neg: Tensor,
     global pann_matmul_packed_launches
     pann_matmul_packed_launches += 1
     return y
+
+
+def pann_matmul_packed_act_acc(x: Tensor, packed_pos: Tensor,
+                               packed_neg: Tensor, qparams: Tensor,
+                               params=None) -> Tensor:
+    """The accumulator mode of ``pann_matmul_packed_act``: the same operands
+    but gamma and zcol, the (M, N) int32 product sums out and no epilogue
+    (a row-parallel projection's K shard, ``kernels.dispatch``; the
+    epilogue is ``pann_matmul.pann_epilogue``). CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise; its K split is
+    backend 'packed''s, as the whole product's."""
+    if x.device.type == "cpu":
+        return pann_matmul_packed_act_acc_plain(x, packed_pos, packed_neg,
+                                                qparams)
+    if x.device.type == "meta":
+        return meta_product("pann_matmul_packed_act_acc", x,
+                            (packed_pos, packed_neg), sums=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_k(x.shape[1])
+    check_args(x, (packed_pos, packed_neg), torch.uint8, x.shape[1] // 8,
+               qparams, None, None)
+    sums = launch_product(_acc_launcher(), "pann_matmul_packed_act_acc", x,
+                          (packed_pos, packed_neg), qparams, None, None,
+                          step=STEP_PACKED, blocks=BLOCKS_PACKED,
+                          backend="packed", params=params, sums=True)
+    global acc_launches
+    acc_launches += 1
+    return sums

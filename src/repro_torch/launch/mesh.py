@@ -6,7 +6,9 @@ Single pod:  (16, 16)      axes ("data", "model")          — 256 ranks
 Multi-pod:   (2, 16, 16)   axes ("pod", "data", "model")   — 512 ranks
 
 A mesh is a ``DeviceMesh`` over the default process group, which
-``make_local_mesh`` starts when none stands (``dist.compat``).
+``make_local_mesh`` starts when none stands (``dist.compat``); the dry
+run builds the production mesh over a fake group
+(``fake_process_group``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,15 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
         raise ValueError(f"the production mesh {shape} {axes} needs {n} "
                          f"ranks; the process group has {world}")
     return _mesh(device, shape, axes)
+
+
+def fake_process_group(world: int) -> None:
+    """Start ``torch.distributed``'s ``fake`` backend in this process as
+    rank 0 of ``world`` ranks (the dry run's 256 or 512): a mesh over it
+    builds, and its collectives return at once without moving anything."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def make_local_mesh(model_axis: int = 1, device="cuda"):

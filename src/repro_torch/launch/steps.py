@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core import calibrate as CAL
-from repro_torch.dist import compat
+from repro_torch.dist import compat, local_ops
 from repro_torch.dist import sharding as SH
 from repro_torch.models import model as MD
 from repro_torch.optim import optimizers as OPT
@@ -165,10 +165,7 @@ def eval_loss(params: Any, cfg: ModelConfig, batch: dict,
     ``calib`` freezes the activation quantizers to its ranges, as the
     export bakes them into the serving artifact. Takes training params
     (fake-quant forward) and serving artifacts alike."""
-    ctx = (compat.implicit_replication() if any(
-        compat.is_dtensor(p) for p in OPT.tree_leaves(params))
-        else contextlib.nullcontext())
-    with ctx:
+    with _replicated(params):
         loss = MD.lm_loss(params, cfg, batch["tokens"], batch["labels"],
                           enc_inputs=batch.get("enc_inputs"),
                           image_embeds=batch.get("image_embeds"),
@@ -176,15 +173,32 @@ def eval_loss(params: Any, cfg: ModelConfig, batch: dict,
     return float(compat.full(loss))
 
 
+def _replicated(params):
+    """DTensor's implicit replication of the tensors a model makes on its
+    own, for DTensor ``params``; nothing otherwise."""
+    if any(compat.is_dtensor(p) for p in OPT.tree_leaves(params)):
+        return compat.implicit_replication()
+    return contextlib.nullcontext()
+
+
 @torch.no_grad()
 def prefill_step(params, cfg: ModelConfig, tokens, *, enc_inputs=None,
                  image_embeds=None):
-    out = MD.forward(params, cfg, tokens, enc_inputs=enc_inputs,
-                     image_embeds=image_embeds, remat=False)
+    """Whole-sequence logits (``forward``); under a mesh (DTensor params
+    and inputs, ``use_mesh``) DTensor's rules run it."""
+    with _replicated(params):
+        out = MD.forward(params, cfg, tokens, enc_inputs=enc_inputs,
+                         image_embeds=image_embeds, remat=False)
     return out.logits
 
 
 @torch.no_grad()
-def serve_step(params, cfg: ModelConfig, state: MD.DecodeState, tokens):
-    """One decode tick: (B, 1) tokens -> (B, 1, V) logits + new state."""
-    return MD.decode_step(params, cfg, state, tokens)
+def serve_step(params, cfg: ModelConfig, state: MD.DecodeState, tokens,
+               shards=None):
+    """One decode tick: (B, 1) tokens -> (B, 1, V) logits + new state.
+    With ``shards`` (``dist.local_ops.ServeShards``) ``params`` and
+    ``state`` are the rank's local shards and ``cfg`` its head counts, as
+    in a serve engine under a mesh; the tokens and logits are the whole
+    batch's."""
+    with local_ops.use_shards(shards):
+        return MD.decode_step(params, cfg, state, tokens)

@@ -88,8 +88,8 @@ def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig,
                  kv_src: Optional[Tensor] = None):
     """Q from x, K and V from ``kv_src`` (x itself for self-attention)."""
     hd = cfg.resolved_head_dim
-    b, t, _ = x.shape
-    q = L.project(x, p["wq"], cfg, "attn.wq").reshape(b, t, cfg.num_heads, hd)
+    q = C.split_heads(L.project(x, p["wq"], cfg, "attn.wq"), cfg.num_heads,
+                      hd)
     k, v = project_cross_kv(x if kv_src is None else kv_src, p, cfg)
     return q, k, v
 
@@ -98,13 +98,14 @@ def project_cross_kv(src: Tensor, p: dict, cfg: ModelConfig
                      ) -> tuple[Tensor, Tensor]:
     """K and V of ``src`` (B, S, d): (B, S, KH, hd) each. Decode projects
     an encoder's or an image's tokens once per request with it."""
-    b, s, _ = src.shape
     hd = cfg.resolved_head_dim
-    k = L.project(src, p["wk"], cfg, "attn.wk").reshape(
-        b, s, cfg.num_kv_heads, hd)
-    v = L.project(src, p["wv"], cfg, "attn.wv").reshape(
-        b, s, cfg.num_kv_heads, hd)
-    return k, v
+    k = L.project(src, p["wk"], cfg, "attn.wk")
+    v = L.project(src, p["wv"], cfg, "attn.wv")
+    shards = local_ops.current_shards()
+    if shards is not None:      # the rank's KV heads of a serving mesh
+        return shards.kv_heads_of(k, hd), shards.kv_heads_of(v, hd)
+    return (C.split_heads(k, cfg.num_kv_heads, hd),
+            C.split_heads(v, cfg.num_kv_heads, hd))
 
 
 def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -249,9 +250,12 @@ def _write_pos(buf: Tensor, idx: Tensor, new: Tensor) -> None:
 
 def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
                   window: Optional[int] = None, use_rope: bool = True):
-    """One-token decode step. x: (B, 1, d). Returns (out, updated cache)."""
-    # the reference's decode constraints come with serving under a mesh
-    # (ROADMAP A10)
+    """One-token decode step. x: (B, 1, d). Returns (out, updated cache).
+    Under a serving mesh (``dist.local_ops.use_shards``) ``cfg`` holds the
+    rank's head counts and x its batch rows: the reference's decode
+    constraints (heads on "model", batch on "data") are the layout of the
+    local tensors, and the collectives are the quantizers' ranges and the
+    row-parallel ``wo``'s sums (``kernels.dispatch``)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = cache.length
@@ -285,18 +289,37 @@ def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
     return y, cache._replace(length=pos + 1)
 
 
-def _cache_rows(new: Tensor, s_leaf, z_leaf, n_lvl) -> tuple[Tensor, Tensor]:
+def _cache_range(new: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-batch extremes of one new K or V token (B, 1, K, hd) over its
+    heads and head dim, zero-extended."""
+    xf = new.to(torch.float32)
+    lo = torch.clamp(torch.amin(xf, dim=(1, 2, 3)), max=0.0)
+    hi = torch.clamp(torch.amax(xf, dim=(1, 2, 3)), min=0.0)
+    return lo, hi
+
+
+def _cache_rows(new: Tensor, s_leaf, z_leaf, n_lvl,
+                rng=None) -> tuple[Tensor, Tensor]:
     """Per-batch quantizer (s, z) of one new K or V token (B, 1, K, hd):
     the frozen calibration leaves broadcast, else the dynamic per-batch
-    extremes, zero-extended."""
+    extremes (``_cache_range``, or ``rng`` when given: a serving mesh's
+    range over every rank's heads)."""
     b = new.shape[0]
     if s_leaf is not None:
         return (s_leaf.to(torch.float32).reshape(()).expand(b),
                 z_leaf.to(torch.float32).reshape(()).expand(b))
-    xf = new.to(torch.float32)
-    lo = torch.clamp(torch.amin(xf, dim=(1, 2, 3)), max=0.0)
-    hi = torch.clamp(torch.amax(xf, dim=(1, 2, 3)), min=0.0)
+    lo, hi = _cache_range(new) if rng is None else rng
     return quant.affine_scale_zp(lo, hi, n_lvl)
+
+
+def _mesh_cache_ranges(shards, k_new: Tensor, v_new: Tensor) -> tuple:
+    """The K and V tokens' per-batch ranges over every rank's KV heads:
+    one all-reduce over "model" for both."""
+    (k_lo, k_hi), (v_lo, v_hi) = _cache_range(k_new), _cache_range(v_new)
+    lo, hi = shards.reduce_range(torch.stack([k_lo, v_lo]),
+                                 torch.stack([k_hi, v_hi]), model=True,
+                                 rows=False)
+    return (lo[0], hi[0]), (lo[1], hi[1])
 
 
 def _cache_write(planes: Tensor, s_row: Tensor, z_row: Tensor, new: Tensor,
@@ -335,8 +358,13 @@ def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
 
     k_nlvl = nlvl(kc.get("k_nlvl"))
     v_nlvl = nlvl(kc.get("v_nlvl"))
-    ks, kz = _cache_rows(k_new, kc.get("k_s"), kc.get("k_z"), k_nlvl)
-    vs, vz = _cache_rows(v_new, kc.get("v_s"), kc.get("v_z"), v_nlvl)
+    k_rng = v_rng = None
+    shards = local_ops.current_shards()
+    if shards is not None and (kc.get("k_s") is None
+                               or kc.get("v_s") is None):
+        k_rng, v_rng = _mesh_cache_ranges(shards, k_new, v_new)
+    ks, kz = _cache_rows(k_new, kc.get("k_s"), kc.get("k_z"), k_nlvl, k_rng)
+    vs, vz = _cache_rows(v_new, kc.get("v_s"), kc.get("v_z"), v_nlvl, v_rng)
     _cache_write(cache.k_planes, cache.k_s, cache.k_z, k_new, ks, kz,
                  k_nlvl, pos)
     _cache_write(cache.v_planes, cache.v_s, cache.v_z, v_new, vs, vz,
@@ -355,8 +383,6 @@ def cross_attend_cached(x: Tensor, enc_kv: tuple[Tensor, Tensor], p: dict,
     """Decode cross-attention against the precomputed source K/V
     (``project_cross_kv``): fp32 einsum and softmax over every source
     token. x: (B, T, d)."""
-    # the reference's decode constraints come with serving under a mesh
-    # (ROADMAP A10)
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     q = L.project(x, p["wq"], cfg, "attn.wq").reshape(

@@ -46,6 +46,14 @@ def layernorm(x: Tensor, scale: Tensor, bias: Tensor,
 
 
 def apply_norm(x: Tensor, params: dict, kind: str) -> Tensor:
+    shards = local_ops.current_shards()
+    if shards is not None:      # a data rank's rows at the batch's shape
+        return shards.at_batch_shape(
+            lambda h: _apply_norm(h, params, kind), x)
+    return _apply_norm(x, params, kind)
+
+
+def _apply_norm(x: Tensor, params: dict, kind: str) -> Tensor:
     if kind == "layernorm":
         return layernorm(x, params["scale"], params["bias"])
     return rmsnorm(x, params["scale"])
@@ -256,9 +264,23 @@ def apply_linear(x: Tensor, p: dict, qc=None, backend: Optional[str] = None,
     frozen range of ``act_lo``/``act_hi``, at ``act_n`` levels over their
     own range, or not at all."""
     if "w_q" in p and backend is not None:
-        return dispatch.serving_linear(x, p, backend)
+        return dispatch.serving_linear(x, p, backend, path)
     b = p.get("b")
     b = None if b is None else b.to(x.dtype)
+    shards = local_ops.current_shards()
+    if shards is not None and shards.model > 1 \
+            and local_ops.row_parallel(path):
+        # a row-parallel shard's float partial product (the dry run's
+        # decode on fp params): summed over "model", the bias added once
+        y = _linear(x, p, qc, None, path)
+        shards.sum_model(y)
+        return y if b is None else y + b
+    return _linear(x, p, qc, b, path)
+
+
+def _linear(x: Tensor, p: dict, qc, b, path) -> Tensor:
+    """``apply_linear``'s float branches: the legacy dequant of an artifact
+    without a backend, or ``qlinear`` on fp params."""
     if "w_q" in p:
         w = (p["w_q"].to(torch.float32) * p["w_scale"]).to(x.dtype)
         if "act_lo" in p:
@@ -315,6 +337,9 @@ def embed(tokens: Tensor, p: dict, dtype) -> Tensor:
     if dist_compat.is_dtensor(table):
         # the gather's local form over a vocab-sharded table
         return local_ops.vocab_parallel_embed(table, tokens)
+    shards = local_ops.current_shards()
+    if shards is not None:      # the rank's vocab shard of a serving mesh
+        return shards.vocab_rows(table, tokens)
     return table[tokens]
 
 

@@ -31,6 +31,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import calibrate as CAL
 from repro_torch.dist import constrain as C
+from repro_torch.dist import local_ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -344,16 +345,36 @@ def embed_scale(cfg: ModelConfig) -> float:
     return torch.tensor(cfg.d_model ** 0.5, dtype=_dtype(cfg)).item()
 
 
+def _decode_head(x: Tensor, params: dict, cfg: ModelConfig) -> Tensor:
+    """``_head`` of a decode step. Under a serving mesh the batch rows are
+    gathered over "data" first (every rank runs the head on the whole
+    batch, as one rank does, so each output column is the one-rank
+    column), each rank computes its vocab columns, and the columns are
+    gathered over "model": the whole (B, 1, V) logits on every rank."""
+    shards = local_ops.current_shards()
+    if shards is None:
+        return _head(x, params, cfg)
+    with local_ops.whole_rows():
+        logits = _head(shards.gather_rows(x), params, cfg)
+    return shards.gather_model(logits)
+
+
 def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
                 tokens: Tensor) -> tuple[Tensor, DecodeState]:
     """tokens: (B, 1) -> (logits (B, 1, V), new state). Attention caches
     are updated in place (``models.attention``); the recurrent layers'
     states (``ssm.SSMState``, ``rwkv.RWKVState``) come back as new
-    tensors in the new state."""
+    tensors in the new state.
+
+    Under a serving mesh (``dist.local_ops.use_shards``: ``params`` the
+    rank's shards, ``cfg`` its head counts, ``state`` its heads and batch
+    rows) the tokens and the logits are the whole batch's: the step embeds
+    the rank's rows (the reference's batch constraint) and gathers the
+    logits (``_decode_head``)."""
     dtype = _dtype(cfg)
-    # the reference's batch constraint here comes with serving under a
-    # mesh (ROADMAP A10)
-    x = L.embed(tokens, params["embed"], dtype)
+    shards = local_ops.current_shards()
+    x = L.embed(tokens if shards is None else tokens[shards.rows],
+                params["embed"], dtype)
     if cfg.scale_embed:
         x = x * embed_scale(cfg)
     shared = params.get("shared_attn")
@@ -365,6 +386,6 @@ def decode_step(params: dict, cfg: ModelConfig, state: DecodeState,
         x, c = T.decode_layer(x, cache, lp, cfg, spec, shared=shared,
                               cross_kv=ckv)
         new_caches.append(c)
-    return _head(x, params, cfg), DecodeState(
+    return _decode_head(x, params, cfg), DecodeState(
         caches=new_caches, cross_kv=state.cross_kv,
         position=state.position + 1)

@@ -300,13 +300,15 @@ def _resolve_point(spec, trail) -> tuple[float, Optional[int]]:
 
 
 def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
-                       spec: Optional[ServingQuantSpec] = None
-                       ) -> WeightStore:
+                       spec: Optional[ServingQuantSpec] = None, *,
+                       mesh=None, par=None) -> WeightStore:
     """Quantize once at each module's max budget over ``r_by_rung`` (rung
     key -> R, (R, b~x) or PolicyTree) and realize every rung as a view.
     The caller hands ``params`` over: each fp32 ``w`` is popped out of it
     once quantized, which at full width is what keeps the build under the
-    card's memory."""
+    card's memory. With ``mesh`` the store is quantized on the whole
+    weights (gamma sums over all of K) and then placed once
+    (``device_put_weight_store``)."""
     spec = spec or ServingQuantSpec()
     calib = _host_calib(spec.calib)
     unused = [f for f in ("policy", "r", "act_bits", "plane_count")
@@ -397,7 +399,130 @@ def build_weight_store(params: Any, cfg, r_by_rung: Mapping[Any, Any],
         return node, {k: node for k in keys}
 
     store, views = walk(params)
+    if mesh is not None:
+        return device_put_weight_store(WeightStore(store=store, views=views),
+                                       mesh, par)
     return WeightStore(store=store, views=views)
+
+
+# ---------------------------------------------------------------------------
+# A store on a serving mesh
+# ---------------------------------------------------------------------------
+
+# the leaves of a projection with one entry per output column
+_COLUMN_LEAVES = ("w_scale", "w_colsum", "b")
+
+
+def serving_shardings(tree: Any, mesh, par=None) -> Any:
+    """NamedShardings of a store or rung view on a serving mesh: the
+    training params' rules (``variant_shardings``), and a column-parallel
+    projection's per-column leaves (``w_scale``, ``w_colsum``, ``b``)
+    sharded with its columns, where ``param_specs`` replicates them. A
+    rank then holds exactly the leaves of its own columns, so the local
+    decode (``dist.local_ops``) reads a whole projection of N / model
+    columns, and the replicated bytes are the norms and the scalars
+    alone."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.dist import sharding as SH
+    specs = SH.param_specs(tree, mesh, par or ParallelConfig())
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            out = {k: walk(v, spec[k]) for k, v in node.items()}
+            if "w_q" in node and spec["w_q"][-1] == "model":
+                for k in _COLUMN_LEAVES:
+                    if k in node:       # its last dim runs over the columns
+                        out[k] = SH.P(*[None] * (node[k].ndim - 1),
+                                      "model")
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, sp) for v, sp in zip(node, spec))
+        return spec
+
+    return SH.to_named(walk(tree, specs), mesh)
+
+
+def device_put_weight_store(ws: WeightStore, mesh=None,
+                            par=None) -> WeightStore:
+    """Place a weight store on a serving mesh, keeping the store / view
+    aliasing: each store leaf becomes ONE DTensor (``serving_shardings``;
+    every rank keeps a copy of its own shard, so no view of the whole
+    tensor stays alive), view leaves that alias a store leaf resolve to
+    that same DTensor, and only the small per-rung leaves are placed on
+    their own. Every rank passes the same whole store (quantized once on
+    the whole weights). Without a mesh the store is returned as it is: the
+    port builds and loads stores on their device."""
+    if mesh is None:
+        return ws
+    from repro_torch.dist import sharding as SH
+    placed = SH.distribute(ws.store, serving_shardings(ws.store, mesh, par))
+    relink = {}
+
+    def link(src, dst):
+        if isinstance(src, dict):
+            for k in src:
+                link(src[k], dst[k])
+        elif isinstance(src, (list, tuple)):
+            for a, b in zip(src, dst):
+                link(a, b)
+        elif src is not None:
+            relink[id(src)] = dst
+
+    link(ws.store, placed)
+
+    def put(node, sharding):
+        if isinstance(node, dict):
+            return {k: put(v, sharding[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(put(v, sh) for v, sh in zip(node, sharding))
+        if node is None:
+            return None
+        hit = relink.get(id(node))
+        return hit if hit is not None else sharding.put(node, node.device)
+
+    shardings = None
+    views = {}
+    for key, view in ws.views.items():
+        if shardings is None:       # the views share shapes
+            shardings = serving_shardings(view, mesh, par)
+        views[key] = put(view, shardings)
+    return WeightStore(store=placed, views=views)
+
+
+def local_tree(tree: Any) -> Any:
+    """A placed store or view as each rank's plain local tensors (the
+    ``to_local()`` of every DTensor: views of the rank's own shards), the
+    tree the local decode runs on."""
+    from repro_torch.dist.compat import is_dtensor
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_tree(v) for v in tree)
+    return tree.to_local() if is_dtensor(tree) else tree
+
+
+def store_bytes(*trees: Any) -> int:
+    """Bytes of the distinct storages the tensors of ``trees`` hold (a
+    placed tree's local shards): a store and its views count each shared
+    tensor once."""
+    from repro_torch.dist.compat import is_dtensor
+    seen: dict = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, Tensor):
+            t = node.to_local() if is_dtensor(node) else node
+            st = t.untyped_storage()
+            seen[(st.data_ptr(), t.device)] = st.nbytes()
+
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
 
 
 # ---------------------------------------------------------------------------

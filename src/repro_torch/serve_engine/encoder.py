@@ -69,7 +69,11 @@ class EncodeEngine:
                  max_batch: int = 4, mse_dim: Optional[float] = None,
                  allocation: str = "uniform", backend: str = "packed",
                  weight_store: Optional[serving.WeightStore] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None, par=None):
+        if mesh is not None or par is not None:
+            raise ValueError(
+                "EncodeEngine(mesh=...) is not ported: the encoders and conv "
+                "stems under a mesh need their own collectives (ROADMAP A10)")
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "

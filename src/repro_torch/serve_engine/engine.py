@@ -33,6 +33,19 @@ lanes in its own slots, so it ``adopt``s a lane another engine built (the
 state copied into one of its slots, the donor's slot freed), rebuilds one
 from its token prefix (``prefill_wave(prefix_rows=...)``), and
 ``release``s the slot of a lane it detaches without finalizing it.
+
+Under a device mesh (``ServeEngine(mesh=..., par=...)``, a dense decoder
+on a ("data", "model") ``DeviceMesh``, one engine a rank) the store is
+quantized once on the whole weights and each rank keeps its shard
+(``serving.device_put_weight_store``); the decode step runs on the rank's
+local shards with its collectives spelled out (``dist.local_ops``): the
+rank's heads, columns or K rows of each projection and its batch rows,
+its slots holding its heads and rows (``dist.sharding.slot_specs``). The
+tokens, the logits and everything the engine does between steps are the
+whole batch's, and every rank's equal a one-rank engine's bit for bit.
+Such steps run eagerly: with more than one rank a step waits on its
+collectives, which the host-staged group of two ranks on one card runs on
+the host.
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
 from repro_torch.core import policy as pol
 from repro_torch.core import power as pw
+from repro_torch.dist import local_ops
 from repro_torch.kernels import dispatch
 from repro_torch.models import model as MD
 from repro_torch.models import serving
@@ -63,6 +77,10 @@ NO_BACKEND = (
     "'fused' | 'packed'), not backend=None; the legacy float dequant is "
     "reached through models.model.forward / decode_step on an artifact with "
     "cfg.kernel_backend None")
+
+# the families a serving mesh takes: one decode step, split by heads,
+# columns and rows (the others need collectives of their own)
+MESH_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass
@@ -138,7 +156,11 @@ class ServeEngine:
     only when asked for (the plain kernel versions). ``autotune`` measures
     and caches the K split of every distinct projection shape of the
     views at ``max_batch`` rows before ``warmup`` captures
-    (``kernels.autotune``; a backend other than 'ref')."""
+    (``kernels.autotune``; a backend other than 'ref'). ``mesh`` (a
+    ("data", "model") ``DeviceMesh``) and ``par`` (a ``ParallelConfig``
+    without FSDP) serve a dense decoder on the mesh's ranks (module
+    docstring); every rank builds its engine from the same params or
+    store."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
@@ -152,7 +174,8 @@ class ServeEngine:
                  device="cuda",
                  frontend_kwargs_fn: Optional[Callable[[int], dict]] = None,
                  autotune: bool = False,
-                 artifact_format: str = "views"):
+                 artifact_format: str = "views",
+                 mesh=None, par=None):
         # the ladder is always one weight store with zero-copy rung views;
         # the reference's per-rung 'legacy' format is refused, as there
         if artifact_format != "views":
@@ -192,6 +215,9 @@ class ServeEngine:
         self.max_batch = int(max_batch)
         self.max_len = int(max_len)
         self.allocation = allocation
+        self.mesh = mesh
+        self._shards = (None if mesh is None
+                        else self._mesh_shards(cfg, mesh, par))
         # the per-module MAC profile: feeds the layerwise allocator and the
         # per-module energy breakdown on every response
         self.profile = costs.module_cost_profile(cfg)
@@ -226,16 +252,29 @@ class ServeEngine:
                 raise ValueError(
                     f"weight_store has no view for rung(s) {missing}; "
                     f"available: {sorted(weight_store.views)}")
-            self.weight_store = weight_store.store
-            self.variants = {b: weight_store.views[b] for b in rung_specs}
+            ws = serving.device_put_weight_store(
+                serving.WeightStore(
+                    store=weight_store.store,
+                    views={b: weight_store.views[b] for b in rung_specs}),
+                mesh=mesh, par=par)
         else:
             spec = serving.ServingQuantSpec(
                 pack_planes=self.backend == "packed",
                 cache_bits=self._cache_bits_by_rung or None)
-            ws = serving.build_weight_store(params, cfg, rung_specs, spec)
-            self.weight_store = ws.store
-            self.variants = ws.views
-        table = self.weight_store["embed"]["table"]
+            ws = serving.build_weight_store(params, cfg, rung_specs, spec,
+                                            mesh=mesh, par=par)
+        self.weight_store = ws.store
+        self.variants = ws.views
+        # what a step reads: the views themselves, or under a mesh each
+        # rank's local shards of them (views of the rank's store shards)
+        # under the config of its heads
+        self._views = {b: serving.local_tree(v)
+                       for b, v in self.variants.items()}
+        self._step_cfg = cfg
+        if self._shards is not None:
+            self._step_cfg = self._shards.local_cfg(cfg)
+            self._check_shards()
+        table = self._views[self.ladder[0].bits]["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"weight store lives on {table.device}, engine "
                              f"device is {self.device}")
@@ -246,14 +285,69 @@ class ServeEngine:
         self.rung_switches = 0
         self._last_step_bits: Optional[int] = None
         self._macs_by_ctx: dict[int, Any] = {}
-        # decode steps replay CUDA graphs on the card; the CPU runs them
-        self.graphed = self.device.type == "cuda"
+        # decode steps replay CUDA graphs on the card; the CPU runs them,
+        # as does a mesh of more than one rank (its steps wait on their
+        # collectives: ROADMAP A10 has capturing them under NCCL)
+        self.graphed = self.device.type == "cuda" and (
+            mesh is None or mesh.size() == 1)
         self._slots = [self._new_slot(i) for i in range(int(slots))]
         self._steps: dict[tuple[int, int], Callable[[], Tensor]] = {}
         self._pool = None
         self._stream = None
         self.graphs_captured = 0
         self.compilations_after_warmup: Optional[int] = None
+
+    # -- a serving mesh -----------------------------------------------------
+
+    def _mesh_shards(self, cfg: ModelConfig, mesh,
+                     par) -> local_ops.ServeShards:
+        """This rank's ``ServeShards``; raises ``ValueError`` naming ROADMAP
+        A10 on what the local decode does not split: a family other than
+        a dense decoder, FSDP, a "model" axis that does not divide the KV
+        heads, a batch the "data" axis does not divide."""
+        if cfg.family not in MESH_FAMILIES:
+            raise ValueError(
+                f"ServeEngine(mesh=...) serves the dense decoders; "
+                f"{cfg.name} is a {cfg.family!r} model, whose collectives "
+                "are not ported (ROADMAP A10)")
+        if par is not None and par.fsdp:
+            raise ValueError("ServeEngine(mesh=...) shards the store over "
+                             "'model' only: par.fsdp would re-gather every "
+                             "weight every step (ROADMAP A10)")
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        m = sizes.get("model", 1)
+        if cfg.num_kv_heads % m:
+            raise ValueError(
+                f"a 'model' axis of {m} does not divide {cfg.name}'s "
+                f"{cfg.num_kv_heads} KV heads: each rank serves whole KV "
+                "heads (ROADMAP A10)")
+        if self.max_batch % sizes.get("data", 1):
+            raise ValueError(
+                f"max_batch {self.max_batch} is no multiple of the 'data' "
+                f"axis {sizes.get('data', 1)} (ROADMAP A10)")
+        return local_ops.ServeShards.for_mesh(mesh, cfg, self.max_batch)
+
+    def _check_shards(self) -> None:
+        """Every projection of the views is split over "model" (a width
+        the axis does not divide stays whole on every rank, which the
+        local decode cannot read)."""
+        def walk(node, trail):
+            if isinstance(node, dict):
+                w_q = node.get("w_q")
+                if w_q is not None and not any(
+                        p.is_shard() for p in w_q.placements):
+                    raise ValueError(
+                        f"{'.'.join(trail)}: {tuple(w_q.shape)} is not "
+                        f"split over the {self._shards.model}-way 'model' "
+                        "axis (ROADMAP A10)")
+                for key, v in node.items():
+                    walk(v, trail + (key,))
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, trail + (str(i),))
+
+        if self._shards.model > 1:
+            walk(self.variants[self.ladder[0].bits], ())
 
     # -- offline autotuning -------------------------------------------------
 
@@ -283,7 +377,7 @@ class ServeEngine:
                 for v in node:
                     walk(v)
 
-        walk(self.variants[self.ladder[-1].bits])
+        walk(self._views[self.ladder[-1].bits])
 
     # -- the compiled decode step -------------------------------------------
 
@@ -296,8 +390,11 @@ class ServeEngine:
                 for k, v in self._frontend_kwargs_fn(self.max_batch).items()}
 
     def _new_slot(self, index: int) -> Slot:
-        state = MD.init_decode_state(self.variants[self.ladder[0].bits],
-                                     self.cfg, self.max_batch, self.max_len,
+        rows = self.max_batch
+        if self._shards is not None:
+            rows = self._shards.rows.stop - self._shards.rows.start
+        state = MD.init_decode_state(self._views[self.ladder[0].bits],
+                                     self._step_cfg, rows, self.max_len,
                                      **self._frontend())
         tok = torch.zeros((self.max_batch, 1), dtype=torch.int64,
                           device=self.device)
@@ -345,8 +442,9 @@ class ServeEngine:
         into the slot's buffers, and the greedy token over the first
         ``vocab_size`` logits written into the slot's token buffer. Returns
         the logits. This is the work one graph replays."""
-        logits, new = MD.decode_step(self.variants[bits], self.cfg,
-                                     slot.state, slot.tok)
+        with local_ops.use_shards(self._shards):
+            logits, new = MD.decode_step(self._views[bits], self._step_cfg,
+                                         slot.state, slot.tok)
         for old, out in zip(_tensors(slot.state), _tensors(new),
                             strict=True):
             if out is not old:
@@ -700,7 +798,19 @@ class ServeEngine:
 
     def describe(self) -> dict:
         total_macs = sum(m.macs for m in self.profile)
+        mesh = None
+        if self.mesh is not None:
+            mesh = {"shape": dict(zip(self.mesh.mesh_dim_names,
+                                      self.mesh.shape)),
+                    "rank": torch.distributed.get_rank(),
+                    "backend": torch.distributed.get_backend()}
         return {
+            "mesh": mesh,
+            "graphed": self.graphed,
+            "steps": ("CUDA graph replays" if self.graphed else
+                      "eager: a step under a mesh of more than one rank "
+                      "waits on its collectives" if mesh is not None
+                      else "eager (the CPU has no graphs)"),
             "allocation": self.allocation,
             "artifact_format": self.artifact_format,
             "backend": self.backend,

@@ -1,8 +1,9 @@
 """One rank of a spawned group of CPU gloo ranks, for
 ``test_torch_dist.py`` (the compressed all-reduce, the GPipe pipeline,
 the elastic checkpoint restore), ``test_torch_dist_moe.py`` (the MoE
-capacity dispatch with its experts over "data") and
-``test_torch_dist_tp.py`` (tensor-parallel training).
+capacity dispatch with its experts over "data"),
+``test_torch_dist_tp.py`` (tensor-parallel training) and
+``test_torch_serve_mesh.py`` (``ServeEngine`` under a device mesh).
 
 Each test file starts ONE group (``spawn_group``) on a ``FileStore``
 under its temporary directory (no fixed port) and names the cases its
@@ -10,6 +11,7 @@ ranks run. Each case writes what it computed to that directory; the test
 process holds it against the JAX package. This module imports torch and
 ``repro_torch`` only.
 """
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -178,12 +180,16 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def _wait_ready(tmp: str) -> None:
+def _wait_file(path: str) -> None:
     deadline = time.monotonic() + 300
-    while not os.path.exists(os.path.join(tmp, READY)):
+    while not os.path.exists(path):
         if time.monotonic() > deadline:
-            raise TimeoutError("the test process wrote no checkpoint")
+            raise TimeoutError(f"the test process wrote no {path}")
         time.sleep(0.05)
+
+
+def _wait_ready(tmp: str) -> None:
+    _wait_file(os.path.join(tmp, READY))
 
 
 def _train(rank: int, argv: list) -> dict:
@@ -242,8 +248,106 @@ def _moe_ep(rank: int, tmp: str) -> None:
                        "placements": placements}, f)
 
 
+SERVE_CASES = "serve_cases.json"    # the test's cases of mesh serving
+
+
+def serve_requests(seed: int, n: int, prompt: int, gen: int,
+                   first: int = 0) -> list:
+    """``n`` seeded requests whose budgets cycle over the ladder's rungs
+    from rung ``first`` (as dicts of ``serve_engine.Request``'s
+    fields)."""
+    rng = np.random.default_rng(seed)
+    budgets = (2, 4, 6)
+    return [dict(uid=i, prompt=rng.integers(0, 512, prompt).astype(np.int32),
+                 max_new_tokens=gen,
+                 power_budget_bits=budgets[(first + i) % 3])
+            for i in range(n)]
+
+
+def serve_engine(case: dict, mesh=None):
+    """The case's ``ServeEngine`` on the store the test wrote (loaded
+    afresh: a mesh engine places its own copy of each shard)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.serve_engine import ServeEngine
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get_config(case["arch"])), **case["cfg"])
+    ws = torch.load(case["store"], weights_only=False)
+    return ServeEngine(cfg, weight_store=ws, backend=case["backend"],
+                       cache_bits=case["cache_bits"],
+                       allocation=case["allocation"], device="cpu",
+                       mesh=mesh, **case["engine"])
+
+
+def serve_recorded(engine, case: dict) -> dict:
+    """Serve the case's requests; every step's logits recorded."""
+    import torch
+    from repro_torch.serve_engine import Request
+    steps = []
+    run = engine._run_step
+
+    def recorded(bits, slot):
+        logits = run(bits, slot)
+        steps.append(logits.clone())
+        return logits
+
+    engine._run_step = recorded
+    engine.warmup()
+    out = engine.generate([Request(**r) for r in serve_requests(
+        **case["requests"])])
+    return {"tokens": [r.tokens for r in out],
+            "rungs": [r.rung_bits for r in out],
+            "logits": torch.stack(steps).numpy()}
+
+
+def _state_leaves(tree) -> list:
+    """The tensors of a decode state (nested tuples and lists), in order."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if tree is None:
+        return []
+    return [t for node in tree for t in _state_leaves(node)]
+
+
+def _serve_mesh(rank: int, tmp: str) -> None:
+    """Every case of the test's list on its mesh: rank 0's tokens and
+    every step's logits, and each rank's store bytes."""
+    import torch
+    from repro_torch.dist.compat import DeviceMesh, staged_collectives
+    from repro_torch.models import serving
+    _wait_file(os.path.join(tmp, SERVE_CASES))
+    with open(os.path.join(tmp, SERVE_CASES)) as f:
+        cases = json.load(f)
+    out = {}
+    for case in cases:
+        _wait_file(case["store"])       # the test writes them in turn
+        t0 = time.monotonic()
+        d, m = case["mesh"]
+        mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(d, m),
+                          mesh_dim_names=("data", "model"))
+        engine = serve_engine(case, mesh)
+        res = serve_recorded(engine, case)
+        res["store_bytes"] = serving.store_bytes(engine.weight_store,
+                                                 *engine.variants.values())
+        res["describe"] = engine.describe()
+        res["slot_shapes"] = [list(t.shape) for t in _state_leaves(
+            engine._slots[0].state.caches)]
+        del engine
+        if rank == 0:
+            np.save(os.path.join(tmp, f"logits_{case['name']}.npy"),
+                    res.pop("logits"))
+        else:
+            res.pop("logits")
+        res["seconds"] = time.monotonic() - t0
+        out[case["name"]] = res
+    out["staged_collectives"] = staged_collectives()
+    with open(os.path.join(tmp, f"serve_{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+
+
 CASES = {"psum": _psum, "pipeline": _pipeline, "elastic": _elastic,
-         "moe_ep": _moe_ep, "tp": _tp_train}
+         "moe_ep": _moe_ep, "tp": _tp_train, "serve_mesh": _serve_mesh}
 
 
 def run(rank: int, tmp: str, cases: tuple) -> None:

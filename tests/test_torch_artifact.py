@@ -31,6 +31,7 @@ from repro_torch.models import serving as TSV
 from repro_torch.serve_engine import artifact as TA
 from test_torch_common import (LADDER, port_cfg, ref_cfg, reference_store,
                                tonp)
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_encoder import ARCHS as ENC_ARCHS
 from test_torch_encoder import frontend_key, raw_input
 from test_torch_encoder import port_cfg as enc_port_cfg

@@ -33,6 +33,7 @@ from repro_torch.models import model as TMD
 from repro_torch.models import serving as TSV
 from test_torch_common import (CALIB, LADDER, reference_store, rung_specs,
                                tonp)
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_slice import REL_BOUND
 
 ARCH = "llama3-8b"
@@ -129,7 +130,7 @@ def test_unseen_collection_is_inert(ref_params):
     plain = TMD.forward(params, tc, tokens, remat=False)
     assert plain.calib is None
     tapped = TMD.forward(params, tc, tokens, remat=False,
-                         calib=TCAL.init_calib(tc))
+                         calib=TCAL.init_calib(tc, "cpu"))
     assert torch.equal(plain.logits, tapped.logits)
     assert TCAL.n_seen(tapped.calib) == len(TCAL.calib_paths(tc))
     assert TL._TAPS == []

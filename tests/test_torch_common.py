@@ -12,6 +12,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as rconfigs
 from repro.core import costs as rcosts
@@ -27,6 +28,21 @@ from repro_torch.core import planner as tplanner
 from repro_torch.serve_engine import build_ladder as t_build_ladder
 
 LADDER = (2, 4, 6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for a module that imports this fixture:
+    the reduced configs run thousands of small torch ops, and under the
+    suite's six workers every worker's pool of threads contends for the
+    same cores (a fleet case took 7 s alone and 456 s in the suite before
+    its file pinned one thread). Each comparison is against the JAX
+    package within its bound or between two port paths in one process,
+    so none depends on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 # a frozen activation-range collection: two projection roles and both
 # cache roles get hoisted (s, z) leaves; the rest stay dynamic
 CALIB = {"attn.wq": (-1.5, 2.25), "mlp.w_down": (0.1, 0.7),

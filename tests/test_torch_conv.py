@@ -37,6 +37,7 @@ from repro_torch.kernels import dispatch as TD
 from repro_torch.kernels import pann_conv as TPC
 from repro_torch.models import layers as TL
 from test_torch_common import rung_specs, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_encoder import (ARCHS, PANN, port_cfg, raw_input, ref_cfg,
                                 reference_params)
 

@@ -748,3 +748,62 @@ def test_every_tuned_split_is_bit_identical(backend, m):
             np.testing.assert_array_equal(got, want)
             assert (covered == 1).all()
             assert not bufs[0].any() and not bufs[1].any()
+
+
+# (M, K, N, shards, plane_shift): a row-parallel projection's K split over
+# the "model" ranks; a shard's K a multiple of the packed planes' 8
+ACC_SHARDS = [(1, 128, 40, 2, 0), (4, 256, 72, 4, 1), (8, 96, 40, 2, 3),
+              (3, 4096 // 16, 136, 2, 0)]
+
+
+@pytest.mark.parametrize("m,k,n,shards,shift", ACC_SHARDS)
+def test_accumulator_mode_and_epilogue_entry(m, k, n, shards, shift):
+    """The accumulator mode at M <= 8 (``Finish.sums`` set): each K shard's
+    launch stores the int32 sums the finish reads (the ticketed read-back
+    of the split-K atomics, or the block's own sums), no epilogue; equal
+    to ``*_act_acc_plain`` on that shard. The shards' sums added (the
+    ranks' int32 all-reduce) equal the whole-K product, and the epilogue
+    entry (``epilogue_kernel`` at ksplit 1: one sum, minus zcol, two
+    __fmul_rn) on them equals the whole projection's plain version and
+    ``pann_epilogue_plain``, bit for bit."""
+    rng = np.random.default_rng(m + k + n + shards)
+    n_planes = 7
+    pos, neg = planes_of(rand_weights(rng, n_planes, k, n), n_planes)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    gamma = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-3)
+    zcol = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, n)
+                            .astype(np.int32))
+    qp = torch.tensor([0.02, 40.0, 127.0, float(shift)])
+    from repro_torch.core import quant
+    q = quant.affine_encode(x, qp[0], qp[1], qp[2]).to(torch.int8).numpy()
+    ks = k // shards
+    t = torch.from_numpy
+    for kind in ("packed",) + tpm.MODES:
+        total = np.zeros((m, n), np.int64)
+        for r in range(shards):
+            sl = slice(r * ks, (r + 1) * ks)
+            qs, ps, ns = q[:, sl], pos[:, sl], neg[:, sl]
+            if kind == "packed":
+                sums = packed_launch(qs, ps, ns, shift, seed=r)[0]
+                plain = tpk.pann_matmul_packed_act_acc_plain(
+                    x[:, sl].contiguous(), t(pack(ps)), t(pack(ns)), qp)
+            else:
+                sums = planes_launch(qs, ps, ns, shift, kind, seed=r)[0]
+                plain = tpm.pann_matmul_act_acc_plain(
+                    x[:, sl].contiguous(), t(ps), t(ns), qp, kind)
+            assert plain.dtype == torch.int32
+            np.testing.assert_array_equal(sums, plain.numpy())
+            total += sums
+        np.testing.assert_array_equal(
+            total, int_product(q, pos, neg, shift))
+        acc = total.astype(np.int32) - zcol.numpy()        # epilogue_kernel
+        y = (acc.astype(np.float32) * np.float32(0.02)) * gamma.numpy()
+        assert torch.equal(t(y), tpm.pann_epilogue_plain(
+            t(total.astype(np.int32)), qp, gamma, zcol))
+        whole = (tpk.pann_matmul_packed_act_plain(x, t(pack(pos)),
+                                                  t(pack(neg)), qp, gamma,
+                                                  zcol)
+                 if kind == "packed" else
+                 tpm.pann_matmul_act_plain(x, t(pos), t(neg), qp, gamma,
+                                           zcol, kind))
+        assert torch.equal(t(y), whole)

@@ -40,6 +40,7 @@ from repro_torch.serve_engine import Request as TRequest
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from repro_torch.serve_engine.artifact import _flatten
 from test_torch_common import LADDER, rung_specs, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_slice import REL_BOUND, _margin, _strip_cache
 
 ARCHS = ("qwen1.5-4b", "gemma2-9b", "stablelm-12b")

@@ -1,0 +1,139 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on a fake 256-rank
+group, reduced llama3-8b ``train_4k``, against the JAX package's sharding
+rules.
+
+One subprocess run writes the record; a second (the CLI's ``main`` in
+this process: a cell already recorded starts no group) must resume from
+it, as ``tests/test_dryrun_smoke.py`` asks of the reference's. The record's
+parameter and AdamW-moment bytes (summed over the 256 devices) equal, to
+the byte, those of the reference's ``param_specs`` on an abstract
+{"data": 16, "model": 16} stand-in over ``jax.eval_shape`` of the
+reference's train state (the reference's sharding functions read only the
+mesh's ``axis_names`` and ``shape``). Sharding never loses work: the
+per-device FLOPs times 256 are at least the same step's FLOPs counted on
+one unsharded meta process here.
+"""
+import contextlib
+import io
+import json
+import math
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import pytest
+
+from repro import configs as rconfigs
+from repro.configs.base import ParallelConfig as RParallelConfig
+from repro.configs.base import QuantConfig as RQuantConfig
+from repro.configs.base import TrainConfig as RTrainConfig
+from repro.dist import sharding as RSH
+from repro.launch import steps as RST
+from repro_torch import configs as tconfigs
+from repro_torch.configs.base import QuantConfig
+from repro_torch.launch import dryrun as TDR
+
+ROOT = Path(__file__).resolve().parents[1]
+ARGV = ["--arch", "llama3-8b", "--shape", "train_4k", "--mesh", "single",
+        "--reduced"]
+
+
+def _run(out: str):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *ARGV, "--out",
+         out], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _cfg(configs_mod, quant_cls):
+    return configs_mod.reduced(configs_mod.get_config(
+        "llama3-8b", dtype="bfloat16",
+        quant=quant_cls(mode="none", qat=True)))
+
+
+@pytest.fixture(scope="module")
+def dryrun(tmp_path_factory):
+    """(the record, the second run's stdout, the unsharded step's counts
+    on this process, made while the first run works)."""
+    out = str(tmp_path_factory.mktemp("dryrun"))
+    proc = _run(out)
+    try:
+        full = tconfigs.get_config("llama3-8b", dtype="bfloat16")
+        unsharded = TDR.count_cell(
+            _cfg(tconfigs, QuantConfig), tconfigs.SHAPES_BY_NAME["train_4k"],
+            par=TDR.parallel_for(full, "train"))
+        stdout, stderr = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, stdout[-2000:] + stderr[-3000:]
+    # the second run in this process: a resumed cell starts no group
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        TDR.main(ARGV + ["--out", out])
+    stdout2 = buf.getvalue()
+    with open(os.path.join(out, "dryrun_single_reduced.json")) as f:
+        data = json.load(f)
+    assert data["failures"] == []
+    (record,) = data["records"]
+    return record, stdout2, unsharded
+
+
+def test_record_and_resume(dryrun):
+    record, stdout2, _ = dryrun
+    assert "resuming: 1 records already present" in stdout2
+    assert record["n_devices"] == 256
+    assert record["mesh"] == "single" and record["shape"] == "train_4k"
+    assert record["fsdp"] is True     # the full config's strategy
+    assert record["flops_per_device"] > 0
+    assert record["collective_bytes_per_device"]["total"] > 0
+    assert record["flops_per_device_corrected"] == \
+        record["flops_per_device"]
+    for key in ("temp_size_in_bytes", "argument_size_in_bytes",
+                "output_size_in_bytes", "bytes_per_device"):
+        assert record[key] > 0
+
+
+def test_param_and_moment_bytes_match_reference_specs(dryrun):
+    record, _, _ = dryrun
+    cfg = _cfg(rconfigs, RQuantConfig)
+    state = jax.eval_shape(
+        lambda k: RST.make_train_state(k, cfg, RTrainConfig()),
+        jax.random.PRNGKey(0))
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 16, "model": 16})
+    full = tconfigs.get_config("llama3-8b", dtype="bfloat16")
+    par = RParallelConfig(fsdp=TDR.parallel_for(full, "train").fsdp)
+    specs = RSH.param_specs(state.params, mesh, par)
+
+    def total(tree) -> int:
+        leaves = jax.tree_util.tree_leaves(tree)
+        spec_leaves = jax.tree_util.tree_leaves(
+            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        out = 0
+        for leaf, spec in zip(leaves, spec_leaves, strict=True):
+            split = 1
+            for entry in spec:
+                for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                    if ax is not None:
+                        split *= mesh.shape[ax]
+            out += math.prod(leaf.shape) * leaf.dtype.itemsize // split
+        return out * 256
+
+    want = total(state.params) + total(state.opt.mu) + total(state.opt.nu)
+    parts = record["argument_size_by_part"]
+    assert parts["params"] + parts["moments"] == want
+
+
+def test_sharding_conserves_flops(dryrun):
+    record, _, unsharded = dryrun
+    ratio = record["flops_per_device"] * 256 / unsharded["flops_per_device"]
+    print(f"256 x per-device FLOPs / unsharded FLOPs = {ratio:.4f}")
+    assert ratio >= 1.0

@@ -39,6 +39,7 @@ from repro_torch.models.serving import WeightStore
 from repro_torch.serve_engine import EncodeEngine as TEncodeEngine
 from repro_torch.serve_engine import EncodeRequest as TEncodeRequest
 from test_torch_common import LADDER, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_encoder import (ARCHS, REL_BOUND, jparams, port_cfg,
                                 raw_input, ref_cfg, reference_params)
 from test_torch_single_point import _check_artifact

@@ -47,6 +47,7 @@ from repro_torch.core import quant as TQ
 from repro_torch.data import pipeline as TP
 from repro_torch.models import model as TMD
 from test_torch_common import rung_specs, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 
 ARCHS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
 REL_BOUND = 1e-5

@@ -31,6 +31,7 @@ from repro_torch.models import model as TMD
 from repro_torch.serve_engine import Request as TRequest
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from test_torch_common import LADDER
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_encoder import (ARCHS, BATCH, REL_BOUND, frontend_key,
                                 port_cfg, raw_input, ref_cfg,
                                 reference_store, tokens)

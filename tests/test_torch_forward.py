@@ -196,7 +196,7 @@ def test_forward_refuses_calibration_and_cross_inputs():
     tokens = torch.zeros((1, 4), dtype=torch.long)
     params = params_from_reference(reference_params("llama3-8b"), cfg, "cpu")
     plain = TMD.forward(params, cfg, tokens).logits
-    out = TMD.forward(params, cfg, tokens, calib=TCAL.init_calib(cfg))
+    out = TMD.forward(params, cfg, tokens, calib=TCAL.init_calib(cfg, "cpu"))
     assert torch.equal(out.logits, plain)
     assert set(out.calib) == set(TCAL.calib_paths(cfg))
     for kw in ("enc_inputs", "image_embeds"):

@@ -141,3 +141,34 @@ def test_dist_modules_are_checked(module):
            "datetime", "math", "os", "tempfile", "typing"}
     allowed = {"torch", "numpy", "repro_torch"} | std
     assert {m.split(".")[0] for m in _imports(path)} <= allowed, path
+
+
+def test_accumulator_entries_stand_alone():
+    """With ``jax`` and ``repro`` blocked (``launch/dryrun.py`` is held by
+    the two tests above), the accumulator-mode and epilogue entries run
+    their plain versions on CPU tensors, building nothing."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import build\n"
+        "from repro_torch.kernels import pann_matmul as pm\n"
+        "from repro_torch.kernels import pann_matmul_packed as pk\n"
+        "x = torch.randn(4, 16)\n"
+        "pos = torch.randint(0, 2, (7, 16, 8), dtype=torch.int8)\n"
+        "neg = (1 - pos) * torch.randint(0, 2, (7, 16, 8), dtype=torch.int8)\n"
+        "qp = torch.tensor([0.05, 60.0, 127.0, 0.0])\n"
+        "sums = pm.pann_matmul_act_acc(x, pos, neg, qp)\n"
+        "psums = pk.pann_matmul_packed_act_acc(x, pk.pack_planes(pos),\n"
+        "                                      pk.pack_planes(neg), qp)\n"
+        "assert torch.equal(sums, psums) and sums.dtype == torch.int32\n"
+        "y = pm.pann_epilogue(sums, qp, torch.ones(8), torch.zeros(8,\n"
+        "                     dtype=torch.int32))\n"
+        "assert y.dtype == torch.float32 and build._libs == {}\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
+        "sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

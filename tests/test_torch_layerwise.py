@@ -27,6 +27,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.serve_engine import Request as TRequest
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from test_torch_common import LADDER, port_cfg, ref_cfg, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_slice import REL_BOUND, _margin
 
 CACHE = [None, 4, "auto"]

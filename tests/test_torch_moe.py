@@ -53,6 +53,7 @@ from repro_torch.serve_engine import Request as TRequest
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from repro_torch.serve_engine import build_ladder as t_build_ladder
 from test_torch_common import LADDER, rung_specs, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_dense_variants import _np_leaves, _perturb
 from test_torch_forward import _capture
 from test_torch_layerwise import _tree

@@ -415,3 +415,42 @@ def test_unsigned_plain_matches_pallas_above_8_rows(m):
     t = torch.from_numpy
     got = tum.unsigned_matmul_plain(t(q), t(w), t(sx), t(sw)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# (M, K, N, shards, shift): the accumulator mode above 8 rows, a
+# row-parallel K split over "model" ranks
+ACC_TILE = [(100, 256, 72, 2, 0), (17, 512, 136, 4, 2)]
+
+
+@pytest.mark.parametrize("m,k,n,shards,shift", ACC_TILE)
+def test_accumulator_mode_tile_launch(m, k, n, shards, shift):
+    """The accumulator mode above 8 rows: each K shard's tile launch and
+    ``sum_splits_kernel`` (the split sums added, no epilogue) equal
+    ``pann_matmul_packed_act_acc_plain`` on the shard; the shards' sums
+    added, through the epilogue entry (ksplit 1), equal the whole
+    projection's plain version bit for bit."""
+    rng = np.random.default_rng(m + k + n)
+    n_planes = 7
+    pos, neg = planes_of(rand_weights(rng, n_planes, k, n), n_planes)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qp = torch.tensor([0.02, 40.0, 127.0, float(shift)])
+    t = torch.from_numpy
+    q = quant.affine_encode(t(x), qp[0], qp[1], qp[2]).to(torch.int8).numpy()
+    ks = k // shards
+    total = np.zeros((m, n), np.int64)
+    for r in range(shards):
+        sl = slice(r * ks, (r + 1) * ks)
+        ppk, npk = pack(pos[:, sl]), pack(neg[:, sl])
+        sums = packed_launch(np.ascontiguousarray(q[:, sl]), ppk, npk, shift)
+        np.testing.assert_array_equal(
+            sums, tpk.pann_matmul_packed_act_acc_plain(
+                t(np.ascontiguousarray(x[:, sl])), t(ppk), t(npk),
+                qp).numpy())
+        total += sums
+    gamma = rng.random(n).astype(np.float32) * 1e-3
+    zcol = rng.integers(-2 ** 20, 2 ** 20, n).astype(np.int32)
+    y = epilogue(total, np.float32(0.02), gamma, zcol)
+    np.testing.assert_array_equal(y, tpm.pann_epilogue_plain(
+        t(total.astype(np.int32)), qp, t(gamma), t(zcol)).numpy())
+    np.testing.assert_array_equal(y, tpk.pann_matmul_packed_act_plain(
+        t(x), t(pack(pos)), t(pack(neg)), qp, t(gamma), t(zcol)).numpy())

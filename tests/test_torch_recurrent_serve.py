@@ -67,6 +67,7 @@ from repro_torch.serve_engine import artifact as TA
 from repro_torch.serve_engine import build_ladder as t_build_ladder
 from repro_torch.serve_engine.engine import _tensors
 from test_torch_common import LADDER, rung_specs, tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_dense_variants import _np_leaves
 from test_torch_forward import _capture
 from test_torch_layerwise import _tree

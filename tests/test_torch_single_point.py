@@ -44,6 +44,7 @@ from repro_torch.models import model as TMD
 from repro_torch.models import serving as TSV
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from test_torch_common import tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_dense_variants import port_cfg, ref_cfg, reference_params
 
 R = 2.83

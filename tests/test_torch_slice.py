@@ -25,6 +25,7 @@ from repro_torch.models import model as TMD
 from repro_torch.serve_engine import Request as TRequest
 from repro_torch.serve_engine import ServeEngine as TServeEngine
 from test_torch_common import LADDER, port_cfg, ref_cfg, reference_store
+from test_torch_common import one_torch_thread  # noqa: F401
 
 REL_BOUND = 1e-5
 STEPS = 10

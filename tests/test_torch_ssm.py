@@ -42,6 +42,7 @@ from repro_torch.core import quant as TQ
 from repro_torch.models import model as TMD
 from repro_torch.models import ssm as TS
 from test_torch_common import tonp
+from test_torch_common import one_torch_thread  # noqa: F401
 from test_torch_forward import _capture
 
 ARCH = "zamba2-1.2b"

@@ -136,7 +136,7 @@ def test_annealer_trees_equal_at_every_knot(allocation, arch):
                                   "rwkv6-1.6b", "seamless-m4t-medium"])
 def test_calib_paths_equal(arch):
     assert TCAL.calib_paths(tcfg(arch)) == RCAL.calib_paths(rcfg(arch))
-    init = TCAL.init_calib(tcfg(arch))
+    init = TCAL.init_calib(tcfg(arch), "cpu")
     assert all(not bool(TCAL.seen(v)) for v in init.values())
 
 
