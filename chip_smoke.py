@@ -288,15 +288,23 @@ Phases (any failure raises and the script exits non-zero):
               params, served by ``ServeEngine(mesh=...)`` on a (1, 2)
               ("data", "model") mesh on 'packed' and 'fused' and a (2, 1)
               mesh on 'packed' (ladder 2,4,6, 4-bit cache, batch 4,
-              prompt 32, gen 16, a request a rung): rank 0's tokens and
+              prompt 32, gen 16, a request a rung); then (MESH_CASES)
+              mixtral-8x7b at 2 layers on (1, 2) and (2, 1) 'packed' (the
+              experts split by expert), zamba2-1.2b at 6 layers on (1, 2)
+              'packed' (its shared block and B3) and rwkv6-1.6b at 4
+              layers on (1, 2) 'fused' and (2, 1) 'packed', a request
+              each: rank 0's tokens and
               every step's logits bit for bit against a one-rank engine
               on the same store (graph replays), each rank's store at most
-              1/2 + 0.02 of the whole on (1, 2), the accumulator-mode and
-              epilogue launches counted; host ms a step, tok/s, staged
+              1/2 + 0.02 of the whole on (1, 2), both ranks' peaks under
+              70 GB, the B1 / B2, accumulator-mode, epilogue and B3
+              launches counted; host ms a step, tok/s, staged
               collectives a step and peak memory of each rank; (b) B1 and
               B2 in the accumulator mode and the epilogue entry at the
-              row-parallel shard shapes ((4 | 512) x (2048 | 7168) x 4096)
-              bit for bit against their plain versions, and the shards'
+              row-parallel shard shapes of every 13a config ((4 | 512) x
+              (2048 | 7168) x 4096 for llama3-8b and mixtral, (1024 |
+              2048 | 4096) x 2048 for zamba2 and rwkv6) bit for bit
+              against their plain versions, and the shards'
               sums through the epilogue against the whole projection; the
               column shards' B1 / B2; timed at M = 4; (c) the dry run
               (``repro_torch.launch.dryrun``) of llama3-8b ``decode_32k``
@@ -1846,26 +1854,39 @@ def _profile_rung(run, steps: int = PROFILE_STEPS,
     kernel (``torch.cuda._sleep``'s ``spin_kernel``) follows it on the
     same stream, and only the kernels that start after the marker are
     counted: device timestamps against device timestamps. ``guard_run``,
-    when given, is run in place of the guard step."""
+    when given, is run in place of the guard step. A window whose marker
+    record the profiler lost, or that holds no device record at all, is
+    taken again, PROFILE_ATTEMPTS times at most (each run advances its
+    decode state a few positions); ({}, {}, 0) when no window held a
+    device record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        (guard_run or run)()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return {}, {}, 0
-    marks = [e.time_range.start for e in kernels if "spin_kernel" in e.name]
-    if len(marks) != 1:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            (guard_run or run)()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.start for e in kernels
+                 if "spin_kernel" in e.name]
+        if len(marks) == 1:
+            break
+        print(f"[profile] attempt {attempt}: the profiler recorded "
+              f"{len(kernels)} device kernels, {len(marks)} marker kernels "
+              "(spin_kernel), expected 1", flush=True)
+    else:
+        if not kernels:
+            return {}, {}, 0
         raise AssertionError(f"profiler recorded {len(marks)} marker "
-                             "kernels (spin_kernel), expected 1")
+                             f"kernels (spin_kernel), expected 1, in "
+                             f"{PROFILE_ATTEMPTS} windows")
     ms: dict = {}
     count: dict = {}
     guard = 0
@@ -4404,6 +4425,11 @@ def tp_train() -> dict:
         checks["wall_s"] = time.perf_counter() - t0
         mesh = [json.loads(Path(f"{path}.mesh.rank{r}").read_text())
                 for r in range(2)]
+    for name in mesh[0]["cases"]:
+        peak = sum(r["cases"][name]["peak_gb"] for r in mesh)
+        if peak >= MESH_PEAK_GB:
+            raise AssertionError(f"13a {name}: both ranks' peaks {peak:.2f}"
+                                 f" GB >= {MESH_PEAK_GB} GB")
     return {"argv": TP_ARGV, "mesh": summary["mesh"],
             "backend": summary["backend"],
             "losses_2_ranks": summary["losses_exact"],
@@ -4586,19 +4612,43 @@ def a11_on_kernels(seed: int = 45) -> dict:
 # store (~8.3 GB) from the same seeded params and keeps its shard, beside a
 # one-rank engine on the same store in the same run; 8 layers keep both
 # ranks' stores and transients well inside 80 GB and the three cases inside
-# ~2 minutes of the script's 1,200 s
+# ~2 minutes of the script's 1,200 s. Then the MoE and recurrent configs,
+# shallow to fit the script's time: mixtral-8x7b at its MOE_LAYERS depth
+# (each rank builds the whole 2-layer store with its 11.3 GB of fp32
+# experts), zamba2-1.2b at one group of 6 layers (five mamba and one
+# mamba_attn: its shared block and B3 run), rwkv6-1.6b at its
+# RECURRENT_LAYERS depth
 MESH_LAYERS = 8
 MESH_SEED = 50
-# (name, (data, model), backend, requests): a request a rung (3 waves of
-# prompt + gen steps; 'fused', twice as slow a step, serves the first two)
-MESH_CASES = (("model2_packed", (1, 2), "packed", 3),
-              ("model2_fused", (1, 2), "fused", 2),
-              ("data2_packed", (2, 1), "packed", 3))
+# arch -> (layers, seed)
+MESH_ARCHS = {"llama3-8b": (MESH_LAYERS, MESH_SEED),
+              "mixtral-8x7b": (MOE_LAYERS["mixtral-8x7b"], 52),
+              "zamba2-1.2b": (6, 53),
+              "rwkv6-1.6b": (RECURRENT_LAYERS["rwkv6-1.6b"], 54)}
+# (arch, name, (data, model), backend, requests): a request a rung (waves
+# of prompt + gen steps). Cut for the script's time: the MoE and recurrent
+# configs serve one request a case (the whole script took 1,105 s with
+# them at two; NVIDIA H100 80GB HBM3, 700.00 W)
+MESH_CASES = (("llama3-8b", "model2_packed", (1, 2), "packed", 3),
+              ("llama3-8b", "model2_fused", (1, 2), "fused", 2),
+              ("llama3-8b", "data2_packed", (2, 1), "packed", 3),
+              ("mixtral-8x7b", "model2_packed", (1, 2), "packed", 1),
+              ("mixtral-8x7b", "data2_packed", (2, 1), "packed", 1),
+              ("zamba2-1.2b", "model2_packed", (1, 2), "packed", 1),
+              ("rwkv6-1.6b", "model2_fused", (1, 2), "fused", 1),
+              ("rwkv6-1.6b", "data2_packed", (2, 1), "packed", 1))
+# both ranks' peaks together, a case
+MESH_PEAK_GB = 70.0
 # 13b: the accumulator mode's local shapes on the (1, 2) mesh, (K, N, the
-# module, launches of the shape a decode step on each rank), and the
-# column shards' (K, N) the ordinary B1/B2 launch there
-ACC_SHAPES = ((2048, 4096, "wo", MESH_LAYERS),
-              (7168, 4096, "w_down", MESH_LAYERS))
+# modules, launches of the shape a llama3-8b decode step on each rank), and
+# the column shards' (K, N) the ordinary B1/B2 launch there. The shapes
+# only the other 13a configs launch (mixtral's wo is llama3-8b's) are held
+# and timed too, outside the llama3-8b step's sum
+ACC_SHAPES = ((2048, 4096, "wo (llama3-8b, mixtral)", MESH_LAYERS),
+              (7168, 4096, "w_down (llama3-8b)", MESH_LAYERS),
+              (1024, 2048, "wo (zamba2 shared block, rwkv6)", 0),
+              (2048, 2048, "out_proj (zamba2)", 0),
+              (4096, 2048, "w_down (zamba2 shared block)", 0))
 COLUMN_SHARDS = ((4096, 2048, "wq"), (4096, 512, "wk,wv"),
                  (4096, 7168, "w_gate,w_up"), (4096, 64128, "lm_head"))
 ACC_M = (BATCH, 512)
@@ -4609,22 +4659,24 @@ ACC_M = (BATCH, 512)
 DRYRUN_CELLS = (("decode_32k", ()), ("train_4k", ("--reduced",)))
 
 
-def _mesh_cfg():
+def _mesh_cfg(arch: str):
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig
     return dataclasses.replace(
-        configs.get_config("llama3-8b", quant=QuantConfig(mode="none")),
-        num_layers=MESH_LAYERS)
+        configs.get_config(arch, quant=QuantConfig(mode="none")),
+        num_layers=MESH_ARCHS[arch][0])
 
 
-def _mesh_engine(ws, backend: str, mesh=None):
+def _mesh_engine(cfg, ws, backend: str, mesh=None):
     from repro_torch.serve_engine import ServeEngine
-    return ServeEngine(_mesh_cfg(), weight_store=ws, ladder_bits=LADDER,
+    return ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
                        max_batch=BATCH, max_len=PROMPT + GEN,
-                       backend=backend, cache_bits=CACHE_BITS, mesh=mesh)
+                       backend=backend,
+                       cache_bits=None if cfg.is_attention_free
+                       else CACHE_BITS, mesh=mesh)
 
 
-def _mesh_serve(engine, n_requests: int) -> dict:
+def _mesh_serve(engine, n_requests: int, seed: int) -> dict:
     """Serve ``n_requests`` of 13a's requests on ``engine`` (every step's
     logits recorded, copied to the host), timed; the launch counters from
     0 across the serve."""
@@ -4643,7 +4695,7 @@ def _mesh_serve(engine, n_requests: int) -> dict:
     staged0 = compat.staged_collectives()
     _reset_counts()
     t0 = time.perf_counter()
-    out = engine.generate(_requests(engine.cfg, MESH_SEED, n_requests))
+    out = engine.generate(_requests(engine.cfg, seed, n_requests))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -4659,86 +4711,110 @@ def _mesh_serve(engine, n_requests: int) -> dict:
                          for k in ("mesh", "graphed", "steps")}}
 
 
-def mesh_serve_worker(out_path: str) -> None:
-    """13a, one rank of two sharing the card (run by ``dist_worker``): the
-    whole store of MESH_LAYERS full-width layers quantized from the same
-    seeded params on both ranks; rank 0 serves it on a one-rank engine
-    per backend (graph replays); then each case of MESH_CASES on its mesh
-    (eager steps, host-staged collectives), tokens and every step's logits
-    held bit for bit to the one-rank engine's on rank 0, the store bytes,
-    host ms a step, tok/s, staged collectives a step and the peak of each
-    rank written to ``out_path`` (a file a rank)."""
+def _mesh_arch(arch: str, rank: int) -> dict:
+    """13a's cases of ``arch`` on this rank: the whole store built from
+    the same seeded params; rank 0 serves it on a one-rank engine per
+    backend (graph replays), then each case on its mesh (eager steps),
+    its tokens and every step's logits held bit for bit to the one-rank
+    engine's."""
     import torch.distributed as dist
     from repro_torch.dist.compat import DeviceMesh
     from repro_torch.models import serving
     from repro_torch.serve_engine import build_ladder
-    rank = dist.get_rank()
-    cfg = _mesh_cfg()
+    cfg = _mesh_cfg(arch)
+    seed = MESH_ARCHS[arch][1]
+    cases = [c[1:] for c in MESH_CASES if c[0] == arch]
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     points = {op.bits: (op.r, op.b_x_tilde) for op in ladder}
     t0 = time.perf_counter()
     ws = serving.build_weight_store(
-        _init_params(cfg, MESH_SEED), cfg, points,
-        serving.ServingQuantSpec(pack_planes=True, cache_bits=CACHE_BITS))
+        _init_params(cfg, seed), cfg, points,
+        serving.ServingQuantSpec(
+            pack_planes=True,
+            cache_bits=None if cfg.is_attention_free else CACHE_BITS))
     _free()
     build_s = time.perf_counter() - t0
     whole = serving.store_bytes(ws.store, *ws.views.values())
     one = {}
     if rank == 0:
-        for backend, n in sorted({c[2:] for c in MESH_CASES}):
-            engine = _mesh_engine(ws, backend)
-            one[backend, n] = _mesh_serve(engine, n)
+        for backend, n in sorted({(c[2], c[3]) for c in cases}):
+            engine = _mesh_engine(cfg, ws, backend)
+            one[backend, n] = _mesh_serve(engine, n, seed)
             del engine
             _free()
     dist.barrier()
-    res = {"rank": rank, "build_s": build_s, "store_gb_one_rank": whole / 1e9,
-           "cases": {}}
-    for name, (d, m), backend, n in MESH_CASES:
+    res = {"build_s": build_s, "store_gb_one_rank": whole / 1e9,
+           "layers": cfg.num_layers, "cases": {}}
+    for name, (d, m), backend, n in cases:
         mesh = DeviceMesh("cuda", torch.arange(2).reshape(d, m),
                           mesh_dim_names=("data", "model"))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        engine = _mesh_engine(ws, backend, mesh)
+        engine = _mesh_engine(cfg, ws, backend, mesh)
         place_s = time.perf_counter() - t0
         nbytes = serving.store_bytes(engine.weight_store,
                                      *engine.variants.values())
-        got = _mesh_serve(engine, n)
+        got = _mesh_serve(engine, n, seed)
         del engine
         _free()
-        case = {"mesh": {"data": d, "model": m}, "backend": backend,
-                "requests": n,
-                "place_s": place_s, "store_gb": nbytes / 1e9,
-                "store_share": nbytes / whole,
+        case = {"arch": arch, "mesh": {"data": d, "model": m},
+                "backend": backend, "requests": n, "place_s": place_s,
+                "store_gb": nbytes / 1e9, "store_share": nbytes / whole,
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 **{k: got[k] for k in ("steps", "ms_per_step", "tok_per_s",
                                        "launches", "staged_per_step",
                                        "describe")}}
         if rank == 0:
             ref = one[backend, n]
+            if not torch.isfinite(got["logits"]).all():
+                raise AssertionError(f"13a {arch} {name}: non-finite "
+                                     "logits")
             if got["tokens"] != ref["tokens"] or \
                     not torch.equal(got["logits"], ref["logits"]):
                 diff = (got["logits"] - ref["logits"]).abs().max().item() \
                     if got["logits"].shape == ref["logits"].shape else None
-                raise AssertionError(f"13a {name}: the mesh's tokens or "
-                                     f"logits differ from one rank's "
+                raise AssertionError(f"13a {arch} {name}: the mesh's tokens"
+                                     f" or logits differ from one rank's "
                                      f"(max |diff| {diff})")
-            if not torch.isfinite(got["logits"]).all():
-                raise AssertionError(f"13a {name}: non-finite logits")
+            else:
+                case["bit_identical_steps"] = got["steps"]
             case["one_rank"] = {k: ref[k] for k in (
                 "steps", "ms_per_step", "tok_per_s", "describe")}
-            case["bit_identical_steps"] = got["steps"]
         if m > 1 and case["store_share"] > 1 / m + 0.02:
-            raise AssertionError(f"13a {name}: a rank holds "
+            raise AssertionError(f"13a {arch} {name}: a rank holds "
                                  f"{case['store_share']:.4f} of the store")
-        kernel = ("pann_matmul_packed_act_acc" if backend == "packed"
-                  else "pann_matmul_act_acc")
-        if m > 1 and not (got["launches"][kernel]
-                          and got["launches"]["pann_epilogue"]):
-            raise AssertionError(f"13a {name}: no accumulator-mode or "
-                                 f"epilogue launch: {got['launches']}")
-        res["cases"][name] = case
+        launched = got["launches"]
+        want = ["pann_matmul_packed_act" if backend == "packed"
+                else "pann_matmul_act"]
+        if m > 1:
+            want += [want[0] + "_acc", "pann_epilogue"]
+        if not cfg.is_attention_free:
+            want.append("decode_attention")
+        missing = [k for k in want if not launched[k]]
+        if missing:
+            raise AssertionError(f"13a {arch} {name}: no launch of "
+                                 f"{missing}: {launched}")
+        res["cases"][f"{arch} {name}"] = case
     del ws
     _free()
+    return res
+
+
+def mesh_serve_worker(out_path: str) -> None:
+    """13a, one rank of two sharing the card (run by ``dist_worker``): for
+    each config of MESH_ARCHS, its cases of MESH_CASES (``_mesh_arch``),
+    the store bytes, host ms a step, tok/s, staged collectives a step and
+    the peak of each rank written to ``out_path`` (a file a rank)."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    res = {"rank": rank, "archs": {}, "cases": {}}
+    for arch in MESH_ARCHS:
+        t0 = time.perf_counter()
+        got = _mesh_arch(arch, rank)
+        res["cases"].update(got.pop("cases"))
+        res["archs"][arch] = {**got, "wall_s": time.perf_counter() - t0}
+        print(f"[mesh] rank {rank} {arch}: {res['archs'][arch]['wall_s']:.1f}"
+              " s", flush=True)
     Path(f"{out_path}.rank{rank}").write_text(json.dumps(res))
 
 
@@ -5394,19 +5470,24 @@ def main() -> int:
     mesh = tp["mesh_serve"]
     for r in mesh:
         for name, c in r["cases"].items():
+            whole = r["archs"][c["arch"]]["store_gb_one_rank"]
             print(f"[mesh] {smi}: {name} rank {r['rank']} of 2 on the card "
                   f"({c['mesh']}, {c['backend']}, {c['requests']} requests):"
                   f" {c['ms_per_step']:.2f} host ms a step, "
                   f"{c['tok_per_s']:.2f} tok/s; staged a step "
                   f"{c['staged_per_step']}; store {c['store_gb']:.3f} GB "
-                  f"of the one-rank {r['store_gb_one_rank']:.3f} GB "
-                  f"({c['store_share']:.4f}); peak {c['peak_gb']:.2f} GB",
-                  flush=True)
+                  f"of the one-rank {whole:.3f} GB "
+                  f"({c['store_share']:.4f}); peak {c['peak_gb']:.2f} GB; "
+                  f"launches {c['launches']}", flush=True)
             if "one_rank" in c:
                 print(f"[mesh] {smi}: {name} bit-identical to one rank over "
                       f"{c['bit_identical_steps']} steps; one rank "
                       f"{c['one_rank']['ms_per_step']:.2f} host ms a step "
                       f"({c['one_rank']['describe']['steps']})", flush=True)
+    for arch, a in mesh[0]["archs"].items():
+        print(f"[mesh] {arch}: {a['layers']} layers, store build "
+              f"{a['build_s']:.1f} s, 13a's cases {a['wall_s']:.1f} s on "
+              "rank 0", flush=True)
     acc = acc_mode_kernels()
     for name, rows in acc["rows"].items():
         for r in rows:
@@ -5634,35 +5715,36 @@ def main() -> int:
     kernels[2]["launches_a11"] = sum(a11["runs"][b]["launches"][
         "decode_attention"] for b in ("fused", "packed"))
     # phase 13: the accumulator mode and the epilogue entry, launched on
-    # 13a's (1, 2) meshes (counted from 0 before each serve, rank 0), timed
-    # at 13b's local shapes
+    # 13a's (1, 2) meshes (counted from 0 before each serve, rank 0; their
+    # sum over the cases), timed at 13b's local shapes
     cases0 = mesh[0]["cases"]
     mesh_times = ("13b's call at each row-parallel shard shape (M = 4), cold "
-                  "L2, weighted by its launches a mesh decode step")
-    for name, source, replaces, case in (
+                  "L2, weighted by its launches a llama3-8b (1, 2) mesh "
+                  "decode step (zamba2's and rwkv6's shapes in 'shapes', "
+                  "weight 0)")
+    for name, source, replaces, err in (
             ("pann_matmul_act_acc", "src/repro_torch/csrc/pann_matmul.cu",
-             "src/repro/kernels/pann_matmul.py:329", "model2_fused"),
+             "src/repro/kernels/pann_matmul.py:329", None),
             ("pann_matmul_packed_act_acc",
              "src/repro_torch/csrc/pann_matmul_packed.cu",
-             "src/repro/kernels/pann_matmul_packed.py:255",
-             "model2_packed")):
+             "src/repro/kernels/pann_matmul_packed.py:255", None),
+            ("pann_epilogue", "src/repro_torch/csrc/pann_matmul.cu",
+             "src/repro/kernels/pann_matmul.py:329",
+             acc["max_abs_err"]["pann_epilogue"])):
+        if err is None:
+            err = max(acc["max_abs_err"][name],
+                      acc["max_abs_err"][name + " (shards + epilogue)"])
         e = _kernel_entry(name, source, replaces, acc["rows"][name],
-                          cases0[case]["launches"][name], "per_step",
-                          max(acc["max_abs_err"][name],
-                              acc["max_abs_err"][name
-                                                 + " (shards + epilogue)"]),
-                          mesh_times)
-        e["launches_are"] = f"rank 0's serve of 13a's {case}"
+                          sum(c["launches"][name] for c in cases0.values()),
+                          "per_step", err, mesh_times)
+        e["launches_are"] = "rank 0's serves of 13a's cases"
         kernels.append(e)
-    e = _kernel_entry("pann_epilogue", "src/repro_torch/csrc/pann_matmul.cu",
-                      "src/repro/kernels/pann_matmul.py:329",
-                      acc["rows"]["pann_epilogue"],
-                      sum(cases0[c]["launches"]["pann_epilogue"]
-                          for c in ("model2_packed", "model2_fused")),
-                      "per_step", acc["max_abs_err"]["pann_epilogue"],
-                      mesh_times)
-    e["launches_are"] = "rank 0's serves of 13a's two (1, 2) cases"
-    kernels.append(e)
+    # every kernel's launches in 13a's mesh serves on rank 0, a case each
+    for e in kernels:
+        by_case = {c: n["launches"][e["name"]] for c, n in cases0.items()
+                   if n["launches"].get(e["name"])}
+        if by_case:
+            e["launches_13a_by_case"] = by_case
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

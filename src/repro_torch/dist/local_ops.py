@@ -20,7 +20,14 @@ written on the ranks' shards with its collective spelled out.
     row-parallel projections' int32 sums (``sum_model``), the embedding
     gather (``vocab_rows``) and the head (``gather_rows``,
     ``gather_model``). Every one is an integer sum, a min / max or a copy,
-    so a step under a mesh equals the one-rank step bit for bit.
+    so a step under a mesh equals the one-rank step bit for bit. The MoE
+    experts are split by expert (each rank runs whole experts, their
+    outputs gathered).
+
+    The recurrent blocks (Mamba2, RWKV-6) split their state by heads. Their
+    fp32 recurrence runs at one rank's shape (``place`` / ``take``: the
+    rank's rows and heads at their place among zeros), since a CUDA
+    contraction's order may follow the count of heads or rows it is given.
 """
 from __future__ import annotations
 
@@ -167,6 +174,11 @@ class ServeShards:
     kv_first: int
     kv_gather: bool
     data_group: Any = None
+    # the config's head counts; a "model" axis that does not divide the
+    # query heads (the dry run's reduced configs on 16 ranks) has every
+    # rank gather the Q/K/V columns and run every head
+    num_heads: int = 0
+    num_kv_heads: int = 0
 
     @classmethod
     def for_mesh(cls, mesh, cfg, batch: int) -> "ServeShards":
@@ -188,11 +200,13 @@ class ServeShards:
             d *= sizes["pod"]
             rows_mesh = mesh["pod", "data"]._flatten()
         h, kh = cfg.num_heads, cfg.num_kv_heads
-        if h % m or batch % d:
-            raise ValueError(f"a ({d}, {m}) mesh needs heads ({h}) divisible "
-                             f"by {m} and batch ({batch}) by {d}")
+        if batch % d:
+            raise ValueError(f"a ({d}, {m}) mesh needs the batch ({batch}) "
+                             f"divisible by {d}")
         rank = int(coord[-1])
-        if kh % m == 0:
+        if h % m:
+            kv, first, gather = kh, 0, True
+        elif kh % m == 0:
             kv, first, gather = kh // m, rank * (kh // m), False
         elif (h // kh) % (h // m) == 0:
             kv, first, gather = 1, rank * (h // m) // (h // kh), True
@@ -201,7 +215,8 @@ class ServeShards:
         return cls(mesh=mesh, model=m, data=d, model_rank=rank,
                    data_rank=int(data_rank), batch=batch, kv_heads=kv,
                    kv_first=first, kv_gather=gather,
-                   data_group=rows_mesh.get_group())
+                   data_group=rows_mesh.get_group(), num_heads=h,
+                   num_kv_heads=kh)
 
     @property
     def rows(self) -> slice:
@@ -212,7 +227,8 @@ class ServeShards:
     def local_cfg(self, cfg):
         """``cfg`` with the rank's head counts (the head dim kept), the
         config the local decode runs under."""
-        return dataclasses.replace(cfg, num_heads=cfg.num_heads // self.model,
+        return dataclasses.replace(cfg,
+                                   num_heads=self.heads_here(cfg.num_heads),
                                    num_kv_heads=self.kv_heads,
                                    head_dim=cfg.resolved_head_dim)
 
@@ -222,7 +238,7 @@ class ServeShards:
         every rank's columns gathered and its head picked out."""
         if not self.kv_gather:
             return t.reshape(*t.shape[:-1], self.kv_heads, hd)
-        t = self.gather_model(t)
+        t = self.whole(t, self.num_kv_heads * hd)
         t = t.reshape(*t.shape[:-1], t.shape[-1] // hd, hd)
         return t[..., self.kv_first:self.kv_first + self.kv_heads, :]
 
@@ -265,6 +281,89 @@ class ServeShards:
         if self.model == 1:
             return t
         return torch.cat(self._gather(t, self.model, True), dim=dim)
+
+    def whole(self, t, width: int, dim: int = -1):
+        """A column-parallel output of ``width`` columns along ``dim``, whole
+        on every rank: the ranks' shards gathered when the rank holds
+        1/model of them; a width the axis does not divide stays whole in
+        the store and is returned as it is."""
+        if t.shape[dim] == width:
+            return t
+        if t.shape[dim] * self.model != width:
+            raise ValueError(f"{t.shape[dim]} columns are not a 1/"
+                             f"{self.model} share of {width}")
+        return self.gather_model(t, dim)
+
+    def splits(self, heads: int) -> bool:
+        """Whether ``heads`` heads (or channels) are split over "model",
+        each rank holding heads / model of them; else each holds all (the
+        rule of ``dist.sharding.slot_specs``)."""
+        return self.model > 1 and heads % self.model == 0
+
+    def heads_here(self, heads: int) -> int:
+        """The count of ``heads`` heads this rank holds."""
+        return heads // self.model if self.splits(heads) else heads
+
+    def part(self, t, heads: int, dim: int = -1):
+        """The rank's share of a whole (replicated) tensor's ``heads``
+        heads along ``dim`` (a per-head or per-channel leaf such as
+        ``decay_base``), or ``t`` when the heads are not split."""
+        if not self.splits(heads):
+            return t
+        n = t.shape[dim] // self.model
+        return t.narrow(dim, self.model_rank * n, n)
+
+    def heads_of(self, t, heads: int, width: int, dim: int = -1):
+        """A column-parallel output's columns of the rank's heads, of
+        ``heads`` heads over ``width`` columns: the local columns when they
+        are its heads (a split that falls on whole heads), else every
+        rank's gathered (the heads whole on every rank)."""
+        if self.splits(heads):
+            return t
+        return self.whole(t, width, dim)
+
+    def k_rows(self, x, k: int):
+        """The rank's ``k`` rows of a row-parallel projection's K, cut from
+        a whole input ``x`` (..., k * model); ``x`` as it is when it holds
+        k columns already."""
+        n = x.shape[-1]
+        if n == k:
+            return x
+        if n != k * self.model:
+            raise ValueError(f"an input of {n} columns for a K shard of {k}"
+                             f" on {self.model} ranks")
+        return x.narrow(-1, self.model_rank * k, k)
+
+    def _padded_rows(self, n: int) -> bool:
+        return n != self.batch and not _WHOLE_ROWS.get()
+
+    def place(self, t, dim: Optional[int] = None, heads: int = 0):
+        """``t`` (the rank's batch rows and, at ``dim``, its share of
+        ``heads`` heads) at its place in a zero tensor of one rank's shape:
+        the whole batch's rows and every head. The rest is zeros."""
+        shape, idx = list(t.shape), [slice(None)] * t.ndim
+        if self._padded_rows(shape[0]):
+            shape[0], idx[0] = self.batch, self.rows
+        if dim is not None and self.splits(heads):
+            n = shape[dim]
+            shape[dim] = n * self.model
+            idx[dim] = slice(self.model_rank * n, (self.model_rank + 1) * n)
+        if shape == list(t.shape):
+            return t
+        out = t.new_zeros(shape)
+        out[tuple(idx)] = t
+        return out
+
+    def take(self, t, rows: int, dim: Optional[int] = None,
+             heads: int = 0):
+        """The inverse of ``place``: the rank's ``rows`` batch rows and its
+        share of the ``heads`` heads at ``dim`` of a one-rank-shaped
+        ``t``."""
+        if self._padded_rows(rows):
+            t = t[self.rows]
+        if dim is not None:
+            t = self.part(t, heads, dim)
+        return t
 
     def gather_rows(self, t):
         """Every data rank's batch rows of ``t`` (dim 0), in rank order."""

@@ -198,15 +198,21 @@ def cache_specs(tree: Any, mesh) -> Any:
 
 
 # the head dim of each leaf of an attention cache (models.attention's
-# KVCache and QuantKVCache); the per-position quantizer rows have none
-_SLOT_HEAD_DIM = {"k": 2, "v": 2, "k_planes": 3, "v_planes": 3}
+# KVCache and QuantKVCache; the per-position quantizer rows have none) and
+# of a recurrent state (ssm.SSMState.state (B, H, P, N), rwkv.RWKVState.wkv
+# (B, H, hd, hd); the conv tail and the token shifts have none)
+_SLOT_HEAD_DIM = {"k": 2, "v": 2, "k_planes": 3, "v_planes": 3,
+                  "state": 1, "wkv": 1}
 
 
 def slot_specs(tree: Any, mesh) -> Any:
     """Specs of a serve engine's decode state on a serving mesh
     (``serve_engine.ServeEngine(mesh=...)``): the batch dim on "data" and
-    an attention cache's KV-head dim on "model"; the quantizer rows follow
-    the batch, the lengths and positions are replicated.
+    an attention cache's KV-head dim, a Mamba2 state's and an RWKV wkv
+    state's head dim on "model"; the quantizer rows, the conv tail and the
+    token shifts follow the batch and stay whole over "model" (they are
+    small, and every rank reads the whole B and C streams and the whole
+    layer input), the lengths and positions are replicated.
 
     This is the port's layout, not the reference's. ``cache_specs`` puts
     the cached sequence on "model" (the reference's sequence-parallel

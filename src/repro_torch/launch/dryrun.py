@@ -290,10 +290,11 @@ def prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, par) -> tuple:
 def decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, par,
                 serve_quant: bool = False) -> tuple:
     """(step, argument parts) of one ``serve_step`` on rank 0's local
-    shards: the fp params (``param_specs``) or, with ``serve_quant``, the
-    serving artifact through the 'packed' kernels (``serving_shardings``),
-    and the decode state in the slots' layout (heads on "model", batch on
-    "data"), made at the rank's head counts and batch rows."""
+    shards: the fp params or, with ``serve_quant``, the serving artifact
+    through the 'packed' kernels, both placed by ``serving_shardings``
+    (``param_specs`` but for a MoE block, ROADMAP C15), and the decode
+    state in the slots' layout (heads on "model", batch on "data"), made
+    at the rank's head counts and batch rows."""
     params = MD.init_params(cfg, 0, "meta")
     if serve_quant:
         params = serving.quantize_params_for_serving(
@@ -303,16 +304,19 @@ def decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, par,
     b = shape.global_batch
     shards, step_cfg = None, cfg
     if mesh is not None:
-        named = (serving.serving_shardings(params, mesh, par) if serve_quant
-                 else SH.to_named(SH.param_specs(params, mesh, par), mesh))
+        named = serving.serving_shardings(params, mesh, par)
         params = serving.local_tree(SH.distribute(params, named))
         shards = local_ops.ServeShards.for_mesh(mesh, cfg, b)
         step_cfg = shards.local_cfg(cfg)
         b = b // shards.data
     kwargs = {k: v for k, v in input_specs(cfg, shape).items()
               if k in ("enc_inputs", "image_embeds")}
-    state = MD.init_decode_state(params, step_cfg, b, shape.seq_len,
-                                 **kwargs)
+    # a config windowed in every layer (mixtral) caches min(seq, window)
+    # positions, as the reference sizes its caches; the port refuses a
+    # cache longer than the window (ROADMAP C2)
+    max_len = min(shape.seq_len, cfg.sliding_window or shape.seq_len)
+    with local_ops.use_shards(shards):      # the rank's heads
+        state = MD.init_decode_state(params, step_cfg, b, max_len, **kwargs)
     tokens = torch.empty((shape.global_batch, 1), dtype=torch.int64,
                          device="meta")
 

@@ -88,8 +88,11 @@ def _project_qkv(x: Tensor, p: dict, cfg: ModelConfig,
                  kv_src: Optional[Tensor] = None):
     """Q from x, K and V from ``kv_src`` (x itself for self-attention)."""
     hd = cfg.resolved_head_dim
-    q = C.split_heads(L.project(x, p["wq"], cfg, "attn.wq"), cfg.num_heads,
-                      hd)
+    q = L.project(x, p["wq"], cfg, "attn.wq")
+    shards = local_ops.current_shards()
+    if shards is not None:      # the rank's query heads of a serving mesh
+        q = shards.heads_of(q, shards.num_heads, shards.num_heads * hd)
+    q = C.split_heads(q, cfg.num_heads, hd)
     k, v = project_cross_kv(x if kv_src is None else kv_src, p, cfg)
     return q, k, v
 

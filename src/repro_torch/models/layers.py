@@ -263,13 +263,16 @@ def apply_linear(x: Tensor, p: dict, qc=None, backend: Optional[str] = None,
     dequant: w = w_q * w_scale, the activations fake-quantized against the
     frozen range of ``act_lo``/``act_hi``, at ``act_n`` levels over their
     own range, or not at all."""
+    shards = local_ops.current_shards()
+    row = shards is not None and shards.model > 1 \
+        and local_ops.row_parallel(path)
+    if row:     # a whole input cut to the rank's K rows
+        x = shards.k_rows(x, (p["w_q"] if "w_q" in p else p["w"]).shape[0])
     if "w_q" in p and backend is not None:
         return dispatch.serving_linear(x, p, backend, path)
     b = p.get("b")
     b = None if b is None else b.to(x.dtype)
-    shards = local_ops.current_shards()
-    if shards is not None and shards.model > 1 \
-            and local_ops.row_parallel(path):
+    if row:
         # a row-parallel shard's float partial product (the dry run's
         # decode on fp params): summed over "model", the bias added once
         y = _linear(x, p, qc, None, path)

@@ -7,6 +7,19 @@ experts not selected) and summed in expert order. The expert-parallel
 capacity dispatch (``dist.moe_ep``) replaces the scan under an active
 mesh when ``cfg.moe_impl == "capacity"`` (``transformer.
 _apply_moe_dispatch``); both share ``route`` and ``expert_ffn``.
+
+Under a serving mesh (``dist.local_ops.use_shards``) the router is whole
+on every rank and runs at the whole batch's row count (a data rank's rows
+and zeros), so the gates are one rank's bit for bit. The experts are
+split over "model" by expert (``serving.serving_shardings``): each rank
+runs its E / model whole experts at the whole batch's row count, one
+rank's cuBLAS shapes, and the experts' outputs are gathered over "model"
+in one collective before the gated sum in expert order, so a step equals
+one rank's bit for bit. A "model" axis that does not divide the experts
+(only the dry run's 16 ranks over 8: the engine refuses it) splits each
+expert over d_ff instead, as ``dist.sharding.param_specs`` does; its
+``w_down`` partials are summed over "model" (``ServeShards.sum_model``),
+as the dry run's fp row-parallel projections are.
 """
 from __future__ import annotations
 
@@ -15,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import constrain as C
+from repro_torch.dist import local_ops
 from repro_torch.models import layers as L
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -121,10 +135,40 @@ def apply_moe(x: torch.Tensor, p: dict, cfg: ModelConfig
     """x (B, T, d) -> (y, aux_loss): every expert on every token,
     y = carry + gate_e * y_e in expert order 0..E-1. No host sync and no
     data-dependent shape, so a decode step that runs it can be captured
-    as a CUDA graph."""
+    as a CUDA graph. Under a serving mesh (module docstring; decode, which
+    drops the aux loss) ``x`` is the rank's rows and the aux loss is 0."""
+    shards = local_ops.current_shards()
+    if shards is not None:
+        return (_apply_moe_shards(x, p, cfg, shards),
+                x.new_zeros((), dtype=torch.float32))
     gates, _, aux = route(x, p, cfg)
     y = torch.zeros_like(x)
     for e in range(cfg.moe.num_experts):
         y_e = expert_ffn(x, p["w_gate"][e], p["w_up"][e], p["w_down"][e], cfg)
         y = y + gates[..., e, None].to(x.dtype) * y_e
     return y, aux
+
+
+def _apply_moe_shards(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      shards) -> torch.Tensor:
+    """``apply_moe``'s y on the rank's rows ``x`` and its shards of the
+    experts (module docstring): the gates at the whole batch's row count,
+    each expert's y_e (the rank's whole experts at the whole batch's row
+    count, gathered over "model"; or with a d_ff split every expert's
+    partial, summed over "model": one collective a layer either way), then
+    y = y + gate_e * y_e in expert order."""
+    gates = shards.at_batch_shape(lambda h: route(h, p, cfg)[0], x)
+
+    def experts(h):         # (B, E here, T, d): each expert's (partial) y_e
+        return torch.stack([expert_ffn(h, w_gate, w_up, w_down, cfg)
+                            for w_gate, w_up, w_down in zip(
+                                p["w_gate"], p["w_up"], p["w_down"])], dim=1)
+
+    if p["w_down"].shape[1] == cfg.d_ff:        # whole experts
+        parts = shards.gather_model(shards.at_batch_shape(experts, x), dim=1)
+    else:                                       # every expert's d_ff slice
+        parts = shards.sum_model(experts(x))
+    y = torch.zeros_like(x)
+    for e in range(cfg.moe.num_experts):
+        y = y + gates[..., e, None].to(x.dtype) * parts[:, e]
+    return y

@@ -421,14 +421,37 @@ def serving_shardings(tree: Any, mesh, par=None) -> Any:
     rank then holds exactly the leaves of its own columns, so the local
     decode (``dist.local_ops``) reads a whole projection of N / model
     columns, and the replicated bytes are the norms and the scalars
-    alone."""
+    alone.
+
+    Two deviations from ``param_specs``, both in a MoE block, so that a
+    mesh step equals one rank's bit for bit: the router (d, E) stays whole
+    on every rank (``param_specs`` splits it over E: a column slice of an
+    fp32 cuBLAS product need not equal the same columns of the whole
+    product; d x E fp32 is 131 KB a layer for mixtral-8x7b), and the
+    expert stacks (E, d, ff), (E, ff, d) are split over "model" by expert
+    (``param_specs`` splits d_ff: an fp32 sum of d_ff partials over ranks
+    is not one rank's cuBLAS order), where the axis divides E; else they
+    keep ``param_specs``' d_ff split (``models.mlp.apply_moe``)."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.dist import sharding as SH
+    from repro_torch.dist.constrain import _ok
     specs = SH.param_specs(tree, mesh, par or ParallelConfig())
+
+    def moe(block, spec):
+        out = {}
+        for k, v in block.items():
+            if k == "router":
+                out[k] = {n: SH.P(*[None] * w.ndim) for n, w in v.items()}
+            elif _ok(mesh, "model", v.shape[0]):
+                out[k] = SH.P("model", *[None] * (v.ndim - 1))
+            else:
+                out[k] = spec[k]
+        return out
 
     def walk(node, spec):
         if isinstance(node, dict):
-            out = {k: walk(v, spec[k]) for k, v in node.items()}
+            out = {k: moe(v, spec[k]) if k == "moe" else walk(v, spec[k])
+                   for k, v in node.items()}
             if "w_q" in node and spec["w_q"][-1] == "model":
                 for k in _COLUMN_LEAVES:
                     if k in node:       # its last dim runs over the columns

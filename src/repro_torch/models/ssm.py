@@ -14,6 +14,15 @@ on before ``exp``, the conv sums its taps in order from 0, the
 cross-chunk recurrence emits the state *before* each chunk, and softplus
 is ``logaddexp(x, 0)`` (``jax.nn.softplus``; ``F.softplus``'s threshold
 of 20 is another function).
+
+Under a serving mesh (``dist.local_ops.use_shards``) a rank holds its
+heads of the state and its columns of ``in_proj`` (a split that does not
+fall on head boundaries: zamba2's 8,384 columns in two halves of 4,192),
+so decode gathers the projection's output over "model" (a copy), runs the
+conv and the recurrence at one rank's shape (its heads and rows among
+zeros: ``ServeShards.place``), gathers its heads' ``y`` for the gated
+norm over the whole d_inner, and ``out_proj`` (row-parallel) takes its K
+rows of the normed ``y``.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import constrain as C
+from repro_torch.dist import local_ops
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -39,6 +49,11 @@ def _dims(cfg: ModelConfig):
     d_inner = cfg.ssm_expand * cfg.d_model
     n_heads = d_inner // cfg.ssm_head_dim
     return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def n_heads(cfg: ModelConfig) -> int:
+    """The SSM heads of a Mamba2 layer (d_inner / ssm_head_dim)."""
+    return _dims(cfg)[1]
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -173,7 +188,11 @@ def apply_ssm(x: Tensor, p: dict, cfg: ModelConfig) -> Tensor:
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:
+    """Zeros; under a serving mesh the rank's heads of the state."""
     d_inner, h, p_dim, n = _dims(cfg)
+    shards = local_ops.current_shards()
+    if shards is not None:
+        h = shards.heads_here(h)
     return SSMState(
         state=torch.zeros((batch, h, p_dim, n), dtype=torch.float32,
                           device=device),
@@ -185,16 +204,42 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:
 def decode_ssm(x: Tensor, st: SSMState, p: dict, cfg: ModelConfig
                ) -> tuple[Tensor, SSMState]:
     """Single-token recurrent step. x: (B, 1, d). Returns (out, a NEW
-    state; ``st`` is not written)."""
+    state; ``st`` is not written). Under a serving mesh x is the rank's
+    rows and ``st`` its rows and heads (module docstring)."""
     d_inner, h, p_dim, n = _dims(cfg)
     zxbcdt = L.project(x, p["in_proj"], cfg, "ssm.in_proj")
-    z, xs, b_ssm, c_ssm, dt = _split_proj(zxbcdt, cfg)
+    shards = local_ops.current_shards()
+    b = x.shape[0]
+    if shards is None:
+        y, state, tail = _decode_core(zxbcdt, st.state, st.conv, p, cfg)
+        y = y.reshape(b, 1, d_inner)
+    else:
+        zxbcdt = shards.whole(zxbcdt, 2 * d_inner + 2 * n + h)
+        y, state, tail = _decode_core(
+            shards.place(zxbcdt), shards.place(st.state, 1, h),
+            shards.place(st.conv), p, cfg)
+        y = shards.whole(shards.take(y, b, 1, h).reshape(b, 1, -1), d_inner)
+        state, tail = shards.take(state, b, 1, h), shards.take(tail, b)
+    z = _split_proj(zxbcdt, cfg)[0]
+    y = y.to(x.dtype) * F.silu(z)
+    y = L.apply_norm(y, p["norm"], "rmsnorm")
+    out = L.project(y, p["out_proj"], cfg, "ssm.out_proj")
+    return out, SSMState(state=state, conv=tail, length=st.length + 1)
+
+
+def _decode_core(zxbcdt: Tensor, state: Tensor, tail: Tensor, p: dict,
+                 cfg: ModelConfig) -> tuple[Tensor, Tensor, Tensor]:
+    """The conv and the recurrence of one token: zxbcdt (B, 1, W) the
+    in_proj output, ``state`` (B, H, P, N), ``tail`` the conv's pre-conv
+    inputs. Returns (y (B, H, P) fp32 before the gate, the new state, the
+    new tail)."""
+    d_inner, h, p_dim, n = _dims(cfg)
+    _, xs, b_ssm, c_ssm, dt = _split_proj(zxbcdt, cfg)
     conv_in = torch.cat([xs, b_ssm, c_ssm], dim=-1)          # (B, 1, C)
     conv_out, _ = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                               tail=st.conv)
+                               tail=tail)
     # the tail keeps the pre-conv inputs
-    new_tail = torch.cat([st.conv, conv_in.to(st.conv.dtype)],
-                         dim=1)[:, 1:, :]
+    new_tail = torch.cat([tail, conv_in.to(tail.dtype)], dim=1)[:, 1:, :]
     xs, b_ssm, c_ssm = torch.tensor_split(conv_out, [d_inner, d_inner + n],
                                           dim=-1)
     xh = xs.reshape(xs.shape[0], h, p_dim).to(torch.float32)
@@ -204,11 +249,7 @@ def decode_ssm(x: Tensor, st: SSMState, p: dict, cfg: ModelConfig
     bv = b_ssm[:, 0].to(torch.float32)                       # (B, N)
     cv = c_ssm[:, 0].to(torch.float32)
     upd = (dtv[:, :, None] * xh)[..., None] * bv[:, None, None, :]
-    state = st.state * dec[:, :, None, None] + upd
+    state = state * dec[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", state, cv)
     y = y + p["d_skip"][None, :, None] * xh
-    y = y.reshape(x.shape[0], 1, d_inner).to(x.dtype)
-    y = y * F.silu(z)
-    y = L.apply_norm(y, p["norm"], "rmsnorm")
-    out = L.project(y, p["out_proj"], cfg, "ssm.out_proj")
-    return out, SSMState(state=state, conv=new_tail, length=st.length + 1)
+    return y, state, new_tail

@@ -34,15 +34,18 @@ state copied into one of its slots, the donor's slot freed), rebuilds one
 from its token prefix (``prefill_wave(prefix_rows=...)``), and
 ``release``s the slot of a lane it detaches without finalizing it.
 
-Under a device mesh (``ServeEngine(mesh=..., par=...)``, a dense decoder
-on a ("data", "model") ``DeviceMesh``, one engine a rank) the store is
+Under a device mesh (``ServeEngine(mesh=..., par=...)``, a dense, MoE,
+hybrid (zamba2) or RWKV decoder on a ("data", "model") ``DeviceMesh``,
+one engine a rank) the store is
 quantized once on the whole weights and each rank keeps its shard
 (``serving.device_put_weight_store``); the decode step runs on the rank's
 local shards with its collectives spelled out (``dist.local_ops``): the
 rank's heads, columns or K rows of each projection and its batch rows,
-its slots holding its heads and rows (``dist.sharding.slot_specs``). The
-tokens, the logits and everything the engine does between steps are the
-whole batch's, and every rank's equal a one-rank engine's bit for bit.
+its slots holding its heads and rows (``dist.sharding.slot_specs``: the
+KV caches' and the recurrent states' heads). The tokens, the logits and
+everything the engine does between steps are the whole batch's, and every
+rank's equal a one-rank engine's bit for bit (a MoE model's experts
+split by expert, its router whole: ``models.mlp.apply_moe``).
 Such steps run eagerly: with more than one rank a step waits on its
 collectives, which the host-staged group of two ranks on one card runs on
 the host.
@@ -63,7 +66,9 @@ from repro_torch.core import power as pw
 from repro_torch.dist import local_ops
 from repro_torch.kernels import dispatch
 from repro_torch.models import model as MD
+from repro_torch.models import rwkv as R
 from repro_torch.models import serving
+from repro_torch.models import ssm as S
 from repro_torch.serve_engine.ladder import build_ladder, select_rung
 from repro_torch.serve_engine.scheduler import (Request, Response, Scheduler,
                                                 Wave)
@@ -79,8 +84,8 @@ NO_BACKEND = (
     "cfg.kernel_backend None")
 
 # the families a serving mesh takes: one decode step, split by heads,
-# columns and rows (the others need collectives of their own)
-MESH_FAMILIES = ("dense",)
+# columns and rows (the encoders need collectives of their own)
+MESH_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 @dataclasses.dataclass
@@ -302,25 +307,35 @@ class ServeEngine:
     def _mesh_shards(self, cfg: ModelConfig, mesh,
                      par) -> local_ops.ServeShards:
         """This rank's ``ServeShards``; raises ``ValueError`` naming ROADMAP
-        A10 on what the local decode does not split: a family other than
-        a dense decoder, FSDP, a "model" axis that does not divide the KV
-        heads, a batch the "data" axis does not divide."""
+        A10 on what the local decode does not split: an encoder-decoder or
+        vision model, FSDP, a "model" axis that does not divide the KV
+        heads, the experts, the SSM heads or the RWKV heads, a batch the
+        "data" axis does not divide."""
         if cfg.family not in MESH_FAMILIES:
             raise ValueError(
-                f"ServeEngine(mesh=...) serves the dense decoders; "
-                f"{cfg.name} is a {cfg.family!r} model, whose collectives "
-                "are not ported (ROADMAP A10)")
+                f"ServeEngine(mesh=...) serves the dense, MoE, hybrid and "
+                f"RWKV decoders; {cfg.name} is a {cfg.family!r} model, "
+                "whose collectives are not ported (ROADMAP A10)")
         if par is not None and par.fsdp:
             raise ValueError("ServeEngine(mesh=...) shards the store over "
                              "'model' only: par.fsdp would re-gather every "
                              "weight every step (ROADMAP A10)")
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         m = sizes.get("model", 1)
-        if cfg.num_kv_heads % m:
-            raise ValueError(
-                f"a 'model' axis of {m} does not divide {cfg.name}'s "
-                f"{cfg.num_kv_heads} KV heads: each rank serves whole KV "
-                "heads (ROADMAP A10)")
+        split = {"SSM heads": S.n_heads(cfg) if cfg.family == "hybrid"
+                 else 0,
+                 "RWKV heads": cfg.d_model // R.HEAD_DIM
+                 if cfg.family == "ssm" else 0,
+                 "experts": cfg.moe.num_experts if cfg.family == "moe"
+                 else 0}
+        if cfg.family != "ssm":
+            split["KV heads"] = cfg.num_kv_heads
+        for what, n in split.items():
+            if n % m:
+                raise ValueError(
+                    f"a 'model' axis of {m} does not divide {cfg.name}'s "
+                    f"{n} {what}: each rank serves whole heads and an "
+                    "even share of every split (ROADMAP A10)")
         if self.max_batch % sizes.get("data", 1):
             raise ValueError(
                 f"max_batch {self.max_batch} is no multiple of the 'data' "
@@ -393,9 +408,10 @@ class ServeEngine:
         rows = self.max_batch
         if self._shards is not None:
             rows = self._shards.rows.stop - self._shards.rows.start
-        state = MD.init_decode_state(self._views[self.ladder[0].bits],
-                                     self._step_cfg, rows, self.max_len,
-                                     **self._frontend())
+        with local_ops.use_shards(self._shards):   # the rank's heads
+            state = MD.init_decode_state(self._views[self.ladder[0].bits],
+                                         self._step_cfg, rows, self.max_len,
+                                         **self._frontend())
         tok = torch.zeros((self.max_batch, 1), dtype=torch.int64,
                           device=self.device)
         return Slot(index=index, state=state, tok=tok)

@@ -3,7 +3,9 @@
 the elastic checkpoint restore), ``test_torch_dist_moe.py`` (the MoE
 capacity dispatch with its experts over "data"),
 ``test_torch_dist_tp.py`` (tensor-parallel training) and
-``test_torch_serve_mesh.py`` (``ServeEngine`` under a device mesh).
+``test_torch_serve_mesh.py``, ``test_torch_serve_mesh_moe.py`` and
+``test_torch_serve_mesh_recurrent.py`` (``ServeEngine`` under a device
+mesh).
 
 Each test file starts ONE group (``spawn_group``) on a ``FileStore``
 under its temporary directory (no fixed port) and names the cases its
@@ -333,6 +335,10 @@ def _serve_mesh(rank: int, tmp: str) -> None:
         res["describe"] = engine.describe()
         res["slot_shapes"] = [list(t.shape) for t in _state_leaves(
             engine._slots[0].state.caches)]
+        moe = engine._views[engine.ladder[0].bits]["layers"][0].get("moe")
+        if moe is not None:     # the rank's local expert stacks
+            res["moe_shapes"] = {k: list(v.shape) for k, v in moe.items()
+                                 if k != "router"}
         del engine
         if rank == 0:
             np.save(os.path.join(tmp, f"logits_{case['name']}.npy"),
@@ -346,8 +352,71 @@ def _serve_mesh(rank: int, tmp: str) -> None:
         json.dump(out, f, default=str)
 
 
+# the MoE block alone under shards: (rows, tokens, d, d_ff, experts, k)
+MOE_BLOCK = (4, 1, 128, 128, 4, 2)
+MOE_MESHES = ((2, 2), (1, 4), (4, 1))
+
+
+def moe_block_inputs():
+    """The block's x, router (d, E) and expert stacks (numpy, seeded)."""
+    b, t, d, ff, e, _ = MOE_BLOCK
+    rng = np.random.default_rng(61)
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {"x": normal((b, t, d), 1.0), "router": normal((d, e), 0.3),
+            "w_gate": normal((e, d, ff), d ** -0.5),
+            "w_up": normal((e, d, ff), d ** -0.5),
+            "w_down": normal((e, ff, d), ff ** -0.5)}
+
+
+def moe_block_cfg():
+    from repro_torch import configs
+    from repro_torch.configs.base import MoEConfig
+    b, t, d, ff, e, k = MOE_BLOCK
+    return dataclasses.replace(
+        configs.reduced(configs.get_config("mixtral-8x7b")), d_model=d,
+        d_ff=ff, num_heads=8, num_kv_heads=4, moe=MoEConfig(e, k))
+
+
+def _moe_units(rank: int, tmp: str) -> None:
+    """``models.mlp.apply_moe`` under shards on each of MOE_MESHES, the
+    router whole and the rank's rows: its whole experts (the serving
+    layout) or its d_ff slice of every expert (the layout of a "model"
+    axis that does not divide the experts). Every rank's outputs written
+    for the test."""
+    import torch
+    from repro_torch.dist import local_ops
+    from repro_torch.dist.compat import DeviceMesh
+    from repro_torch.models import mlp
+    out = {}
+    cfg = moe_block_cfg()
+    inp = {k: torch.from_numpy(v) for k, v in moe_block_inputs().items()}
+    for d, m in MOE_MESHES:
+        mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(d, m),
+                          mesh_dim_names=("data", "model"))
+        shards = local_ops.ServeShards.for_mesh(mesh, cfg, MOE_BLOCK[0])
+        r = shards.model_rank
+        ff, ne = MOE_BLOCK[3] // m, MOE_BLOCK[4] // m
+        cols, own = slice(r * ff, (r + 1) * ff), slice(r * ne, (r + 1) * ne)
+        layouts = {
+            "experts": {k: inp[k][own].contiguous()
+                        for k in ("w_gate", "w_up", "w_down")},
+            "dff": {"w_gate": inp["w_gate"][:, :, cols].contiguous(),
+                    "w_up": inp["w_up"][:, :, cols].contiguous(),
+                    "w_down": inp["w_down"][:, cols].contiguous()}}
+        for layout, p in layouts.items():
+            p["router"] = {"w": inp["router"]}
+            with local_ops.use_shards(shards):
+                y, _ = mlp.apply_moe(inp["x"][shards.rows], p, cfg)
+            out[f"moe_{d}x{m}_{layout}"] = y.numpy()
+    np.savez(os.path.join(tmp, f"moe_units_{rank}.npz"), **out)
+
+
 CASES = {"psum": _psum, "pipeline": _pipeline, "elastic": _elastic,
-         "moe_ep": _moe_ep, "tp": _tp_train, "serve_mesh": _serve_mesh}
+         "moe_ep": _moe_ep, "tp": _tp_train, "serve_mesh": _serve_mesh,
+         "moe_units": _moe_units}
 
 
 def run(rank: int, tmp: str, cases: tuple) -> None:

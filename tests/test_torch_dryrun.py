@@ -137,3 +137,51 @@ def test_sharding_conserves_flops(dryrun):
     ratio = record["flops_per_device"] * 256 / unsharded["flops_per_device"]
     print(f"256 x per-device FLOPs / unsharded FLOPs = {ratio:.4f}")
     assert ratio >= 1.0
+
+
+# the decode cells of the MoE and recurrent families at --reduced on the
+# (16, 16) mesh: (arch, the local-decode entry each must reach, as
+# "module:attribute" under repro_torch)
+DECODE_CELLS = (("mixtral-8x7b", "models.mlp:_apply_moe_shards"),
+                ("zamba2-1.2b", "dist.local_ops:ServeShards.place"),
+                ("rwkv6-1.6b", "dist.local_ops:ServeShards.place"))
+
+
+@pytest.mark.parametrize("arch, entry", DECODE_CELLS)
+def test_reduced_decode_cell(arch, entry, monkeypatch):
+    """``decode_32k`` at --reduced on the fake 256-rank group (as rank 0,
+    in this process): the record's per-device FLOPs, bytes and collective
+    bytes by kind, its step run through the local decode of a serving
+    mesh (the MoE block on the rank's shards of the experts, the
+    recurrent states' heads placed at one rank's shape), and no FLOP lost
+    against the same step counted unsharded here. The reduced configs' 4
+    query heads on 16 "model" ranks run whole on every rank."""
+    import importlib
+    module, attr = entry.split(":")
+    owner = importlib.import_module(f"repro_torch.{module}")
+    *outer, name = attr.split(".")
+    for part in outer:
+        owner = getattr(owner, part)
+    calls = []
+    real = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        calls.append(entry)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(owner, name, counted)
+    record = TDR.run_cell(arch, "decode_32k", False, verbose=False,
+                          reduced=True)
+    assert record["n_devices"] == 256 and record["shape"] == "decode_32k"
+    assert calls, f"the step never reached {entry}"
+    coll = record["collective_bytes_per_device"]
+    assert set(coll) == set(TDR.COLLECTIVES) | {"total"}
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert coll["total"] == sum(coll[k] for k in TDR.COLLECTIVES)
+    for key in ("flops_per_device", "bytes_per_device",
+                "argument_size_in_bytes", "output_size_in_bytes"):
+        assert record[key] > 0
+    cfg = tconfigs.reduced(tconfigs.get_config(arch, dtype="bfloat16"))
+    unsharded = TDR.count_cell(cfg, tconfigs.SHAPES_BY_NAME["decode_32k"])
+    assert record["flops_per_device"] * 256 >= \
+        unsharded["flops_per_device"]

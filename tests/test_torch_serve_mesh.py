@@ -53,9 +53,9 @@ LADDER = [2, 4, 6]
 ENGINE = {"ladder_bits": LADDER, "max_batch": 4, "max_len": 12}
 # one request a case, its rung cycling over the ladder from case to case
 REQUESTS = {"seed": 5, "n": 1, "prompt": 3, "gen": 4}
-# store name -> (arch, cache_bits, allocation)
-STORES = {"llama_auto": ("llama3-8b", "auto", "layerwise"),
-          "gemma_c4": ("gemma2-9b", 4, "uniform")}
+# store name -> (arch, cache_bits, allocation, config widths)
+STORES = {"llama_auto": ("llama3-8b", "auto", "layerwise", WIDE),
+          "gemma_c4": ("gemma2-9b", 4, "uniform", WIDE)}
 # (mesh, backend, store): every backend and both stores on each mesh
 CASES = [((2, 2), "ref", "llama_auto"), ((2, 2), "fused", "gemma_c4"),
          ((2, 2), "packed", "llama_auto"),
@@ -69,26 +69,34 @@ def case_name(mesh, backend, store) -> str:
     return f"{store}_{mesh[0]}x{mesh[1]}_{backend}"
 
 
+def store_of(name: str) -> str:
+    return name.rsplit("_", 2)[0]
+
+
+def mesh_of(name: str) -> tuple:
+    return tuple(int(x) for x in name.rsplit("_", 2)[1].split("x"))
+
+
 NAMES = [case_name(*c) for c in CASES]
 
 
-def ref_cfg(arch):
+def ref_cfg(arch, wide=WIDE):
     return dataclasses.replace(
-        rconfigs.reduced(rconfigs.get_config(arch)), **WIDE)
+        rconfigs.reduced(rconfigs.get_config(arch)), **wide)
 
 
-def port_cfg(arch):
+def port_cfg(arch, wide=WIDE):
     return dataclasses.replace(
-        tconfigs.reduced(tconfigs.get_config(arch)), **WIDE)
+        tconfigs.reduced(tconfigs.get_config(arch)), **wide)
 
 
-def _case(tmp, i, mesh, backend, store) -> dict:
-    arch, cache_bits, allocation = STORES[store]
+def _case(tmp, i, mesh, backend, store, stores, engine) -> dict:
+    arch, cache_bits, allocation, wide = stores[store]
     return {"name": case_name(mesh, backend, store), "arch": arch,
-            "cfg": WIDE, "store": os.path.join(tmp, f"{store}.pt"),
+            "cfg": wide, "store": os.path.join(tmp, f"{store}.pt"),
             "backend": backend, "cache_bits": cache_bits,
             "allocation": allocation, "mesh": list(mesh),
-            "engine": ENGINE, "requests": {**REQUESTS, "first": i % 3}}
+            "engine": engine, "requests": {**REQUESTS, "first": i % 3}}
 
 
 def _with_planes(ws):
@@ -112,15 +120,22 @@ def _with_planes(ws):
     return ws
 
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    """(the rank outputs, the one-process port results by case, the
-    reference's tokens by store, the whole stores' bytes by store)."""
-    tmp = str(tmp_path_factory.mktemp("serve_mesh"))
+def serve_group(tmp: str, stores: dict, case_list: list,
+                engine: dict = ENGINE,
+                worker: tuple = ("serve_mesh",)) -> dict:
+    """Serve ``case_list`` ((mesh, backend, store) triples) on ONE spawned
+    group of 4 gloo ranks (the worker's cases ``worker``), the JAX
+    package's stores of ``stores`` carried across, beside the
+    one-process port engine and the reference engine in this process.
+    Returns {"ranks": each rank's outputs, "logits": rank 0's by case,
+    "ones": the one-process results by case, "ref_tokens": the
+    reference's by case, "whole": each store's bytes and replicated
+    shares}."""
     # by store, in the order prepare() writes them
-    cases = sorted((_case(tmp, i, *c) for i, c in enumerate(CASES)),
-                   key=lambda c: list(STORES).index(c["name"].rsplit(
-                       "_", 2)[0]))
+    cases = sorted((_case(tmp, i, *c, stores, engine)
+                    for i, c in enumerate(case_list)),
+                   key=lambda c: list(stores).index(store_of(c["name"])))
+    names = [c["name"] for c in cases]
     refs = {}
 
     def prepare():
@@ -129,19 +144,19 @@ def served(tmp_path_factory):
         t0 = time.monotonic()
         with open(os.path.join(tmp, W.SERVE_CASES), "w") as f:
             json.dump(cases, f)
-        for name, (arch, cache_bits, allocation) in STORES.items():
-            cfg = ref_cfg(arch)
+        for name, (arch, cache_bits, allocation, wide) in stores.items():
+            cfg = ref_cfg(arch, wide)
             # jitted: one compile instead of one an eager op
             params = jax.jit(lambda k: RMD.init_params(k, cfg))(
                 jax.random.PRNGKey(7))
             reng = RServeEngine(cfg, params, backend="ref",
                                 cache_bits=cache_bits, allocation=allocation,
-                                **ENGINE)
+                                **engine)
             tonp = functools.partial(jax.tree_util.tree_map, np.asarray)
             ws = _with_planes(weight_store_from_reference(
                 tonp(reng.weight_store),
                 {k: tonp(v) for k, v in reng.variants.items()},
-                port_cfg(arch), "cpu"))
+                port_cfg(arch, wide), "cpu"))
             path = os.path.join(tmp, f"{name}.pt")
             torch.save(ws, path + ".tmp")
             os.replace(path + ".tmp", path)
@@ -156,81 +171,122 @@ def served(tmp_path_factory):
         ref_tokens = {}
         for c in cases:
             reqs = [RRequest(**r) for r in W.serve_requests(**c["requests"])]
-            store = c["name"].rsplit("_", 2)[0]
-            ref_tokens[c["name"]] = [(r.tokens, r.rung_bits)
-                                     for r in refs[store].generate(reqs)]
+            ref_tokens[c["name"]] = [
+                (r.tokens, r.rung_bits)
+                for r in refs[store_of(c["name"])].generate(reqs)]
         print(f"[serve_mesh] one-process {t1 - t0:.1f} s, reference "
               f"{time.monotonic() - t1:.1f} s")
         whole = {}
-        for name in STORES:
+        for name in stores:
             ws = torch.load(os.path.join(tmp, f"{name}.pt"),
                             weights_only=False)
             whole[name] = serving.store_bytes(ws.store, *ws.views.values())
+            for m in (2, 4):
+                whole[name, m] = replicated_share(ws, m)
         return ones, ref_tokens, whole
 
-    ones, ref_tokens, whole = W.spawn_group(tmp, ("serve_mesh",), prepare,
-                                            meanwhile)
+    ones, ref_tokens, whole = W.spawn_group(tmp, worker, prepare, meanwhile)
     ranks = []
     for r in range(W.WORLD):
         with open(os.path.join(tmp, f"serve_{r}.json")) as f:
             ranks.append(json.load(f))
     logits = {n: np.load(os.path.join(tmp, f"logits_{n}.npy"))
-              for n in NAMES}
-    return ranks, logits, ones, ref_tokens, whole
+              for n in names}
+    return {"ranks": ranks, "logits": logits, "ones": ones,
+            "ref_tokens": ref_tokens, "whole": whole}
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_rank0_bit_identical_to_one_process(served, name):
-    ranks, logits, ones, _, _ = served
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """(the rank outputs, rank 0's logits, the one-process port results by
+    case, the reference's tokens by case, the whole stores' bytes)."""
+    out = serve_group(str(tmp_path_factory.mktemp("serve_mesh")), STORES,
+                      CASES)
+    return (out["ranks"], out["logits"], out["ones"], out["ref_tokens"],
+            out["whole"])
+
+
+def check_rank0_bit_identical(served, name):
+    """Rank 0's tokens, rungs and every step's logits equal the
+    one-process engine's bit for bit; every rank's tokens are rank 0's;
+    the steps ran eagerly on the case's mesh."""
+    ranks, logits, ones = served[:3]
     got, one = ranks[0][name], ones[name]
     assert got["tokens"] == one["tokens"]
     assert got["rungs"] == one["rungs"]
     assert logits[name].shape == one["logits"].shape
     assert np.array_equal(logits[name], one["logits"])
-    # every rank generated the same tokens
     assert all(r[name]["tokens"] == got["tokens"] for r in ranks)
     assert got["describe"]["mesh"]["shape"] == dict(
-        zip(("data", "model"), [int(x) for x in name.split("_")[-2]
-                                .split("x")]))
+        zip(("data", "model"), mesh_of(name)))
     assert not got["describe"]["graphed"]
 
 
-@pytest.mark.parametrize("store", list(STORES))
-def test_tokens_match_reference(served, store):
-    """The one-process port engine's tokens, and so every mesh's, equal
-    the reference engine's on the store carried across."""
-    _, _, ones, ref_tokens, _ = served
-    for name in NAMES:
-        if name.startswith(store + "_"):
-            got = ones[name]
-            assert [(t, b) for t, b in zip(got["tokens"], got["rungs"])] \
-                == ref_tokens[name], name
+def check_tokens_match_reference(served, names):
+    """The one-process port engine's tokens equal the reference engine's
+    on the store carried across."""
+    ones, ref_tokens = served[2], served[3]
+    for name in names:
+        got = ones[name]
+        assert [(t, b) for t, b in zip(got["tokens"], got["rungs"])] \
+            == ref_tokens[name], name
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_store_bytes_per_rank(served, name):
-    ranks, _, _, _, whole = served
-    store = name.split("_")[0] + "_" + name.split("_")[1]
-    m = int(name.split("_")[-2].split("x")[1])
+def replicated_share(ws, m: int) -> float:
+    """The share of a whole store's bytes (``serving.store_bytes``' count:
+    each storage once) in the leaves ``serving_shardings`` keeps whole on a
+    "model" axis of ``m``: the norms, the scalars and per-rung leaves, a
+    MoE router, the recurrent blocks' per-channel and per-head vectors."""
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": m})
+    seen = {}
+
+    def walk(node, sharding):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, sharding[k])
+        elif isinstance(node, (list, tuple)):
+            for v, sh in zip(node, sharding):
+                walk(v, sh)
+        elif isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            seen[st.data_ptr()] = (st.nbytes(), all(
+                e is None for e in sharding.spec.entries))
+
+    for tree in (ws.store, *ws.views.values()):
+        walk(tree, serving.serving_shardings(tree, mesh))
+    total = sum(n for n, _ in seen.values())
+    return sum(n for n, rep in seen.values() if rep) / total
+
+
+def check_store_bytes_per_rank(served, name):
+    """Each rank holds its 1/m of every split leaf and the whole of the
+    rest on a "model" axis of m, and at most (1/m + 0.02) of the whole
+    store on the dense configs' widths; the whole store without one."""
+    ranks, whole = served[0], served[4]
+    m = mesh_of(name)[1]
+    store = store_of(name)
     shares = [r[name]["store_bytes"] / whole[store] for r in ranks]
     if m == 1:
         assert shares == [1.0] * W.WORLD
-    else:
-        assert max(shares) <= 1 / m + 0.02, shares
+        return
+    rep = whole[store, m]
+    assert shares == pytest.approx([(1 - rep) / m + rep] * W.WORLD,
+                                   rel=1e-9), (shares, rep)
+    return rep
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES
-                                  if n.startswith("gemma_c4")])
-def test_slots_follow_slot_specs(served, name):
+def check_slots_follow_slot_specs(served, name, stores):
     """Rank 0's slot tensors have the local shapes ``slot_specs`` gives
-    the whole batch's state: batch over "data", KV heads over "model"."""
-    ranks, _, _, _, _ = served
-    d, m = (int(x) for x in name.split("_")[-2].split("x"))
-    arch, cache_bits, _ = STORES[name.split("_")[0] + "_"
-                                 + name.split("_")[1]]
-    cfg = port_cfg(arch)
+    the whole batch's state: batch over "data", the KV caches' and the
+    recurrent states' heads over "model"."""
+    ranks = served[0]
+    d, m = mesh_of(name)
+    arch, cache_bits, _, wide = stores[store_of(name)]
+    cfg = port_cfg(arch, wide)
     if cache_bits is not None:
-        cfg = dataclasses.replace(cfg, cache_bits=cache_bits)
+        cfg = dataclasses.replace(
+            cfg, cache_bits=7 if cache_bits == "auto" else cache_bits)
     params = TMD.init_params(cfg, 0, "meta")
     state = TMD.init_decode_state(params, cfg, ENGINE["max_batch"],
                                   ENGINE["max_len"])
@@ -246,6 +302,35 @@ def test_slots_follow_slot_specs(served, name):
                 shape[i] //= {"data": d, "model": m}[entry]
         want.append(shape)
     assert ranks[0][name]["slot_shapes"] == want
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_rank0_bit_identical_to_one_process(served, name):
+    check_rank0_bit_identical(served, name)
+
+
+@pytest.mark.parametrize("store", list(STORES))
+def test_tokens_match_reference(served, store):
+    """The one-process port engine's tokens, and so every mesh's, equal
+    the reference engine's on the store carried across."""
+    check_tokens_match_reference(
+        served, [n for n in NAMES if store_of(n) == store])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_store_bytes_per_rank(served, name):
+    rep = check_store_bytes_per_rank(served, name)
+    if rep is not None:
+        assert (1 - rep) / mesh_of(name)[1] + rep <= \
+            1 / mesh_of(name)[1] + 0.02
+
+
+@pytest.mark.parametrize("name", [n for n in NAMES
+                                  if n.startswith("gemma_c4")])
+def test_slots_follow_slot_specs(served, name):
+    """Rank 0's slot tensors have the local shapes ``slot_specs`` gives
+    the whole batch's state: batch over "data", KV heads over "model"."""
+    check_slots_follow_slot_specs(served, name, STORES)
 
 
 def _as_tensors(specs):
@@ -268,12 +353,27 @@ def _stand_in(d: int, m: int):
                                  shape=(d, m))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-1.2b",
-                                  "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
 def test_mesh_refuses_other_families(arch):
+    """The encoder-decoder and vision models are not served under a mesh
+    (ROADMAP A10)."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(ValueError, match="A10"):
-        ServeEngine(cfg, params={}, device="cpu", mesh=_stand_in(1, 2))
+    with pytest.raises(ValueError, match=r"(encdec|vlm).*A10"):
+        ServeEngine(cfg, params={}, device="cpu", mesh=_stand_in(1, 2),
+                    frontend_kwargs_fn=lambda batch: {})
+
+
+@pytest.mark.parametrize("arch, model, what", [
+    ("zamba2-1.2b", 3, "8 SSM heads"),
+    ("rwkv6-1.6b", 2, "1 RWKV heads"),
+    ("mixtral-8x7b", 3, "4 experts")])
+def test_mesh_refuses_uneven_recurrent_and_expert_splits(arch, model, what):
+    """A "model" axis that does not divide the SSM heads, the RWKV heads or
+    the experts of a reduced config is refused, naming A10."""
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    with pytest.raises(ValueError, match=f"{what}.*A10"):
+        ServeEngine(cfg, params={}, device="cpu", mesh=_stand_in(1, model))
 
 
 def test_mesh_refuses_uneven_kv_heads_fsdp_and_batch():
