@@ -284,32 +284,42 @@ Phases (any failure raises and the script exits non-zero):
               at batch 4 bit for bit on 'packed' and 'fused' (B2, B1).
 13. mesh    — serving under a device mesh: (a) in 12b's ``--dist-worker``
               launch, llama3-8b at full width cut to MESH_LAYERS = 8, the
-              whole store quantized on both ranks from the same seeded
-              params, served by ``ServeEngine(mesh=...)`` on a (1, 2)
-              ("data", "model") mesh on 'packed' and 'fused' and a (2, 1)
-              mesh on 'packed' (ladder 2,4,6, 4-bit cache, batch 4,
-              prompt 32, gen 16, a request a rung); then (MESH_CASES)
-              mixtral-8x7b at 2 layers on (1, 2) and (2, 1) 'packed' (the
-              experts split by expert), zamba2-1.2b at 6 layers on (1, 2)
-              'packed' (its shared block and B3) and rwkv6-1.6b at 4
-              layers on (1, 2) 'fused' and (2, 1) 'packed', a request
-              each: rank 0's tokens and
-              every step's logits bit for bit against a one-rank engine
-              on the same store (graph replays), each rank's store at most
-              1/2 + 0.02 of the whole on (1, 2), both ranks' peaks under
-              70 GB, the B1 / B2, accumulator-mode, epilogue and B3
-              launches counted; host ms a step, tok/s, staged
-              collectives a step and peak memory of each rank; (b) B1 and
-              B2 in the accumulator mode and the epilogue entry at the
-              row-parallel shard shapes of every 13a config ((4 | 512) x
-              (2048 | 7168) x 4096 for llama3-8b and mixtral, (1024 |
-              2048 | 4096) x 2048 for zamba2 and rwkv6) bit for bit
-              against their plain versions, and the shards'
-              sums through the epilogue against the whole projection; the
-              column shards' B1 / B2; timed at M = 4; (c) the dry run
-              (``repro_torch.launch.dryrun``) of llama3-8b ``decode_32k``
-              and ``train_4k --reduced`` on a fake 256-rank group, two
-              subprocesses that see no card.
+              whole store quantized on both ranks from the same seeded params,
+              served by ``ServeEngine(mesh=...)`` on a (1, 2) ("data",
+              "model") mesh on 'packed' and 'fused' and a (2, 1) mesh on
+              'packed' (ladder 2,4,6, 4-bit cache, batch 4, prompt 32, gen 16,
+              a request a rung); then (MESH_CASES) mixtral-8x7b at 2 layers on
+              (1, 2) and (2, 1) 'packed' (the experts split by expert),
+              zamba2-1.2b at 6 layers on (1, 2) 'packed' (its shared block and
+              B3), rwkv6-1.6b at 4 layers on (1, 2) 'fused' and (2, 1)
+              'packed', seamless-m4t-medium at full depth (12 + 12) on (1, 2)
+              and (2, 1) 'packed' and llama-3.2-vision-90b at 5 layers on (1,
+              2) 'packed' (a raw frontend a wave; vision's stores built one
+              rank after the other), a request each: rank 0's tokens and every
+              step's logits bit for bit against a one-rank engine on the same
+              store (graph replays), each rank's store at most 1/2 + 0.02 of
+              the whole on (1, 2), both ranks' peaks under 70 GB, the B1 / B2,
+              accumulator-mode, epilogue and B3 launches counted; host ms a
+              step, tok/s, staged collectives a step and peak memory of each
+              rank; (d) in the same launch, ``EncodeEngine(mesh=...)`` of
+              seamless and vision on (1, 2) and (2, 1) over 4 raw items, every
+              rank's items bit for bit a one-rank engine's on the same store,
+              items/s; (e) the fp32 ops a cross-attending mesh rank runs on
+              its heads or rows (``rank_shape_ops``), each at the rank's shape
+              against one rank's: the encoder's attention, RoPE, layernorm and
+              the gate must agree bit for bit (the port runs them so), the
+              decode cross-attention's max |diff| is reported (the port runs
+              it at one rank's shape); (b) B1 and B2 in the accumulator mode
+              and the epilogue entry at the row-parallel shard shapes of every
+              13a config (ACC_SHAPES) bit for bit against their plain
+              versions, and the shards' sums through the epilogue against the
+              whole projection; B1 / B2 at the column shards' shapes and the
+              conv stems at a data rank's rows, B2 timed (COLUMN_SHARDS); B3
+              at a (1, 2) rank's heads of seamless and vision; timed at M = 4;
+              (c) the dry run (``repro_torch.launch.dryrun``) of llama3-8b
+              ``decode_32k`` and ``train_4k --reduced`` and
+              seamless-m4t-medium ``decode_32k`` on a fake 256-rank group,
+              three subprocesses that see no card.
 
 TF32 must stay off for the fp32 matmuls (PyTorch's defaults, asserted at
 the start and the end). A ``[time]`` line marks the end of each phase.
@@ -346,7 +356,12 @@ LADDER = (2, 4, 6)
 BATCH, PROMPT, GEN, REQUESTS = 4, 32, 16, 6
 CACHE_BITS = 4
 L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
-SLEEP_CYCLES = 400_000_000         # ~0.2 s of GPU clock: host enqueues ahead
+# the GPU sleep ahead of a timed loop, ~0.2 s of GPU clock at most: the
+# host enqueues every call while the card sleeps; SLEEP_MARGIN times the
+# loop's host time, from SLEEP_MIN_CYCLES (~10 ms) up
+SLEEP_CYCLES = 400_000_000
+SLEEP_MIN_CYCLES = 20_000_000
+SLEEP_MARGIN = 4
 PROFILE_STEPS = 2
 PROFILE_ATTEMPTS = 3               # profiles of a serve whose counts differ
 # the MoE configs served at full width, each cut in depth: to fit one card
@@ -425,12 +440,21 @@ def time_ms(fn, iters: int) -> float:
     flush, with CUDA events around the call only. A GPU sleep queued first
     lets the host enqueue every call before the card reaches them, so the
     events time the work of the call (its wrapper's small ops included) and
-    not the host's Python between launches."""
+    not the host's Python between launches. The sleep is SLEEP_MARGIN
+    times the host time of the calls, from a warm call's (flush
+    included), within [SLEEP_MIN_CYCLES, SLEEP_CYCLES]."""
     fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _cold()
+    fn()
+    host_s = time.perf_counter() - t
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(int(min(SLEEP_CYCLES, max(
+        SLEEP_MIN_CYCLES,
+        SLEEP_MARGIN * iters * host_s * SLEEP_CYCLES / 0.2))))
     for start, end in events:
         _cold()
         start.record()
@@ -4617,18 +4641,26 @@ def a11_on_kernels(seed: int = 45) -> dict:
 # (each rank builds the whole 2-layer store with its 11.3 GB of fp32
 # experts), zamba2-1.2b at one group of 6 layers (five mamba and one
 # mamba_attn: its shared block and B3 run), rwkv6-1.6b at its
-# RECURRENT_LAYERS depth
+# RECURRENT_LAYERS depth; then the cross-attending configs, a raw frontend
+# a wave: seamless-m4t-medium at full depth (12 encoder and 12 decoder
+# layers, 1.6 GB of fp32 params), llama-3.2-vision-90b at one group of 5
+# layers (its cross_attn layer and 4 self-attention layers: C12 forbids a
+# shorter cut; 26 GB of fp32 params and an 18 GB store a rank, so the
+# ranks build their stores one after the other, MESH_SERIAL_BUILD)
 MESH_LAYERS = 8
 MESH_SEED = 50
 # arch -> (layers, seed)
 MESH_ARCHS = {"llama3-8b": (MESH_LAYERS, MESH_SEED),
               "mixtral-8x7b": (MOE_LAYERS["mixtral-8x7b"], 52),
               "zamba2-1.2b": (6, 53),
-              "rwkv6-1.6b": (RECURRENT_LAYERS["rwkv6-1.6b"], 54)}
+              "rwkv6-1.6b": (RECURRENT_LAYERS["rwkv6-1.6b"], 54),
+              "seamless-m4t-medium": (12, 55),
+              "llama-3.2-vision-90b": (5, 56)}
+MESH_SERIAL_BUILD = ("llama-3.2-vision-90b",)
 # (arch, name, (data, model), backend, requests): a request a rung (waves
-# of prompt + gen steps). Cut for the script's time: the MoE and recurrent
-# configs serve one request a case (the whole script took 1,105 s with
-# them at two; NVIDIA H100 80GB HBM3, 700.00 W)
+# of prompt + gen steps). Cut for the script's time: the MoE, recurrent
+# and cross-attending configs serve one request a case (the whole script
+# took 1,105 s with them at two; NVIDIA H100 80GB HBM3, 700.00 W)
 MESH_CASES = (("llama3-8b", "model2_packed", (1, 2), "packed", 3),
               ("llama3-8b", "model2_fused", (1, 2), "fused", 2),
               ("llama3-8b", "data2_packed", (2, 1), "packed", 3),
@@ -4636,27 +4668,75 @@ MESH_CASES = (("llama3-8b", "model2_packed", (1, 2), "packed", 3),
               ("mixtral-8x7b", "data2_packed", (2, 1), "packed", 1),
               ("zamba2-1.2b", "model2_packed", (1, 2), "packed", 1),
               ("rwkv6-1.6b", "model2_fused", (1, 2), "fused", 1),
-              ("rwkv6-1.6b", "data2_packed", (2, 1), "packed", 1))
+              ("rwkv6-1.6b", "data2_packed", (2, 1), "packed", 1),
+              ("seamless-m4t-medium", "model2_packed", (1, 2), "packed", 1),
+              ("seamless-m4t-medium", "data2_packed", (2, 1), "packed", 1),
+              ("llama-3.2-vision-90b", "model2_packed", (1, 2), "packed",
+               1))
 # both ranks' peaks together, a case
 MESH_PEAK_GB = 70.0
+# 13d: EncodeEngine on each cross-attending config of MESH_ARCHS (the
+# frontend's params of its 13a params: the conv stem, and seamless's
+# encoder), ENCODE_MESH_ITEMS raw items on each of these meshes against a
+# one-rank engine on the same store
+ENCODE_MESHES = ((1, 2), (2, 1))
+ENCODE_MESH_ITEMS = 4
+# 13e: where the port runs each fp32 op of ``rank_shape_ops`` on a mesh
+# rank: "the rank's" own shape (its heads or rows alone: ``main`` fails if
+# the op differs there from one rank's), "one rank's" (its heads and rows
+# among zeros, ``ServeShards.place`` / ``take``), or "the batch's rows"
+# (``ServeShards.at_batch_shape``, a data rank's rows and zeros)
+RANK_SHAPE = {"encoder attention": "the rank's", "rope": "the rank's",
+              "cross attention": "one rank's",
+              "layernorm": "the batch's rows",
+              "tanh(xgate) * h": "the rank's"}
 # 13b: the accumulator mode's local shapes on the (1, 2) mesh, (K, N, the
 # modules, launches of the shape a llama3-8b decode step on each rank), and
 # the column shards' (K, N) the ordinary B1/B2 launch there. The shapes
 # only the other 13a configs launch (mixtral's wo is llama3-8b's) are held
 # and timed too, outside the llama3-8b step's sum
-ACC_SHAPES = ((2048, 4096, "wo (llama3-8b, mixtral)", MESH_LAYERS),
-              (7168, 4096, "w_down (llama3-8b)", MESH_LAYERS),
-              (1024, 2048, "wo (zamba2 shared block, rwkv6)", 0),
-              (2048, 2048, "out_proj (zamba2)", 0),
-              (4096, 2048, "w_down (zamba2 shared block)", 0))
-COLUMN_SHARDS = ((4096, 2048, "wq"), (4096, 512, "wk,wv"),
-                 (4096, 7168, "w_gate,w_up"), (4096, 64128, "lm_head"))
 ACC_M = (BATCH, 512)
+# (K, N, modules, launches a llama3-8b (1, 2) step, row counts checked; the
+# first timed)
+ACC_SHAPES = ((2048, 4096, "wo (llama3-8b, mixtral)", MESH_LAYERS, ACC_M),
+              (7168, 4096, "w_down (llama3-8b)", MESH_LAYERS, ACC_M),
+              (1024, 2048, "wo (zamba2 shared block, rwkv6)", 0, ACC_M),
+              (2048, 2048, "out_proj (zamba2)", 0, ACC_M),
+              (4096, 2048, "w_down (zamba2 shared block)", 0, ACC_M),
+              # seamless in decode and in its encoder (4 items x 1,024
+              # positions), vision
+              (512, 1024, "wo, cross wo (seamless)", 0, (BATCH, 4096)),
+              (2048, 1024, "w_down (seamless)", 0, (BATCH, 4096)),
+              (4096, 8192, "wo, cross wo (vision)", 0, (BATCH,)),
+              (14336, 8192, "w_down (vision)", 0, (BATCH,)))
+# (K, N, modules, row counts) of the ordinary B1/B2 launches on a rank:
+# the column shards on (1, 2) (a head's padded vocab over 2 ranks:
+# seamless's 256,256 columns, vision's 128,256), and the conv stems, whole
+# on every rank, at a (2, 1) data rank's rows (2 of 4 items; on (1, 2) a
+# rank runs phase 3's ENCODE_SHAPES); each timed at its first row count
+COLUMN_SHARDS = ((4096, 2048, "wq", ACC_M), (4096, 512, "wk,wv", ACC_M),
+                 (4096, 7168, "w_gate,w_up", ACC_M),
+                 (4096, 64128, "lm_head", ACC_M),
+                 (1024, 512, "wq,wk,wv (seamless)", ACC_M),
+                 (1024, 2048, "w_up (seamless)", ACC_M),
+                 (1024, 128128, "lm_head (seamless)", (BATCH,)),
+                 (8192, 4096, "wq (vision)", (BATCH,)),
+                 (8192, 512, "wk,wv (vision)", (BATCH,)),
+                 (8192, 14336, "w_gate,w_up (vision)", (BATCH,)),
+                 (8192, 64128, "lm_head (vision)", (BATCH,)),
+                 (240, 1024, "conv.s0 (seamless)", (4096,)),
+                 (3072, 1024, "conv.s1 (seamless)", (2048,)),
+                 (588, 8192, "conv (vision)", (3200,)))
+# B3 at a (1, 2) rank's heads: (config, B, KH, G, hd, softcap)
+MESH_ATT_SHAPES = (("seamless-m4t-medium", BATCH, 8, 1, 64, 0.0),
+                   ("llama-3.2-vision-90b", BATCH, 4, 8, 128, 0.0))
 # 13c: the dry run's cells, each a subprocess that sees no card: decode at
 # full size (seconds on meta tensors), train_4k cut to --reduced (the full
 # 32-layer DTensor step takes about a minute of CPU, past the phase's
-# share of the script's time)
-DRYRUN_CELLS = (("decode_32k", ()), ("train_4k", ("--reduced",)))
+# share of the script's time); (arch, cell, flags)
+DRYRUN_CELLS = (("llama3-8b", "decode_32k", ()),
+                ("llama3-8b", "train_4k", ("--reduced",)),
+                ("seamless-m4t-medium", "decode_32k", ()))
 
 
 def _mesh_cfg(arch: str):
@@ -4668,12 +4748,22 @@ def _mesh_cfg(arch: str):
 
 
 def _mesh_engine(cfg, ws, backend: str, mesh=None):
+    """13a's engine; a cross-attending config's takes a new raw input a
+    wave (``Frontend`` from the config's seed: every engine of a case,
+    one-rank or a mesh rank, draws the same inputs in the same order)."""
     from repro_torch.serve_engine import ServeEngine
+    frontend = (Frontend(cfg, MESH_ARCHS[_arch_of(cfg)][1])
+                if cfg.family in ("encdec", "vlm") else None)
     return ServeEngine(cfg, weight_store=ws, ladder_bits=LADDER,
                        max_batch=BATCH, max_len=PROMPT + GEN,
                        backend=backend,
                        cache_bits=None if cfg.is_attention_free
-                       else CACHE_BITS, mesh=mesh)
+                       else CACHE_BITS, mesh=mesh,
+                       frontend_kwargs_fn=frontend)
+
+
+def _arch_of(cfg) -> str:
+    return next(a for a in MESH_ARCHS if cfg.name.startswith(a))
 
 
 def _mesh_serve(engine, n_requests: int, seed: int) -> dict:
@@ -4726,14 +4816,29 @@ def _mesh_arch(arch: str, rank: int) -> dict:
     cases = [c[1:] for c in MESH_CASES if c[0] == arch]
     ladder = build_ladder(LADDER, d=float(cfg.d_model))
     points = {op.bits: (op.r, op.b_x_tilde) for op in ladder}
-    t0 = time.perf_counter()
-    ws = serving.build_weight_store(
-        _init_params(cfg, seed), cfg, points,
-        serving.ServingQuantSpec(
-            pack_planes=True,
-            cache_bits=None if cfg.is_attention_free else CACHE_BITS))
-    _free()
-    build_s = time.perf_counter() - t0
+    serial = arch in MESH_SERIAL_BUILD
+    frontend_params = None
+    build_s = 0.0
+    for turn in range(2 if serial else 1):
+        if serial and turn != rank:     # the other rank builds: wait
+            dist.barrier()
+            continue
+        t0 = time.perf_counter()
+        params = _init_params(cfg, seed)
+        if cfg.family in ("encdec", "vlm"):     # 13d's, before the pops
+            frontend_params = {k: _clone(params[k]) for k in (
+                "conv_stem", "encoder", "enc_norm") if k in params}
+        ws = serving.build_weight_store(
+            params, cfg, points,
+            serving.ServingQuantSpec(
+                pack_planes=True,
+                cache_bits=None if cfg.is_attention_free else CACHE_BITS))
+        del params
+        _free()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if serial:      # the fp32 params freed before the other's turn
+            dist.barrier()
     whole = serving.store_bytes(ws.store, *ws.views.values())
     one = {}
     if rank == 0:
@@ -4797,14 +4902,101 @@ def _mesh_arch(arch: str, rank: int) -> dict:
         res["cases"][f"{arch} {name}"] = case
     del ws
     _free()
+    if frontend_params is not None:
+        t0 = time.perf_counter()
+        res["encode"] = _mesh_encode(cfg, frontend_params, rank)
+        res["encode"]["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _clone(tree):
+    """A copy of a params subtree: the store build pops each weight out
+    of the tree it is handed."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _mesh_encode(cfg, frontend_params: dict, rank: int) -> dict:
+    """13d: ``EncodeEngine`` of a cross-attending config on each of
+    ENCODE_MESHES against a one-rank engine on the same store (built from
+    the frontend's params, its encode ladder's rungs): ENCODE_MESH_ITEMS
+    raw items, their budgets cycling over the ladder, every rank's
+    encoded items (the whole waves) bit for bit the one-rank engine's;
+    items/s, each rank's store bytes and peak, the launches."""
+    from repro_torch.data.pipeline import frontend_raw_stub
+    from repro_torch.dist.compat import DeviceMesh
+    from repro_torch.models import serving
+    from repro_torch.serve_engine import EncodeEngine, EncodeRequest
+    items = frontend_raw_stub(cfg, ENCODE_MESH_ITEMS, 0,
+                              MESH_ARCHS[_arch_of(cfg)][1])
+    reqs = [EncodeRequest(uid=i, item=items[i],
+                          power_budget_bits=LADDER[i % len(LADDER)])
+            for i in range(ENCODE_MESH_ITEMS)]
+    kw = dict(ladder_bits=LADDER, max_batch=BATCH, backend="packed",
+              device="cuda")
+
+    def run(engine) -> dict:
+        engine.warmup()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = engine.encode(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engine.assert_no_recompile()
+        return {"encoded": [torch.as_tensor(r.encoded) for r in out],
+                "rungs": [r.rung_bits for r in out],
+                "items_per_s": len(out) / wall, "launches": _counts()}
+
+    one = EncodeEngine(cfg, params=frontend_params, **kw)
+    whole = serving.store_bytes(one.weight_store, *one.variants.values())
+    want = run(one)
+    ws = serving.WeightStore(store=one.weight_store, views=one.variants)
+    res = {"items": ENCODE_MESH_ITEMS, "store_gb_one_rank": whole / 1e9,
+           "one_rank": {k: want[k] for k in ("items_per_s", "launches")},
+           "meshes": {}}
+    for d, m in ENCODE_MESHES:
+        mesh = DeviceMesh("cuda", torch.arange(2).reshape(d, m),
+                          mesh_dim_names=("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        engine = EncodeEngine(cfg, weight_store=ws, mesh=mesh, **kw)
+        nbytes = serving.store_bytes(engine.weight_store,
+                                     *engine.variants.values())
+        got = run(engine)
+        del engine
+        name = f"{_arch_of(cfg)} encode {d}x{m}"
+        if got["rungs"] != want["rungs"] or any(
+                not torch.equal(a, b) for a, b in zip(got["encoded"],
+                                                      want["encoded"])):
+            diff = max((a - b).abs().max().item() for a, b in zip(
+                got["encoded"], want["encoded"]))
+            raise AssertionError(f"13d {name} rank {rank}: the encoded "
+                                 f"items differ from one rank's (max "
+                                 f"|diff| {diff})")
+        if not got["launches"]["pann_matmul_packed_act"]:
+            raise AssertionError(f"13d {name}: no launch of "
+                                 f"pann_matmul_packed_act: "
+                                 f"{got['launches']}")
+        res["meshes"][f"{d}x{m}"] = {
+            "bit_identical_items": len(got["encoded"]),
+            "items_per_s": got["items_per_s"], "launches": got["launches"],
+            "store_gb": nbytes / 1e9, "store_share": nbytes / whole,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del one, ws
+    _free()
     return res
 
 
 def mesh_serve_worker(out_path: str) -> None:
-    """13a, one rank of two sharing the card (run by ``dist_worker``): for
-    each config of MESH_ARCHS, its cases of MESH_CASES (``_mesh_arch``),
-    the store bytes, host ms a step, tok/s, staged collectives a step and
-    the peak of each rank written to ``out_path`` (a file a rank)."""
+    """13a and 13d, one rank of two sharing the card (run by
+    ``dist_worker``): for each config of MESH_ARCHS, its cases of
+    MESH_CASES (``_mesh_arch``) and a cross-attending config's encode
+    meshes (``_mesh_encode``), the store bytes, host ms a step, tok/s,
+    items/s, staged collectives a step and the peak of each rank written
+    to ``out_path`` (a file a rank)."""
     import torch.distributed as dist
     rank = dist.get_rank()
     res = {"rank": rank, "archs": {}, "cases": {}}
@@ -4826,17 +5018,19 @@ def acc_mode_kernels(seed: int = 51) -> dict:
     the column shards' shapes. Timed at M = BATCH beside their bound, the
     plain version and a library call (``torch._int_mm`` on the codes for
     the sums; none computes the epilogue in one call)."""
+    import torch.nn.functional as F
     from repro_torch.kernels import pann_matmul as pm
     from repro_torch.kernels import pann_matmul_packed as pk
-    from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     err: dict = {}
     rows = {"pann_matmul_act_acc": [], "pann_matmul_packed_act_acc": [],
             "pann_epilogue": []}
     cases = 0
-    for k, n, module, per_step in ACC_SHAPES:
-        for m in ACC_M:
+    seconds: dict = {}      # of each shape's checks and timings
+    for k, n, module, per_step, acc_m in ACC_SHAPES:
+        t0 = time.perf_counter()
+        for m in acc_m:
             # the whole K of two shards: each shard's sums, added, then the
             # epilogue, against the whole projection
             x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = \
@@ -4930,27 +5124,83 @@ def acc_mode_kernels(seed: int = 51) -> dict:
                       f"library {r['library_ms']}", flush=True)
             del x, pos, neg, ppk, npk, xs, shard, sums
         torch.cuda.empty_cache()
-    for k, n, module in COLUMN_SHARDS:
-        for m in ACC_M:
+        seconds[f"acc {k}x{n}"] = time.perf_counter() - t0
+    rows["pann_matmul_packed_act"] = []
+    for k, n, module, col_m in COLUMN_SHARDS:
+        t0 = time.perf_counter()
+        for m in col_m:
             x, pos, neg, ppk, npk, s, z, n127, gamma, zcol = \
                 _matmul_operands(gen, m, k, n)
-            qp = torch.stack([s, z, n127, torch.full((), 5.0,
-                                                     device="cuda")])
-            _agree("pann_matmul_act (column shard)",
-                   pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol),
-                   pm.pann_matmul_act_plain(x, pos, neg, qp, gamma, zcol),
-                   err)
-            _agree("pann_matmul_packed_act (column shard)",
-                   pk.pann_matmul_packed_act(x, ppk, npk, qp, gamma, zcol),
-                   pk.pann_matmul_packed_act_plain(x, ppk, npk, qp, gamma,
-                                                   zcol), err)
-            cases += 1
-            del x, pos, neg, ppk, npk
+            xk = F.pad(x, (0, ppk.shape[1] * 8 - k))
+            for shift in (0, 5):
+                qp = torch.stack([s, z, n127, torch.full(
+                    (), float(shift), device="cuda")])
+                _agree("pann_matmul_act (column shard)",
+                       pm.pann_matmul_act(x, pos, neg, qp, gamma, zcol),
+                       pm.pann_matmul_act_plain(x, pos, neg, qp, gamma,
+                                                zcol), err)
+                _agree("pann_matmul_packed_act (column shard)",
+                       pk.pann_matmul_packed_act(xk, ppk, npk, qp, gamma,
+                                                 zcol),
+                       pk.pann_matmul_packed_act_plain(xk, ppk, npk, qp,
+                                                       gamma, zcol), err)
+                cases += 1
+            if m == col_m[0]:      # timed, every plane live
+                qp[3] = 0.0
+                w_q = pm.rebuild_weight(pos, neg, qp[3]).to(torch.int8)
+                lib = _int_mm_ms(quant_codes(x, qp), w_q)
+                del w_q
+                nbytes = 4 * (m * k + 2 * n + 4 + m * n) \
+                    + 2 * 7 * ppk.shape[1] * n
+                b_ms, b_by = bound_ms(nbytes, 2 * m * k * n)
+                ms = time_ms(lambda: pk.pann_matmul_packed_act(
+                    xk, ppk, npk, qp, gamma, zcol), 20)
+                r = {"K": k, "N": n, "M": m,
+                     "modules": module, "per_step": 0, "ms": ms,
+                     "plain_ms": time_ms(
+                         lambda: pk.pann_matmul_packed_act_plain(
+                             xk, ppk, npk, qp, gamma, zcol), 3),
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                     "share_of_bound": b_ms / ms}
+                rows["pann_matmul_packed_act"].append(r)
+                print(f"[acc] pann_matmul_packed_act K={k} N={n} M={m} "
+                      f"({module}): {ms:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}), plain {r['plain_ms']:.4f} ms, library "
+                      f"{lib:.4f} ms", flush=True)
+            del x, xk, pos, neg, ppk, npk
         torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": err, "cases": cases,
-            "shapes": [list(a[:3]) for a in ACC_SHAPES],
-            "column_shards": [list(a) for a in COLUMN_SHARDS],
-            "m": list(ACC_M)}
+        seconds[f"column {k}x{n}"] = time.perf_counter() - t0
+    # B3 at a (1, 2) rank's heads of the cross-attending configs
+    att = []
+    for arch, *shape in MESH_ATT_SHAPES:
+        t0 = time.perf_counter()
+        for r in _attention_rows(gen, arch, *shape):
+            r["config"] = f"{arch}, a (1, 2) rank's heads"
+            att.append(r)
+            err["decode_attention"] = max(err.get("decode_attention", 0.0),
+                                          r["max_abs_err"])
+            print("[acc] decode_attention " + json.dumps(r), flush=True)
+        seconds[f"attention {arch}"] = time.perf_counter() - t0
+    return {"rows": rows, "attention": att, "max_abs_err": err,
+            "cases": cases, "seconds": seconds,
+            "shapes": [list(a[:3]) + [list(a[4])] for a in ACC_SHAPES],
+            "column_shards": [list(a[:3]) + [list(a[3])]
+                              for a in COLUMN_SHARDS]}
+
+
+def _int_mm_ms(xq, w_q) -> float:
+    """``torch._int_mm`` on the codes: ``int_mm_padded_ms`` at 16 rows or
+    fewer; above, K zero-padded to its multiple of 8 (the pad made before
+    the timing), held equal to the integers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    if xq.shape[0] <= 16:
+        return int_mm_padded_ms(xq, w_q)
+    pad = -xq.shape[1] % 8
+    xp, wp = F.pad(xq, (0, pad)), F.pad(w_q, (0, 0, 0, pad))
+    if not torch.equal(torch._int_mm(xp, wp), ref.int_matmul(xq, w_q)):
+        raise AssertionError("torch._int_mm differs from the integers")
+    return time_ms(lambda: torch._int_mm(xp, wp), 10)
 
 
 def quant_codes(x, qp):
@@ -4960,42 +5210,122 @@ def quant_codes(x, qp):
 
 
 def dryrun_cells(tmp: str) -> dict:
-    """13c: ``python -m repro_torch.launch.dryrun --arch llama3-8b --shape
-    <cell> --mesh single [--reduced]`` for each of DRYRUN_CELLS, a subprocess that
-    sees no card (``CUDA_VISIBLE_DEVICES`` empty): the fake 256-rank group
-    on the card machine's torch. Each cell's record and seconds."""
+    """13c: ``python -m repro_torch.launch.dryrun --arch <arch> --shape
+    <cell> --mesh single [--reduced]`` for each of DRYRUN_CELLS, a
+    subprocess that sees no card (``CUDA_VISIBLE_DEVICES`` empty), all at
+    once: the fake 256-rank group on the card machine's torch. Each
+    cell's record and seconds, by "<arch> <cell>"."""
     import os
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     out = {}
     t0 = time.perf_counter()
-    procs = {cell: subprocess.Popen(
+    procs = {(arch, cell): subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "llama3-8b", "--shape", cell, "--mesh", "single", "--out",
-         os.path.join(tmp, cell), *extra], env=env, cwd=ROOT,
+         arch, "--shape", cell, "--mesh", "single", "--out",
+         os.path.join(tmp, arch, cell), *extra], env=env, cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cell, extra in DRYRUN_CELLS}      # both at once
+        for arch, cell, extra in DRYRUN_CELLS}
     try:
-        for cell, extra in DRYRUN_CELLS:
-            proc = procs[cell]
+        for arch, cell, extra in DRYRUN_CELLS:
+            proc = procs[arch, cell]
             stdout, stderr = proc.communicate(timeout=300)
             wall = time.perf_counter() - t0
             if proc.returncode:
                 raise AssertionError(
-                    f"dry run {cell} exited {proc.returncode}:\n"
+                    f"dry run {arch} {cell} exited {proc.returncode}:\n"
                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
             tag = "single" + ("_reduced" if extra else "")
-            rec = json.loads(Path(tmp, cell, f"dryrun_{tag}.json")
+            rec = json.loads(Path(tmp, arch, cell, f"dryrun_{tag}.json")
                              .read_text())
             (record,) = rec["records"]
-            out[cell] = {"wall_s": wall, "argv": list(extra),
-                         "record": record}
+            out[f"{arch} {cell}"] = {"wall_s": wall, "argv": list(extra),
+                                     "record": record}
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    return out
+
+
+def rank_shape_ops(seed: int = 57) -> dict:
+    """13e: the fp32 ops a rank of a serving mesh runs on its own heads or
+    rows in the cross-attending configs, each at the rank's shape against
+    the same heads and rows of one rank's shape on the card (bit for bit
+    or not, and the max |diff|): the encoder's ``_chunked_attention`` at 8
+    of seamless's 16 heads and 2 of 4 rows, ``_cross_core`` (the decode
+    cross-attention's einsums and softmax) at 4 of vision's 8 KV groups and
+    8 of seamless's 16 heads, ``layernorm`` at 2 x 1,024 of 4 x 1,024 rows,
+    RoPE at 8 of 16 heads, and the gate ``tanh(xgate) * h`` at 2 of 4
+    rows. The port runs an op at the rank's own shape only where this
+    holds bit for bit (``RANK_SHAPE``); ``main`` fails otherwise."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {}
+
+    def held(op, what, whole, part, idx):
+        want = whole[idx]
+        out[f"{op}, {what}"] = {
+                     "op": op, "port_runs_it_at": RANK_SHAPE[op],
+                     "bit_identical": bool(torch.equal(want, part)),
+                     "max_abs_diff": float((want - part).abs().max()),
+                     "shape": list(whole.shape), "part": list(part.shape)}
+
+    def cut(t, rows=None, dim=None, n=None):
+        idx = [slice(None)] * t.ndim
+        if rows is not None:
+            idx[0] = slice(0, rows)
+        if dim is not None:
+            idx[dim] = slice(0, n)
+        return tuple(idx), t[tuple(idx)].contiguous()
+
+    # seamless's encoder: (B, T, H, hd) = (4, 1024, 16, 64), bidirectional
+    q, k, v = randn(4, 1024, 16, 64), randn(4, 1024, 16, 64), \
+        randn(4, 1024, 16, 64)
+    kw = dict(causal=False, window=None, softcap_val=0.0)
+    whole = A._attention_core(q, k, v, **kw)
+    for what, rows, heads in (("8 of 16 heads", None, 8),
+                              ("2 of 4 rows", 2, None)):
+        idx, qs = cut(q, rows, 2 if heads else None, heads)
+        part = A._attention_core(qs, k[idx].contiguous(),
+                                 v[idx].contiguous(), **kw)
+        held("encoder attention", what, whole, part, idx + (slice(None),))
+    pos = torch.arange(1024, device="cuda")
+    whole = A.apply_rope(q, pos, 10000.0)
+    idx, qs = cut(q, None, 2, 8)
+    held("rope", "8 of 16 heads", whole, A.apply_rope(qs, pos, 10000.0),
+         idx)
+    del q, k, v, whole
+    # decode cross-attention: vision (4, 1, 64, 128) over (4, 1600, 8, 128),
+    # seamless (4, 1, 16, 64) over (4, 1024, 16, 64)
+    for arch, (h, kh, hd, s) in (("vision", (64, 8, 128, 1600)),
+                                 ("seamless", (16, 16, 64, 1024))):
+        q, k, v = randn(4, 1, h, hd), randn(4, s, kh, hd), randn(4, s, kh, hd)
+        whole = A._cross_core(q, k, v)
+        for what, rows, qh, kvh in ((f"{kh // 2} of {kh} KV heads", None,
+                                     h // 2, kh // 2),
+                                    ("2 of 4 rows", 2, None, None)):
+            idx, qs = cut(q, rows, 2 if qh else None, qh)
+            kidx, ks = cut(k, rows, 2 if kvh else None, kvh)
+            held("cross attention", f"{arch}, {what}", whole,
+                 A._cross_core(qs, ks, v[kidx].contiguous()), idx)
+    x = randn(4, 1024, 1024)
+    scale, bias = randn(1024), randn(1024)
+    idx, xs = cut(x, 2)
+    held("layernorm", "2 x 1024 of 4 x 1024 rows",
+         L.layernorm(x, scale, bias), L.layernorm(xs, scale, bias), idx)
+    gate, h = randn(), randn(4, 1, 8192)
+    idx, hs = cut(h, 2)
+    held("tanh(xgate) * h", "2 of 4 rows", torch.tanh(gate) * h,
+         torch.tanh(gate) * hs, idx)
     return out
 
 
@@ -5487,13 +5817,45 @@ def main() -> int:
     for arch, a in mesh[0]["archs"].items():
         print(f"[mesh] {arch}: {a['layers']} layers, store build "
               f"{a['build_s']:.1f} s, 13a's cases {a['wall_s']:.1f} s on "
-              "rank 0", flush=True)
+              "rank 0" + (f" (13d {a['encode']['wall_s']:.1f} s of it)"
+                          if "encode" in a else ""), flush=True)
+    # 13d: EncodeEngine under a mesh (in 12b's launch, after each config's
+    # 13a cases)
+    for r in mesh:
+        for arch, a in r["archs"].items():
+            if "encode" not in a:
+                continue
+            e = a["encode"]
+            for name, c in e["meshes"].items():
+                print(f"[encode-mesh] {smi}: {arch} {name} rank "
+                      f"{r['rank']}: {c['bit_identical_items']} items bit-"
+                      f"identical to one rank's, {c['items_per_s']:.2f} "
+                      f"items/s (one rank {e['one_rank']['items_per_s']:.2f}"
+                      f"); store {c['store_gb']:.3f} GB of "
+                      f"{e['store_gb_one_rank']:.3f} ({c['store_share']:.4f})"
+                      f"; peak {c['peak_gb']:.2f} GB; launches "
+                      f"{c['launches']}", flush=True)
+    t13e = time.perf_counter()
+    rank_ops = rank_shape_ops()
+    for name, r in rank_ops.items():
+        print(f"[rank-shape] {smi}: {name}: "
+              + ("bit-identical" if r["bit_identical"] else
+                 f"max |diff| {r['max_abs_diff']!r}")
+              + f" (the port runs it at {r['port_runs_it_at']} shape)",
+              flush=True)
+        if r["port_runs_it_at"] == "the rank's" and not r["bit_identical"]:
+            raise AssertionError(f"13e {name}: the port runs it at a rank's "
+                                 "shape, where it differs from one rank's "
+                                 f"(max |diff| {r['max_abs_diff']!r})")
+    print(f"[phase13e] {time.perf_counter() - t13e:.1f} s", flush=True)
+    mark("13e")
     acc = acc_mode_kernels()
     for name, rows in acc["rows"].items():
         for r in rows:
             print(f"[acc] {smi} {name} " + json.dumps(r), flush=True)
     print(f"[acc] {acc['cases']} cases bit for bit: "
           + json.dumps(acc["max_abs_err"]), flush=True)
+    print("[acc] seconds " + json.dumps(acc["seconds"]), flush=True)
     mark("13b")
     with tempfile.TemporaryDirectory() as tmp:
         dry = dryrun_cells(tmp)
@@ -5720,7 +6082,7 @@ def main() -> int:
     cases0 = mesh[0]["cases"]
     mesh_times = ("13b's call at each row-parallel shard shape (M = 4), cold "
                   "L2, weighted by its launches a llama3-8b (1, 2) mesh "
-                  "decode step (zamba2's and rwkv6's shapes in 'shapes', "
+                  "decode step (the other 13a configs' shapes in 'shapes', "
                   "weight 0)")
     for name, source, replaces, err in (
             ("pann_matmul_act_acc", "src/repro_torch/csrc/pann_matmul.cu",
@@ -5739,6 +6101,19 @@ def main() -> int:
                           "per_step", err, mesh_times)
         e["launches_are"] = "rank 0's serves of 13a's cases"
         kernels.append(e)
+    # 13b's B2 column shards and stems on a rank, B3 at a (1, 2) rank's
+    # heads of the cross-attending configs; B2's launches in 13d's encodes
+    kernels[1]["mesh_shapes"] = acc["rows"]["pann_matmul_packed_act"]
+    kernels[1]["max_abs_err"] = max(
+        kernels[1]["max_abs_err"],
+        acc["max_abs_err"]["pann_matmul_packed_act (column shard)"])
+    kernels[2]["mesh_shapes"] = acc["attention"]
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    acc["max_abs_err"]["decode_attention"])
+    kernels[1]["launches_13d"] = {
+        f"{arch} {name}": c["launches"]["pann_matmul_packed_act"]
+        for arch, a in mesh[0]["archs"].items() if "encode" in a
+        for name, c in a["encode"]["meshes"].items()}
     # every kernel's launches in 13a's mesh serves on rank 0, a case each
     for e in kernels:
         by_case = {c: n["launches"][e["name"]] for c, n in cases0.items()
@@ -5773,6 +6148,7 @@ def main() -> int:
               "phase11_s": phase11_s, "capacity": capacity, "tp": tp,
               "a11": a11, "phase12_s": phase12_s, "mesh_serve": mesh,
               "acc_mode": acc, "dryrun": dry, "phase13_s": phase13_s,
+              "rank_shape_ops": rank_ops,
               "phase_done_at_s": phase_s,
               "wall_s": time.perf_counter() - start}
     print(f"[time] {report['wall_s']:.1f} s from the device check to the "
@@ -5782,7 +6158,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k not in ("shapes", "unfused_shapes",
                                                 "checks", "planes_checked",
-                                                "encode_shapes")}
+                                                "encode_shapes",
+                                                "mesh_shapes")}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

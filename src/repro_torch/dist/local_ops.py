@@ -28,6 +28,12 @@ written on the ranks' shards with its collective spelled out.
     fp32 recurrence runs at one rank's shape (``place`` / ``take``: the
     rank's rows and heads at their place among zeros), since a CUDA
     contraction's order may follow the count of heads or rows it is given.
+
+    The cross-attending families (an encoder-decoder, vision) run their
+    frontend on the rank's rows (``own_rows``): the conv stem whole on
+    every rank, its quantizer's range reduced over "data"; the encoder at
+    the rank's heads; each cross_attn layer's source K / V projected at
+    the rank's KV heads into the slot.
 """
 from __future__ import annotations
 
@@ -364,6 +370,11 @@ class ServeShards:
         if dim is not None:
             t = self.part(t, heads, dim)
         return t
+
+    def own_rows(self, t):
+        """This rank's batch rows (dim 0) of ``t``, which every rank holds
+        whole (a wave's frontend input)."""
+        return t if self.data == 1 else t[self.rows]
 
     def gather_rows(self, t):
         """Every data rank's batch rows of ``t`` (dim 0), in rank order."""

@@ -203,16 +203,27 @@ def cache_specs(tree: Any, mesh) -> Any:
 # (B, H, hd, hd); the conv tail and the token shifts have none)
 _SLOT_HEAD_DIM = {"k": 2, "v": 2, "k_planes": 3, "v_planes": 3,
                   "state": 1, "wkv": 1}
+# a cross_attn layer's source K and V in a decode state, each (B, S, KH,
+# hd) at the path "cross_kv/<layer>/<0 | 1>": its KV heads at dim 2
+_CROSS_HEAD_DIM = 2
+
+
+def _slot_head_dim(path: tuple):
+    if len(path) >= 3 and path[-3] == "cross_kv":
+        return _CROSS_HEAD_DIM
+    return _SLOT_HEAD_DIM.get(path[-1])
 
 
 def slot_specs(tree: Any, mesh) -> Any:
     """Specs of a serve engine's decode state on a serving mesh
     (``serve_engine.ServeEngine(mesh=...)``): the batch dim on "data" and
-    an attention cache's KV-head dim, a Mamba2 state's and an RWKV wkv
-    state's head dim on "model"; the quantizer rows, the conv tail and the
-    token shifts follow the batch and stay whole over "model" (they are
-    small, and every rank reads the whole B and C streams and the whole
-    layer input), the lengths and positions are replicated.
+    an attention cache's KV-head dim, a cross_attn layer's source K / V
+    KV-head dim, a Mamba2 state's and an RWKV wkv state's head dim on
+    "model"; the quantizer rows, the conv tail and the token shifts follow
+    the batch and stay whole over "model" (they are small, and every rank
+    reads the whole B and C streams and the whole layer input), the
+    lengths and positions are replicated. ``tree`` is a whole
+    ``models.model.DecodeState`` or its ``caches``.
 
     This is the port's layout, not the reference's. ``cache_specs`` puts
     the cached sequence on "model" (the reference's sequence-parallel
@@ -229,7 +240,7 @@ def slot_specs(tree: Any, mesh) -> Any:
             return P()
         if _ok(mesh, "data", shape[0]):
             entries[0] = "data"
-        head = _SLOT_HEAD_DIM.get(path[-1])
+        head = _slot_head_dim(path)
         if head is not None and _ok(mesh, "model", shape[head]):
             entries[head] = "model"
         return P(*entries)

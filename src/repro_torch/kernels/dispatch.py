@@ -29,9 +29,10 @@ sliced with them, and is unchanged column for column. A row-parallel one
 int32 sums of its K shard), adds the shards' sums over "model" and then
 runs the epilogue with the whole ``zcol``, which holds z * colsum(w) over
 all of K and the bias once. The activation quantizer's range is reduced
-over the ranks that split the input (``ServeShards.reduce_range``). Every
-step is an integer sum or a min / max, so the outputs are bit-identical to
-one rank's.
+over the ranks that split the input (``ServeShards.reduce_range``). The
+conv stem is whole on every rank, which runs it on its own rows: its
+range is reduced over "data". Every step is an integer sum or a min /
+max, so the outputs are bit-identical to one rank's.
 """
 from __future__ import annotations
 
@@ -239,9 +240,12 @@ def _conv_input(x: Tensor, p: dict, spec):
     padded input tensor, not from the patch rows (the reference's one
     deliberate divergence from ``serving_linear``: a strided geometry may
     leave pixels out of every patch, and the quantizer stays a function of
-    the tensor alone)."""
+    the tensor alone). Under a serving mesh the stem is whole on every
+    rank and ``x`` holds the rank's rows: the range is reduced over
+    "data"."""
     xpad = _pc.pad_nhwc(x.to(torch.float32), spec.ph, spec.pw).contiguous()
-    s, z, n_lvl = _act_scalars(xpad.reshape(-1, xpad.shape[-1]), p)
+    s, z, n_lvl = _act_scalars(xpad.reshape(-1, xpad.shape[-1]), p,
+                               local_ops.current_shards())
     gamma, zcol = _gamma_zcol(p, s, z)
     return xpad, s, z, n_lvl, gamma, zcol
 

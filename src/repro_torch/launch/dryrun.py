@@ -20,8 +20,10 @@ moments and the batch as DTensors by ``dist.sharding.param_specs`` /
 ``prefill_step``. Decode cells run ``launch.steps.serve_step`` on rank
 0's local shards, as a serve engine under a mesh does
 (``dist.local_ops.ServeShards``; the slots' layout of
-``dist.sharding.slot_specs``), on the fp params or, with ``--quant
-pann_serve``, on the serving artifact through the 'packed' kernels. A
+``dist.sharding.slot_specs``; the store over "model" alone, never FSDP;
+a cross-attending config's frontend on the rank's rows, its cross K/V at
+the rank's KV heads), on the fp params or, with ``--quant pann_serve``,
+on the serving artifact through the 'packed' kernels. A
 kernel wrapper handed meta tensors launches nothing: it counts the
 kernel's integer operations (``kernels.build.meta_ops``) and returns an
 empty output.
@@ -106,12 +108,17 @@ def parallel_for(cfg: ModelConfig, kind: str = "train") -> ParallelConfig:
     """FSDP when parameters don't fit otherwise (the reference's rule).
 
     Training: fp32 params + Adam state (12 B/param) must fit per data
-    shard -> FSDP above ~3B params. Serving: weights are only TP-sharded
+    shard -> FSDP above ~3B params. Prefill: weights are only TP-sharded
     (16-way); FSDP would re-gather them every step, so it is enabled only
-    when the TP shard alone exceeds ~8 GB (dbrx, vision-90b)."""
+    when the TP shard alone exceeds ~8 GB (dbrx, vision-90b). Decode:
+    never FSDP, the store over "model" alone, as a serve engine places it
+    (the local decode reads whole K rows; ``ServeEngine(mesh=)`` refuses
+    FSDP; ROADMAP C19)."""
     if kind == "train":
         return ParallelConfig(fsdp=costs.param_count(cfg) > 3e9,
                               remat="block")
+    if kind == "decode":
+        return ParallelConfig(fsdp=False, remat="none")
     per_dev = costs.param_count(cfg) * 2 / 16
     return ParallelConfig(fsdp=per_dev > 8e9, remat="none")
 

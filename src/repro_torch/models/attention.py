@@ -381,21 +381,41 @@ def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
     return y, cache._replace(length=pos + 1)
 
 
-def cross_attend_cached(x: Tensor, enc_kv: tuple[Tensor, Tensor], p: dict,
-                        cfg: ModelConfig) -> Tensor:
-    """Decode cross-attention against the precomputed source K/V
-    (``project_cross_kv``): fp32 einsum and softmax over every source
-    token. x: (B, T, d)."""
-    b, t, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = L.project(x, p["wq"], cfg, "attn.wq").reshape(
-        b, t, cfg.num_heads, hd)
-    k, v = enc_kv
-    g = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, t, cfg.num_kv_heads, g, hd) * hd ** -0.5
+def _cross_core(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """(B, T, H, hd) queries over the source's (B, S, KH, hd) K / V, each
+    KV head read by its H / KH query heads: the fp32 einsums and the
+    softmax over every source token. Returns (B, T, H, hd) fp32."""
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, t, kh, h // kh, hd) * hd ** -0.5
     scores = torch.einsum("btkgh,bskh->btkgs", qg, k).to(torch.float32)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("btkgs,bskh->btkgh", probs.to(v.dtype),
                        v).to(torch.float32)
+    return out.reshape(b, t, h, hd)
+
+
+def cross_attend_cached(x: Tensor, enc_kv: tuple[Tensor, Tensor], p: dict,
+                        cfg: ModelConfig) -> Tensor:
+    """Decode cross-attention against the precomputed source K/V
+    (``project_cross_kv``): fp32 einsum and softmax over every source
+    token. x: (B, T, d). Under a serving mesh x holds the rank's rows, the
+    source K/V its rows and KV heads: q takes the rank's query heads, as
+    ``_project_qkv`` does, and ``wo`` is row-parallel."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = L.project(x, p["wq"], cfg, "attn.wq")
+    shards = local_ops.current_shards()
+    if shards is not None:      # the rank's query heads of a serving mesh
+        q = shards.heads_of(q, shards.num_heads, shards.num_heads * hd)
+    q = q.reshape(b, t, cfg.num_heads, hd)
+    k, v = enc_kv
+    if shards is None or shards.kv_gather:
+        out = _cross_core(q, k, v)
+    else:       # at one rank's shape: the rank's rows and heads among zeros
+        h, kh = shards.num_heads, shards.num_kv_heads
+        out = shards.take(_cross_core(shards.place(q, 2, h),
+                                      shards.place(k, 2, kh),
+                                      shards.place(v, 2, kh)), b, 2, h)
     out = out.to(x.dtype).reshape(b, t, -1)
     return L.project(out, p["wo"], cfg, "attn.wo")

@@ -321,20 +321,39 @@ def project_cross(params: dict, cfg: ModelConfig,
             for lp, cross in zip(params["layers"], _cross_layers(cfg))]
 
 
+def frontend_cross_kv(params: dict, cfg: ModelConfig,
+                      enc_inputs: Optional[Tensor] = None,
+                      image_embeds: Optional[Tensor] = None
+                      ) -> Optional[list]:
+    """``project_cross`` of ``cross_source``: per layer the cross (K, V)
+    of a frontend input, None for a decoder-only config. Under a serving
+    mesh (``dist.local_ops.use_shards``) the input is the whole batch's,
+    as every rank holds it: the rank's rows run through the stem (whole
+    on every rank) and the encoder (the rank's heads), and each pair holds
+    the rank's rows and KV heads."""
+    shards = local_ops.current_shards()
+    if shards is not None:
+        enc_inputs, image_embeds = (None if t is None else shards.own_rows(t)
+                                    for t in (enc_inputs, image_embeds))
+    src = cross_source(params, cfg, enc_inputs, image_embeds)
+    return None if src is None else project_cross(params, cfg, src)
+
+
 def init_decode_state(params: dict, cfg: ModelConfig, batch: int,
                       max_len: int, *, enc_inputs: Optional[Tensor] = None,
                       image_embeds: Optional[Tensor] = None
                       ) -> DecodeState:
     """Empty caches and, for a cross-attending config, its source run
     through the frontend (``cross_source``: the stem, the encoder) and
-    projected to each cross_attn layer's K/V once, at ``params``' view."""
+    projected to each cross_attn layer's K/V once, at ``params``' view
+    (``frontend_cross_kv``; under a serving mesh ``batch`` is the rank's
+    rows and the frontend input the whole batch's)."""
     dev = params["embed"]["table"].device
     caches = [T.init_layer_cache(cfg, spec, batch, max_len, _dtype(cfg), dev)
               for spec in layer_specs(cfg)]
-    src = cross_source(params, cfg, enc_inputs, image_embeds)
     return DecodeState(
         caches=caches,
-        cross_kv=None if src is None else project_cross(params, cfg, src),
+        cross_kv=frontend_cross_kv(params, cfg, enc_inputs, image_embeds),
         position=torch.zeros((), dtype=torch.int32, device=dev))
 
 

@@ -15,7 +15,11 @@ rung's per-module bit flips (the ``conv.s{i}`` roles included).
 Requests resolve to rungs, group into waves of ``max_batch`` items per
 rung (a short wave padded by repeating its first item), and each wave is
 one eager ``models.model.encode`` call on the rung's view: thousands of
-rows a launch, so a CUDA graph would gain nothing. The JAX package's
+rows a launch, so a CUDA graph would gain nothing. Under a device mesh
+(``EncodeEngine(mesh=...)``, one engine a rank) a wave's items split over
+"data" and the encoder's heads over "model", each rank running the conv
+stem whole on its items, and the rows are gathered so every rank returns
+the whole wave, equal to one rank's bit for bit. The JAX package's
 no-retrace proof becomes: ``warmup`` encodes once per rung and records
 how many kernel libraries ``kernels.build`` has loaded, and
 ``assert_no_recompile`` raises if that count grew while serving.
@@ -32,9 +36,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
 from repro_torch.core import policy as pol
 from repro_torch.core import power as pw
+from repro_torch.dist import local_ops
 from repro_torch.kernels import build, dispatch
 from repro_torch.models import model as MD
 from repro_torch.models import serving
+from repro_torch.serve_engine.engine import check_shards, serve_shards
 from repro_torch.serve_engine.ladder import build_ladder, select_rung
 
 
@@ -62,7 +68,14 @@ class EncodeEngine:
     """Multi-operating-point encoder serving runtime (module docstring).
     Pass ``params`` (fp32, quantized here; the engine takes them over) or
     a prebuilt ``weight_store``. ``backend`` defaults to 'packed';
-    ``device`` to 'cuda', which raises without a card."""
+    ``device`` to 'cuda', which raises without a card. ``mesh`` (a
+    ("data", "model") ``DeviceMesh``) and ``par`` (a ``ParallelConfig``
+    without FSDP) serve it on the mesh's ranks, one engine a rank, each
+    handed the same requests: the store placed as
+    ``serving.serving_shardings`` says (the conv stem whole on every
+    rank), a wave's items split over "data" and the encoder's heads over
+    "model", and each response whole on every rank, equal to one rank's
+    bit for bit."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
@@ -70,10 +83,6 @@ class EncodeEngine:
                  allocation: str = "uniform", backend: str = "packed",
                  weight_store: Optional[serving.WeightStore] = None,
                  device="cuda", mesh=None, par=None):
-        if mesh is not None or par is not None:
-            raise ValueError(
-                "EncodeEngine(mesh=...) is not ported: the encoders and conv "
-                "stems under a mesh need their own collectives (ROADMAP A10)")
         self.device = MD.resolve_device(device)
         if (params is None) == (weight_store is None):
             raise ValueError("pass exactly one of params (quantize here) or "
@@ -86,6 +95,8 @@ class EncodeEngine:
         self.cfg = cfg
         self.max_batch = int(max_batch)
         self.allocation = allocation
+        self._shards = (None if mesh is None else
+                        serve_shards(cfg, mesh, par, self.max_batch))
         # per-ITEM profile: conv rows exact, an encoder's rows at
         # encoder_layers x n_tokens instances
         self.profile = costs.encoder_cost_profile(cfg)
@@ -108,15 +119,27 @@ class EncodeEngine:
                 raise ValueError(
                     f"weight_store has no view for rung(s) {missing}; "
                     f"available: {sorted(weight_store.views)}")
-            self.weight_store = weight_store.store
-            self.variants = {b: weight_store.views[b] for b in rung_specs}
+            ws = serving.device_put_weight_store(
+                serving.WeightStore(
+                    store=weight_store.store,
+                    views={b: weight_store.views[b] for b in rung_specs}),
+                mesh=mesh, par=par)
         else:
             ws = serving.build_weight_store(
                 params, cfg, rung_specs,
                 serving.ServingQuantSpec(
-                    pack_planes=self.backend == "packed"))
-            self.weight_store = ws.store
-            self.variants = ws.views
+                    pack_planes=self.backend == "packed"),
+                mesh=mesh, par=par)
+        self.weight_store = ws.store
+        self.variants = ws.views
+        # what an encode reads: the views, or under a mesh each rank's
+        # local shards of them under the config of its heads
+        self._views = {b: serving.local_tree(v)
+                       for b, v in self.variants.items()}
+        self._step_cfg = cfg
+        if self._shards is not None:
+            self._step_cfg = self._shards.local_cfg(cfg)
+            check_shards(self.variants[self.ladder[0].bits], self._shards)
         self.compilations_after_warmup: Optional[int] = None
         self.items_by_rung = {op.bits: 0 for op in self.ladder}
         self.rung_switches = 0
@@ -147,7 +170,16 @@ class EncodeEngine:
         return torch.as_tensor(np.stack(rows), device=self.device)
 
     def _encode(self, bits: int, x: torch.Tensor) -> torch.Tensor:
-        return MD.encode(self.variants[bits], self.cfg, x)
+        """The wave ``x`` encoded at rung ``bits``: under a mesh each rank
+        encodes its rows at its heads and the rows are gathered, so every
+        rank returns the whole wave."""
+        shards = self._shards
+        if shards is None:
+            return MD.encode(self._views[bits], self.cfg, x)
+        with local_ops.use_shards(shards):
+            out = MD.encode(self._views[bits], self._step_cfg,
+                            shards.own_rows(x))
+        return shards.gather_rows(out)
 
     # -- warmup bookkeeping (the decode engine's protocol) ------------------
 

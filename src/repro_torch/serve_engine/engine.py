@@ -34,21 +34,22 @@ state copied into one of its slots, the donor's slot freed), rebuilds one
 from its token prefix (``prefill_wave(prefix_rows=...)``), and
 ``release``s the slot of a lane it detaches without finalizing it.
 
-Under a device mesh (``ServeEngine(mesh=..., par=...)``, a dense, MoE,
-hybrid (zamba2) or RWKV decoder on a ("data", "model") ``DeviceMesh``,
-one engine a rank) the store is
+Under a device mesh (``ServeEngine(mesh=..., par=...)``, any family on a
+("data", "model") ``DeviceMesh``, one engine a rank) the store is
 quantized once on the whole weights and each rank keeps its shard
 (``serving.device_put_weight_store``); the decode step runs on the rank's
 local shards with its collectives spelled out (``dist.local_ops``): the
 rank's heads, columns or K rows of each projection and its batch rows,
 its slots holding its heads and rows (``dist.sharding.slot_specs``: the
-KV caches' and the recurrent states' heads). The tokens, the logits and
+KV caches', the cross K/V's and the recurrent states' heads). A wave's
+frontend runs on the rank's rows of its input (the conv stem whole on
+every rank, the encoder on the rank's heads). The tokens, the logits and
 everything the engine does between steps are the whole batch's, and every
 rank's equal a one-rank engine's bit for bit (a MoE model's experts
 split by expert, its router whole: ``models.mlp.apply_moe``).
 Such steps run eagerly: with more than one rank a step waits on its
 collectives, which the host-staged group of two ranks on one card runs on
-the host.
+the host (graph capture under NCCL is ROADMAP A10.4).
 """
 from __future__ import annotations
 
@@ -83,9 +84,64 @@ NO_BACKEND = (
     "reached through models.model.forward / decode_step on an artifact with "
     "cfg.kernel_backend None")
 
-# the families a serving mesh takes: one decode step, split by heads,
-# columns and rows (the encoders need collectives of their own)
-MESH_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+def serve_shards(cfg: ModelConfig, mesh, par,
+                 max_batch: int) -> local_ops.ServeShards:
+    """This rank's ``ServeShards`` of a serve or encode engine on
+    ``mesh``; raises ``ValueError`` naming ROADMAP A10 on what the local
+    decode does not split: FSDP, a "model" axis that does not divide the
+    KV heads, the experts, the SSM heads or the RWKV heads, a batch the
+    "data" axis does not divide."""
+    if par is not None and par.fsdp:
+        raise ValueError("a serving mesh shards the store over 'model' "
+                         "only: par.fsdp would re-gather every weight every "
+                         "step (ROADMAP A10)")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    m = sizes.get("model", 1)
+    split = {"SSM heads": S.n_heads(cfg) if cfg.family == "hybrid"
+             else 0,
+             "RWKV heads": cfg.d_model // R.HEAD_DIM
+             if cfg.family == "ssm" else 0,
+             "experts": cfg.moe.num_experts if cfg.family == "moe"
+             else 0}
+    if cfg.family != "ssm":
+        split["KV heads"] = cfg.num_kv_heads
+    for what, n in split.items():
+        if n % m:
+            raise ValueError(
+                f"a 'model' axis of {m} does not divide {cfg.name}'s "
+                f"{n} {what}: each rank serves whole heads and an "
+                "even share of every split (ROADMAP A10)")
+    if max_batch % sizes.get("data", 1):
+        raise ValueError(
+            f"max_batch {max_batch} is no multiple of the 'data' axis "
+            f"{sizes.get('data', 1)} (ROADMAP A10)")
+    return local_ops.ServeShards.for_mesh(mesh, cfg, max_batch)
+
+
+def check_shards(view, shards: local_ops.ServeShards) -> None:
+    """Every projection of a placed rung view is split over "model" but
+    the conv stem's (a width the axis does not divide would stay whole on
+    every rank, which the local decode cannot read). The stem is whole on
+    every rank by design: ``dist.sharding.param_specs`` names it neither
+    column- nor row-parallel, and each rank runs it on its own rows."""
+    def walk(node, trail):
+        if isinstance(node, dict):
+            w_q = node.get("w_q")
+            if w_q is not None and trail[:1] != ("conv_stem",) and not any(
+                    p.is_shard() for p in w_q.placements):
+                raise ValueError(
+                    f"{'.'.join(trail)}: {tuple(w_q.shape)} is not split "
+                    f"over the {shards.model}-way 'model' axis (ROADMAP "
+                    "A10)")
+            for key, v in node.items():
+                walk(v, trail + (key,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, trail + (str(i),))
+
+    if shards.model > 1:
+        walk(view, ())
 
 
 @dataclasses.dataclass
@@ -163,9 +219,9 @@ class ServeEngine:
     views at ``max_batch`` rows before ``warmup`` captures
     (``kernels.autotune``; a backend other than 'ref'). ``mesh`` (a
     ("data", "model") ``DeviceMesh``) and ``par`` (a ``ParallelConfig``
-    without FSDP) serve a dense decoder on the mesh's ranks (module
-    docstring); every rank builds its engine from the same params or
-    store."""
+    without FSDP) serve the model on the mesh's ranks (module docstring);
+    every rank builds its engine from the same params or store and is
+    handed the same whole frontend input."""
 
     def __init__(self, cfg: ModelConfig, params: Any = None,
                  ladder_bits: Sequence[int] = (2, 3, 4, 6),
@@ -222,7 +278,7 @@ class ServeEngine:
         self.allocation = allocation
         self.mesh = mesh
         self._shards = (None if mesh is None
-                        else self._mesh_shards(cfg, mesh, par))
+                        else serve_shards(cfg, mesh, par, self.max_batch))
         # the per-module MAC profile: feeds the layerwise allocator and the
         # per-module energy breakdown on every response
         self.profile = costs.module_cost_profile(cfg)
@@ -278,7 +334,7 @@ class ServeEngine:
         self._step_cfg = cfg
         if self._shards is not None:
             self._step_cfg = self._shards.local_cfg(cfg)
-            self._check_shards()
+            check_shards(self.variants[self.ladder[0].bits], self._shards)
         table = self._views[self.ladder[0].bits]["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"weight store lives on {table.device}, engine "
@@ -292,7 +348,7 @@ class ServeEngine:
         self._macs_by_ctx: dict[int, Any] = {}
         # decode steps replay CUDA graphs on the card; the CPU runs them,
         # as does a mesh of more than one rank (its steps wait on their
-        # collectives: ROADMAP A10 has capturing them under NCCL)
+        # collectives: ROADMAP A10.4 has capturing them under NCCL)
         self.graphed = self.device.type == "cuda" and (
             mesh is None or mesh.size() == 1)
         self._slots = [self._new_slot(i) for i in range(int(slots))]
@@ -301,68 +357,6 @@ class ServeEngine:
         self._stream = None
         self.graphs_captured = 0
         self.compilations_after_warmup: Optional[int] = None
-
-    # -- a serving mesh -----------------------------------------------------
-
-    def _mesh_shards(self, cfg: ModelConfig, mesh,
-                     par) -> local_ops.ServeShards:
-        """This rank's ``ServeShards``; raises ``ValueError`` naming ROADMAP
-        A10 on what the local decode does not split: an encoder-decoder or
-        vision model, FSDP, a "model" axis that does not divide the KV
-        heads, the experts, the SSM heads or the RWKV heads, a batch the
-        "data" axis does not divide."""
-        if cfg.family not in MESH_FAMILIES:
-            raise ValueError(
-                f"ServeEngine(mesh=...) serves the dense, MoE, hybrid and "
-                f"RWKV decoders; {cfg.name} is a {cfg.family!r} model, "
-                "whose collectives are not ported (ROADMAP A10)")
-        if par is not None and par.fsdp:
-            raise ValueError("ServeEngine(mesh=...) shards the store over "
-                             "'model' only: par.fsdp would re-gather every "
-                             "weight every step (ROADMAP A10)")
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        m = sizes.get("model", 1)
-        split = {"SSM heads": S.n_heads(cfg) if cfg.family == "hybrid"
-                 else 0,
-                 "RWKV heads": cfg.d_model // R.HEAD_DIM
-                 if cfg.family == "ssm" else 0,
-                 "experts": cfg.moe.num_experts if cfg.family == "moe"
-                 else 0}
-        if cfg.family != "ssm":
-            split["KV heads"] = cfg.num_kv_heads
-        for what, n in split.items():
-            if n % m:
-                raise ValueError(
-                    f"a 'model' axis of {m} does not divide {cfg.name}'s "
-                    f"{n} {what}: each rank serves whole heads and an "
-                    "even share of every split (ROADMAP A10)")
-        if self.max_batch % sizes.get("data", 1):
-            raise ValueError(
-                f"max_batch {self.max_batch} is no multiple of the 'data' "
-                f"axis {sizes.get('data', 1)} (ROADMAP A10)")
-        return local_ops.ServeShards.for_mesh(mesh, cfg, self.max_batch)
-
-    def _check_shards(self) -> None:
-        """Every projection of the views is split over "model" (a width
-        the axis does not divide stays whole on every rank, which the
-        local decode cannot read)."""
-        def walk(node, trail):
-            if isinstance(node, dict):
-                w_q = node.get("w_q")
-                if w_q is not None and not any(
-                        p.is_shard() for p in w_q.placements):
-                    raise ValueError(
-                        f"{'.'.join(trail)}: {tuple(w_q.shape)} is not "
-                        f"split over the {self._shards.model}-way 'model' "
-                        "axis (ROADMAP A10)")
-                for key, v in node.items():
-                    walk(v, trail + (key,))
-            elif isinstance(node, (list, tuple)):
-                for i, v in enumerate(node):
-                    walk(v, trail + (str(i),))
-
-        if self._shards.model > 1:
-            walk(self.variants[self.ladder[0].bits], ())
 
     # -- offline autotuning -------------------------------------------------
 
@@ -432,14 +426,15 @@ class ServeEngine:
         ``_init_state``), each cross_attn layer's K/V written into the
         slot's own buffers with ``copy_``, so the captured graphs read
         them; a new tensor assigned to the state would leave the graphs
-        reading the last wave's."""
+        reading the last wave's. Under a mesh each rank runs the frontend
+        on its rows of the wave's input and writes its rows and KV heads
+        (``models.model.frontend_cross_kv``)."""
         if slot.state.cross_kv is None:
             return
-        view = self.variants[bits]
-        src = MD.cross_source(view, self.cfg, **self._frontend())
-        for buf, new in zip(slot.state.cross_kv,
-                            MD.project_cross(view, self.cfg, src),
-                            strict=True):
+        with local_ops.use_shards(self._shards):   # the rank's rows, heads
+            cross = MD.frontend_cross_kv(self._views[bits], self._step_cfg,
+                                         **self._frontend())
+        for buf, new in zip(slot.state.cross_kv, cross, strict=True):
             if buf is None:
                 continue
             for b, n in zip(buf, new):
@@ -825,7 +820,8 @@ class ServeEngine:
             "graphed": self.graphed,
             "steps": ("CUDA graph replays" if self.graphed else
                       "eager: a step under a mesh of more than one rank "
-                      "waits on its collectives" if mesh is not None
+                      "waits on its collectives (no graphs under a mesh: "
+                      "ROADMAP A10.4)" if mesh is not None
                       else "eager (the CPU has no graphs)"),
             "allocation": self.allocation,
             "artifact_format": self.artifact_format,

@@ -3,9 +3,9 @@
 the elastic checkpoint restore), ``test_torch_dist_moe.py`` (the MoE
 capacity dispatch with its experts over "data"),
 ``test_torch_dist_tp.py`` (tensor-parallel training) and
-``test_torch_serve_mesh.py``, ``test_torch_serve_mesh_moe.py`` and
-``test_torch_serve_mesh_recurrent.py`` (``ServeEngine`` under a device
-mesh).
+``test_torch_serve_mesh.py``, ``test_torch_serve_mesh_moe.py``,
+``test_torch_serve_mesh_recurrent.py`` and ``test_torch_serve_mesh_cross.py``
+(``ServeEngine`` and ``EncodeEngine`` under a device mesh).
 
 Each test file starts ONE group (``spawn_group``) on a ``FileStore``
 under its temporary directory (no fixed port) and names the cases its
@@ -266,19 +266,44 @@ def serve_requests(seed: int, n: int, prompt: int, gen: int,
             for i in range(n)]
 
 
+def case_cfg(case: dict):
+    """The port's reduced config of a case, with the case's widths."""
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.reduced(configs.get_config(case["arch"])), **case["cfg"])
+
+
+def frontend_fn(cfg, first: int = 0):
+    """``frontend_kwargs_fn`` of a cross-attending config: a new seeded
+    raw input (``data.pipeline.frontend_raw_stub``, the JAX package's
+    bytes) at every call, the n-th call's at step ``first + n``; None for
+    a decoder-only config. Every rank of a mesh calls it as often, in
+    the same order, as a one-rank engine does."""
+    from repro_torch.data import pipeline
+    if cfg.family not in ("encdec", "vlm"):
+        return None
+    key = "enc_inputs" if cfg.family == "encdec" else "image_embeds"
+    calls = [first]
+
+    def fn(batch):
+        calls[0] += 1
+        return {key: pipeline.frontend_raw_stub(cfg, batch, calls[0] - 1)}
+
+    return fn
+
+
 def serve_engine(case: dict, mesh=None):
     """The case's ``ServeEngine`` on the store the test wrote (loaded
     afresh: a mesh engine places its own copy of each shard)."""
     import torch
-    from repro_torch import configs
     from repro_torch.serve_engine import ServeEngine
-    cfg = dataclasses.replace(
-        configs.reduced(configs.get_config(case["arch"])), **case["cfg"])
+    cfg = case_cfg(case)
     ws = torch.load(case["store"], weights_only=False)
     return ServeEngine(cfg, weight_store=ws, backend=case["backend"],
                        cache_bits=case["cache_bits"],
                        allocation=case["allocation"], device="cpu",
-                       mesh=mesh, **case["engine"])
+                       mesh=mesh, frontend_kwargs_fn=frontend_fn(cfg),
+                       **case["engine"])
 
 
 def serve_recorded(engine, case: dict) -> dict:
@@ -335,6 +360,8 @@ def _serve_mesh(rank: int, tmp: str) -> None:
         res["describe"] = engine.describe()
         res["slot_shapes"] = [list(t.shape) for t in _state_leaves(
             engine._slots[0].state.caches)]
+        res["cross_shapes"] = [list(t.shape) for t in _state_leaves(
+            engine._slots[0].state.cross_kv)]
         moe = engine._views[engine.ladder[0].bits]["layers"][0].get("moe")
         if moe is not None:     # the rank's local expert stacks
             res["moe_shapes"] = {k: list(v.shape) for k, v in moe.items()
@@ -350,6 +377,68 @@ def _serve_mesh(rank: int, tmp: str) -> None:
     out["staged_collectives"] = staged_collectives()
     with open(os.path.join(tmp, f"serve_{rank}.json"), "w") as f:
         json.dump(out, f, default=str)
+
+
+ENCODE_CASES = "encode_cases.json"  # the test's cases of mesh encoding
+
+
+def encode_requests(cfg, seed: int, n: int) -> list:
+    """``n`` raw items (``frontend_raw_stub`` at step ``seed``) whose
+    budgets cycle over the ladder's rungs (as dicts of
+    ``EncodeRequest``'s fields)."""
+    from repro_torch.data import pipeline
+    items = pipeline.frontend_raw_stub(cfg, n, seed)
+    return [dict(uid=i, item=items[i], power_budget_bits=(2, 4, 6)[i % 3])
+            for i in range(n)]
+
+
+def encode_engine(case: dict, mesh=None):
+    """The case's ``EncodeEngine`` on the encode store the test wrote."""
+    import torch
+    from repro_torch.serve_engine import EncodeEngine
+    ws = torch.load(case["store"], weights_only=False)
+    return EncodeEngine(case_cfg(case), weight_store=ws,
+                        backend=case["backend"], device="cpu", mesh=mesh,
+                        **case["engine"])
+
+
+def encode_served(engine, case: dict) -> dict:
+    """Encode the case's items; (the encoded items stacked, the rungs)."""
+    from repro_torch.serve_engine import EncodeRequest
+    engine.warmup()
+    out = engine.encode([EncodeRequest(**r) for r in encode_requests(
+        engine.cfg, **case["items"])])
+    engine.assert_no_recompile()
+    return {"encoded": np.stack([r.encoded for r in out]),
+            "rungs": [r.rung_bits for r in out]}
+
+
+def _encode_mesh(rank: int, tmp: str) -> None:
+    """Every encode case of the test's list on its mesh: each rank's
+    encoded items (every rank returns the whole wave) and store bytes."""
+    import torch
+    from repro_torch.dist.compat import DeviceMesh
+    from repro_torch.models import serving
+    _wait_file(os.path.join(tmp, ENCODE_CASES))
+    with open(os.path.join(tmp, ENCODE_CASES)) as f:
+        cases = json.load(f)
+    out, arrays = {}, {}
+    for case in cases:
+        _wait_file(case["store"])
+        t0 = time.monotonic()
+        d, m = case["mesh"]
+        mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(d, m),
+                          mesh_dim_names=("data", "model"))
+        engine = encode_engine(case, mesh)
+        res = encode_served(engine, case)
+        arrays[case["name"]] = res.pop("encoded")
+        res["store_bytes"] = serving.store_bytes(engine.weight_store,
+                                                 *engine.variants.values())
+        res["seconds"] = time.monotonic() - t0
+        out[case["name"]] = res
+    np.savez(os.path.join(tmp, f"encoded_{rank}.npz"), **arrays)
+    with open(os.path.join(tmp, f"encode_{rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 # the MoE block alone under shards: (rows, tokens, d, d_ff, experts, k)
@@ -416,7 +505,7 @@ def _moe_units(rank: int, tmp: str) -> None:
 
 CASES = {"psum": _psum, "pipeline": _pipeline, "elastic": _elastic,
          "moe_ep": _moe_ep, "tp": _tp_train, "serve_mesh": _serve_mesh,
-         "moe_units": _moe_units}
+         "moe_units": _moe_units, "encode_mesh": _encode_mesh}
 
 
 def run(rank: int, tmp: str, cases: tuple) -> None:

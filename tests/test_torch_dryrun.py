@@ -185,3 +185,43 @@ def test_reduced_decode_cell(arch, entry, monkeypatch):
     unsharded = TDR.count_cell(cfg, tconfigs.SHAPES_BY_NAME["decode_32k"])
     assert record["flops_per_device"] * 256 >= \
         unsharded["flops_per_device"]
+
+
+@pytest.mark.parametrize("quant", ["none", "pann_serve"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_reduced_cross_decode_cell(arch, quant, monkeypatch):
+    """``decode_32k`` of the cross-attending configs at --reduced on the
+    fake 256-rank group (as rank 0, in this process), on the fp params and
+    on the serving artifact: a record with no failure, its store placed
+    over "model" alone (the serving mesh's layout, never FSDP), the
+    frontend run on the rank's rows and every decode step's
+    cross-attention through ``_cross_core``; no FLOP lost against the same
+    step counted unsharded here."""
+    from repro_torch.dist import local_ops
+    from repro_torch.models import attention
+    calls = {"own_rows": 0, "_cross_core": 0}
+    for owner, name in ((local_ops.ServeShards, "own_rows"),
+                        (attention, "_cross_core")):
+        real = getattr(owner, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(owner, name, counted)
+    record = TDR.run_cell(arch, "decode_32k", False, quant_mode=quant,
+                          verbose=False, reduced=True)
+    assert record["n_devices"] == 256 and record["shape"] == "decode_32k"
+    assert record["quant"] == quant and record["fsdp"] is False
+    assert calls["own_rows"] == 1 and calls["_cross_core"] > 0, calls
+    coll = record["collective_bytes_per_device"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    for key in ("flops_per_device", "bytes_per_device",
+                "argument_size_in_bytes", "output_size_in_bytes"):
+        assert record[key] > 0
+    cfg = tconfigs.reduced(tconfigs.get_config(arch, dtype="bfloat16"))
+    unsharded = TDR.count_cell(cfg, tconfigs.SHAPES_BY_NAME["decode_32k"],
+                               serve_quant=quant == "pann_serve")
+    assert record["flops_per_device"] * 256 >= \
+        unsharded["flops_per_device"]

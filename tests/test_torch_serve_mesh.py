@@ -22,6 +22,7 @@ the fp stages, which run in another order in XLA); each rank's store at most
 (4, 1); the slots' shapes those of ``dist.sharding.slot_specs``; and the
 engines' refusals.
 """
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -46,11 +47,13 @@ from repro_torch.dist import sharding as SH
 from repro_torch.models import model as TMD
 from repro_torch.models import serving
 from repro_torch.serve_engine import EncodeEngine, ServeEngine
+from repro_torch.serve_engine.engine import serve_shards
 from test_torch_common import one_torch_thread  # noqa: F401
 
 WIDE = {"num_heads": 8, "num_kv_heads": 4, "d_model": 128, "num_layers": 2}
 LADDER = [2, 4, 6]
 ENGINE = {"ladder_bits": LADDER, "max_batch": 4, "max_len": 12}
+SLOTS = 2           # the port engine's default decode-state slots
 # one request a case, its rung cycling over the ladder from case to case
 REQUESTS = {"seed": 5, "n": 1, "prompt": 3, "gen": 4}
 # store name -> (arch, cache_bits, allocation, config widths)
@@ -120,62 +123,114 @@ def _with_planes(ws):
     return ws
 
 
+def init_params(arch, cfg):
+    """The reference's params of ``cfg`` (jitted: one compile instead of
+    one an eager op)."""
+    return jax.jit(lambda k: RMD.init_params(k, cfg))(jax.random.PRNGKey(7))
+
+
+def _op_by_op(fn):
+    """``fn`` under ``jax.disable_jit()``: the reference engine's wave
+    start (the conv stem, the encoder, the cross K/V projections) op by
+    op. Its encoder layers run in a ``lax.scan`` whose body XLA compiles
+    and fuses, in another order of the fp ops than one op at a time; on
+    reduced seamless at rung 2 that flips an activation code at a
+    rounding tie (the cross K/V then 7-9 % of max|K/V| away), where the
+    op-by-op reference and the port agree bit for bit. It costs a compile
+    of each primitive (about 17 s there), so a store takes it only where
+    it is asked for."""
+    def eager(*args):
+        with jax.disable_jit():
+            return fn(*args)
+    return eager
+
+
 def serve_group(tmp: str, stores: dict, case_list: list,
                 engine: dict = ENGINE,
-                worker: tuple = ("serve_mesh",)) -> dict:
+                worker: tuple = ("serve_mesh",), params_fn=init_params,
+                extra=None, op_by_op: tuple = ()) -> dict:
     """Serve ``case_list`` ((mesh, backend, store) triples) on ONE spawned
     group of 4 gloo ranks (the worker's cases ``worker``), the JAX
     package's stores of ``stores`` carried across, beside the
     one-process port engine and the reference engine in this process.
-    Returns {"ranks": each rank's outputs, "logits": rank 0's by case,
-    "ones": the one-process results by case, "ref_tokens": the
-    reference's by case, "whole": each store's bytes and replicated
-    shares}."""
+    ``params_fn(arch, cfg)`` gives each store's reference params; a
+    cross-attending config's engines take a new raw frontend a wave
+    (``_torch_dist_worker.frontend_fn``, drawn afresh for each case: the
+    port's engine draws one for each of its SLOTS slots at init, the
+    reference's none, so the reference's starts SLOTS steps on), the
+    reference's op by op (``_op_by_op``) for the stores named in
+    ``op_by_op``. Each store's reference (its engine, then its tokens)
+    runs in a thread of its own: JAX compiles outside the GIL, and
+    ``jax.disable_jit`` holds for its own thread alone.
+    ``extra`` (an object with
+    ``prepare()`` and ``meanwhile()``) runs after the stores are written
+    and while the ranks work. Returns {"ranks": each rank's outputs,
+    "logits": rank 0's by case, "ones": the one-process results by case,
+    "ref_tokens": the reference's by case, "whole": each store's bytes
+    and replicated shares, "extra": ``extra.meanwhile()``'s result}."""
     # by store, in the order prepare() writes them
     cases = sorted((_case(tmp, i, *c, stores, engine)
                     for i, c in enumerate(case_list)),
                    key=lambda c: list(stores).index(store_of(c["name"])))
     names = [c["name"] for c in cases]
-    refs = {}
+    pool = concurrent.futures.ThreadPoolExecutor(len(stores))
+    built = {}
+
+    def build(name):
+        """The store's reference engine, its store written for the ranks
+        (renamed into place whole: the ranks start on a store as soon as
+        it is)."""
+        arch, cache_bits, allocation, wide = stores[name]
+        cfg = ref_cfg(arch, wide)
+        reng = RServeEngine(
+            cfg, params_fn(arch, cfg), backend="ref",
+            cache_bits=cache_bits, allocation=allocation,
+            frontend_kwargs_fn=W.frontend_fn(port_cfg(arch, wide)),
+            **engine)
+        if name in op_by_op:
+            reng._init_state = _op_by_op(reng._init_state)
+        tonp = functools.partial(jax.tree_util.tree_map, np.asarray)
+        ws = _with_planes(weight_store_from_reference(
+            tonp(reng.weight_store),
+            {k: tonp(v) for k, v in reng.variants.items()},
+            port_cfg(arch, wide), "cpu"))
+        path = os.path.join(tmp, f"{name}.pt")
+        torch.save(ws, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return reng
+
+    def reference(name):
+        """The reference's tokens of each case of the store (once for
+        each distinct request set)."""
+        reng, by_requests = built[name].result(), {}
+        for c in cases:
+            key = json.dumps(c["requests"])
+            if store_of(c["name"]) != name or key in by_requests:
+                continue
+            reqs = [RRequest(**r) for r in W.serve_requests(**c["requests"])]
+            if reng._frontend_kwargs_fn is not None:   # as the port's
+                reng._frontend_kwargs_fn = W.frontend_fn(W.case_cfg(c),
+                                                         first=SLOTS)
+            by_requests[key] = [(r.tokens, r.rung_bits)
+                                for r in reng.generate(reqs)]
+        return by_requests
 
     def prepare():
-        # the case list first, then each store as it is built (renamed
-        # into place whole): the ranks start on a store as soon as it is
         t0 = time.monotonic()
         with open(os.path.join(tmp, W.SERVE_CASES), "w") as f:
             json.dump(cases, f)
-        for name, (arch, cache_bits, allocation, wide) in stores.items():
-            cfg = ref_cfg(arch, wide)
-            # jitted: one compile instead of one an eager op
-            params = jax.jit(lambda k: RMD.init_params(k, cfg))(
-                jax.random.PRNGKey(7))
-            reng = RServeEngine(cfg, params, backend="ref",
-                                cache_bits=cache_bits, allocation=allocation,
-                                **engine)
-            tonp = functools.partial(jax.tree_util.tree_map, np.asarray)
-            ws = _with_planes(weight_store_from_reference(
-                tonp(reng.weight_store),
-                {k: tonp(v) for k, v in reng.variants.items()},
-                port_cfg(arch, wide), "cpu"))
-            path = os.path.join(tmp, f"{name}.pt")
-            torch.save(ws, path + ".tmp")
-            os.replace(path + ".tmp", path)
-            refs[name] = reng
+        built.update({name: pool.submit(build, name) for name in stores})
+        for f in built.values():
+            f.result()
+        if extra is not None:
+            extra.prepare()
         print(f"[serve_mesh] prepare {time.monotonic() - t0:.1f} s")
 
     def meanwhile():
         t0 = time.monotonic()
+        tokens = {name: pool.submit(reference, name) for name in stores}
         ones = {c["name"]: W.serve_recorded(W.serve_engine(c), c)
                 for c in cases}
-        t1 = time.monotonic()
-        ref_tokens = {}
-        for c in cases:
-            reqs = [RRequest(**r) for r in W.serve_requests(**c["requests"])]
-            ref_tokens[c["name"]] = [
-                (r.tokens, r.rung_bits)
-                for r in refs[store_of(c["name"])].generate(reqs)]
-        print(f"[serve_mesh] one-process {t1 - t0:.1f} s, reference "
-              f"{time.monotonic() - t1:.1f} s")
         whole = {}
         for name in stores:
             ws = torch.load(os.path.join(tmp, f"{name}.pt"),
@@ -183,9 +238,19 @@ def serve_group(tmp: str, stores: dict, case_list: list,
             whole[name] = serving.store_bytes(ws.store, *ws.views.values())
             for m in (2, 4):
                 whole[name, m] = replicated_share(ws, m)
-        return ones, ref_tokens, whole
+        more = None if extra is None else extra.meanwhile()
+        t1 = time.monotonic()
+        ref_tokens = {c["name"]: tokens[store_of(c["name"])].result()[
+            json.dumps(c["requests"])] for c in cases}
+        print(f"[serve_mesh] one-process {t1 - t0:.1f} s, reference "
+              f"{time.monotonic() - t1:.1f} s after it")
+        return ones, ref_tokens, whole, more
 
-    ones, ref_tokens, whole = W.spawn_group(tmp, worker, prepare, meanwhile)
+    try:
+        ones, ref_tokens, whole, more = W.spawn_group(tmp, worker, prepare,
+                                                      meanwhile)
+    finally:
+        pool.shutdown(cancel_futures=True)
     ranks = []
     for r in range(W.WORLD):
         with open(os.path.join(tmp, f"serve_{r}.json")) as f:
@@ -193,7 +258,7 @@ def serve_group(tmp: str, stores: dict, case_list: list,
     logits = {n: np.load(os.path.join(tmp, f"logits_{n}.npy"))
               for n in names}
     return {"ranks": ranks, "logits": logits, "ones": ones,
-            "ref_tokens": ref_tokens, "whole": whole}
+            "ref_tokens": ref_tokens, "whole": whole, "extra": more}
 
 
 @pytest.fixture(scope="module")
@@ -353,15 +418,29 @@ def _stand_in(d: int, m: int):
                                  shape=(d, m))
 
 
+class _Coordinated:
+    """A stand-in (2, 2) mesh at rank 0's coordinate, with no process
+    group behind it."""
+    mesh_dim_names = ("data", "model")
+    shape = (2, 2)
+
+    def get_coordinate(self):
+        return [0, 0]
+
+    def __getitem__(self, axis):
+        return types.SimpleNamespace(get_group=lambda: None)
+
+
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium",
                                   "llama-3.2-vision-90b"])
 def test_mesh_refuses_other_families(arch):
-    """The encoder-decoder and vision models are not served under a mesh
-    (ROADMAP A10)."""
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(ValueError, match=r"(encdec|vlm).*A10"):
-        ServeEngine(cfg, params={}, device="cpu", mesh=_stand_in(1, 2),
-                    frontend_kwargs_fn=lambda batch: {})
+    """No family is refused: the encoder-decoder and vision models are
+    served under a mesh too (``test_torch_serve_mesh_cross``), a rank
+    holding its share of the KV heads and of the batch rows."""
+    cfg = port_cfg(arch, {"num_heads": 8, "num_kv_heads": 4})
+    shards = serve_shards(cfg, _Coordinated(), None, 4)
+    assert (shards.kv_heads, shards.rows) == (2, slice(0, 2))
+    assert shards.local_cfg(cfg).num_heads == 4
 
 
 @pytest.mark.parametrize("arch, model, what", [
@@ -386,7 +465,7 @@ def test_mesh_refuses_uneven_kv_heads_fsdp_and_batch():
     with pytest.raises(ValueError, match="max_batch.*A10"):
         ServeEngine(cfg, params={}, device="cpu", max_batch=3,
                     mesh=_stand_in(2, 2))
-    with pytest.raises(ValueError, match="A10"):
+    with pytest.raises(ValueError, match="KV heads.*A10"):
         EncodeEngine(tconfigs.reduced(tconfigs.get_config(
             "seamless-m4t-medium")), params={}, device="cpu",
-            mesh=_stand_in(1, 2))
+            mesh=_stand_in(1, 8))
