@@ -792,22 +792,46 @@ def check_plane_counts() -> tuple:
     return err, checked, timed
 
 
+def _pack_lean(codes: torch.Tensor) -> torch.Tensor:
+    """``ref.pack_cache_codes(codes).movedim(0, 1)`` of uint8 codes (B, S,
+    KH, hd), a plane at a time in uint8: the reference's int32 (P, ...)
+    transients would take 30 GB at S = 131,072."""
+    b, s, kh, hd = codes.shape
+    c = codes.reshape(b, s, kh, hd // 8, 8)
+    planes = torch.empty((b, 7, s, kh, hd // 8), dtype=torch.uint8,
+                         device=codes.device)
+    for p in range(7):
+        acc = torch.zeros((b, s, kh, hd // 8), dtype=torch.uint8,
+                          device=codes.device)
+        for i in range(8):
+            acc |= ((c[..., i] >> p) & 1) << i
+        planes[:, p] = acc
+    return planes
+
+
 def _attention_operands(gen, b, kh, g, hd, s, k_bits, v_bits):
+    """B3's operands: uniform K / V codes (uint8) packed by ``_pack_lean``
+    (held against ``ref.pack_cache_codes`` on the first 64 positions),
+    random rows and query codes."""
     from repro_torch.kernels import ref
     kc = torch.randint(0, 1 << k_bits, (b, s, kh, hd), generator=gen,
-                       device="cuda")
+                       device="cuda", dtype=torch.uint8)
     vc = torch.randint(0, 1 << v_bits, (b, s, kh, hd), generator=gen,
-                       device="cuda")
+                       device="cuda", dtype=torch.uint8)
+    k_planes = _pack_lean(kc)
+    if not torch.equal(k_planes[:, :, :64],
+                       ref.pack_cache_codes(kc[:, :64]).movedim(0, 1)):
+        raise AssertionError("_pack_lean differs from pack_cache_codes")
     return dict(
         qq=torch.randint(0, 128, (b, kh, g, hd), generator=gen,
                          device="cuda", dtype=torch.int32),
         q_z=torch.full((), 41.0, device="cuda"),
         q_scale=torch.full((), 0.004, device="cuda"),
-        k_planes=ref.pack_cache_codes(kc).movedim(0, 1).contiguous(),
+        k_planes=k_planes,
         k_s=torch.rand((b, s), generator=gen, device="cuda") * 0.1 + 0.01,
         k_z=torch.randint(0, 1 << k_bits, (b, s), generator=gen,
                           device="cuda").float(),
-        v_planes=ref.pack_cache_codes(vc).movedim(0, 1).contiguous(),
+        v_planes=_pack_lean(vc),
         v_s=torch.rand((b, s), generator=gen, device="cuda") * 0.1 + 0.01,
         v_z=torch.randint(0, 1 << v_bits, (b, s), generator=gen,
                           device="cuda").float(),
@@ -836,6 +860,8 @@ def _check_attention(a, s, bits, softcap: float = 0.0) -> float:
     args = [a[key] for key in ATT_KEYS]
     pact = torch.full((), float(bits), device="cuda")
     err = 0.0
+    long = pa.plan_of(a["qq"], a["k_planes"])[0] == "long"
+    before = (pa.launches, pa.long_launches)
     for pos, window in _attention_cases(s):
         p = torch.full((), pos, dtype=torch.int32, device="cuda")
         y = pa.decode_attention(*args, p, pact, pact, window=window,
@@ -850,6 +876,11 @@ def _check_attention(a, s, bits, softcap: float = 0.0) -> float:
                 f"decode_attention {shape} S={s} bits={bits} pos={pos} "
                 f"window={window} softcap={softcap}: max |diff| {diff} "
                 "(must be 0)")
+    n = len(_attention_cases(s))
+    got = (pa.launches - before[0], pa.long_launches - before[1])
+    if got != ((0, n) if long else (n, 0)):
+        raise AssertionError(f"decode_attention S={s}: (cluster, long) "
+                             f"launches {got} for {n} calls")
     return err
 
 
@@ -876,18 +907,21 @@ ATT_OTHER_SHAPES = ((4, 4, 8, 64, 1000, (1, 4, 7)),
                     (2, 2, 8, 16, 700, (3,)), (2, 2, 3, 32, 300, (5,)))
 
 
-def _attention_rows(gen, arch, b, kh, g, hd, softcap) -> list:
-    """One served configuration's attention shape at every S in ATT_S:
-    bit for bit at 1-7 live planes and every (pos, window) case, timed at
+def _attention_rows(gen, arch, b, kh, g, hd, softcap, lengths=ATT_S,
+                    bit_set=range(1, 8)) -> list:
+    """One served configuration's attention shape at every S in
+    ``lengths``: bit for bit at every live-plane count of ``bit_set`` and
+    every (pos, window) case, each launch counted on the path its S takes
+    (the cluster kernel, or the long path past ``max_seq_len``), timed at
     the serve's cache bits (full cache, no window) beside its bound and
     SDPA on the dequantized K/V; one row per S."""
     import torch.nn.functional as F
     from repro_torch.kernels import pann_attention as pa
     per_step = _attention_layers(served_config(arch))
     out = []
-    for s in ATT_S:
-        err = 0.0
-        for bits in range(1, 8):
+    for s in lengths:
+        err, t0 = 0.0, time.perf_counter()
+        for bits in bit_set:
             a = _attention_operands(gen, b, kh, g, hd, s, bits, bits)
             err = max(err, _check_attention(a, s, bits, softcap))
             if bits != CACHE_BITS:
@@ -895,28 +929,38 @@ def _attention_rows(gen, arch, b, kh, g, hd, softcap) -> list:
             args = [a[key] for key in ATT_KEYS]
             pact = torch.full((), float(bits), device="cuda")
             p = torch.full((), s - 1, dtype=torch.int32, device="cuda")
-            qf = torch.randn((b, kh * g, 1, hd), generator=gen,
-                             device="cuda")
-            kf = a["kc"].float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
-            vf = a["vc"].float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf),
-                          20)
             live = 2 * bits * s * kh * (hd // 8)
             nbytes = 4 * b * kh * g * hd * 2 + b * live + 4 * 4 * b * s
             b_ms, b_by = bound_ms(nbytes, 4 * b * kh * g * s * hd)
+            path, cluster = pa.plan_of(a["qq"], a["k_planes"])
             row = {
                 "config": arch, "B": b, "KH": kh, "G": g, "hd": hd, "S": s,
                 "softcap": softcap, "planes_live": bits,
-                "per_step": per_step,
-                "cluster": pa.cluster_of(a["qq"], a["k_planes"]),
+                "per_step": per_step, "path": path, "cluster": cluster,
                 "ms": time_ms(lambda: pa.decode_attention(
                     *args, p, pact, pact, softcap=softcap), 20),
                 "plain_ms": time_ms(lambda: pa.decode_attention_plain(
-                    *args, p, softcap=softcap), 3),
-                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+                    *args, p, softcap=softcap), 3 if path == "cluster"
+                    else 2),
+                "bound_ms": b_ms, "bound_by": b_by}
+            # SDPA on the dequantized K / V (8.6 GB each at S = 131,072),
+            # timed once B3's operands are freed
+            kc, vc = a["kc"], a["vc"]
+            del a, args
+            torch.cuda.empty_cache()
+            qf = torch.randn((b, kh * g, 1, hd), generator=gen,
+                             device="cuda")
+            kf = kc.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+            vf = vc.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+            del kc, vc
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qf, kf, vf), 20)
+            del qf, kf, vf
+            torch.cuda.empty_cache()
         # the largest difference over every live-plane count, position and
         # window checked at this S
         row["max_abs_err"] = err
+        row["check_s"] = time.perf_counter() - t0
         out.append(row)
     return out
 
@@ -952,11 +996,103 @@ def _other_attention_checks(gen) -> list:
             a = _attention_operands(gen, b2, kh2, g2, hd2, s, bits, bits)
             err = max(err, _check_attention(a, s, bits))
         checks.append({"B": b2, "KH": kh2, "G": g2, "hd": hd2, "S": s,
-                       "bits": list(bit_set), "cluster": pa.cluster_of(
-                           a["qq"], a["k_planes"]), "max_abs_err": err})
+                       "bits": list(bit_set), "cluster": pa.plan_of(
+                           a["qq"], a["k_planes"])[1], "max_abs_err": err})
         print(f"[kernels] decode_attention check {json.dumps(checks[-1])}",
               flush=True)
     return checks
+
+
+# phase 3, B3's long path (caches past max_seq_len): (config, B, KH, G,
+# hd, softcap, cache lengths): llama3-8b's past its 12,032 cap, at
+# decode_32k and at 131,072; gemma2-9b's (cap 7,168) at its 8,192 context
+# and at decode_32k
+ATT_LONG_SHAPES = (("llama3-8b", BATCH, 8, 4, 128, 0.0,
+                    (12_288, 32_768, 131_072)),
+                   ("gemma2-9b", BATCH, 8, 2, 256, 50.0, (8_192, 32_768)))
+ATT_LONG_BITS = (1, 4, 7)
+
+
+def check_long_attention(gen) -> list:
+    """B3's long path: every ATT_LONG_SHAPES case past ``max_seq_len``,
+    by ``_attention_rows`` at 1, 4 and 7 live planes. One row a (config,
+    S)."""
+    from repro_torch.kernels import pann_attention as pa
+    rows = []
+    for arch, b, kh, g, hd, softcap, lengths in ATT_LONG_SHAPES:
+        if min(lengths) <= pa.max_seq_len(g, hd):
+            raise AssertionError(f"{arch}: {lengths} not past the cap")
+        for r in _attention_rows(gen, arch, b, kh, g, hd, softcap, lengths,
+                                 ATT_LONG_BITS):
+            r.update(chunk=pa.long_chunk(r["S"]), tile=pa.LONG_TILE)
+            rows.append(r)
+            print("[kernels] decode_attention long path " + json.dumps(r),
+                  flush=True)
+    return rows
+
+
+def check_attention_past_caps() -> list:
+    """B3's long path just past the cap of every served shape
+    (ATT_SERVE_SHAPES and MESH_ATT_SHAPES at S = ``max_seq_len`` + 1, 4
+    live planes, every (pos, window) case), bit for bit: each (G, hd) is
+    an instantiation of its own. Operands from a generator of their own.
+    One check a shape."""
+    from repro_torch.kernels import pann_attention as pa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    checks = []
+    for arch, b, kh, g, hd, softcap in ATT_SERVE_SHAPES + MESH_ATT_SHAPES:
+        s = pa.max_seq_len(g, hd) + 1
+        t0 = time.perf_counter()
+        a = _attention_operands(gen, b, kh, g, hd, s, CACHE_BITS, CACHE_BITS)
+        err = _check_attention(a, s, CACHE_BITS, softcap)
+        del a
+        torch.cuda.empty_cache()
+        checks.append({"config": arch, "B": b, "KH": kh, "G": g, "hd": hd,
+                       "S": s, "softcap": softcap, "bits": CACHE_BITS,
+                       "cases": len(_attention_cases(s)), "max_abs_err": err,
+                       "check_s": time.perf_counter() - t0})
+        print("[kernels] decode_attention long path past the cap "
+              + json.dumps(checks[-1]), flush=True)
+    return checks
+
+
+def time_long_below_cap() -> list:
+    """Why B3 keeps two kernels: at every served shape's ATT_S rows (4
+    planes, full cache) the long path, forced (``path="long"``) and held
+    bit for bit to the plain version, timed beside the cluster kernel the
+    wrapper launches there. One row a (shape, S)."""
+    from repro_torch.kernels import pann_attention as pa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = []
+    for arch, b, kh, g, hd, softcap in ATT_SERVE_SHAPES + MESH_ATT_SHAPES:
+        for s in ATT_S:
+            a = _attention_operands(gen, b, kh, g, hd, s, CACHE_BITS,
+                                    CACHE_BITS)
+            args = [a[key] for key in ATT_KEYS]
+            pact = torch.full((), float(CACHE_BITS), device="cuda")
+            p = torch.full((), s - 1, dtype=torch.int32, device="cuda")
+            y = pa.decode_attention(*args, p, pact, pact, softcap=softcap,
+                                    path="long")
+            if not torch.equal(y, pa.decode_attention_plain(
+                    *args, p, softcap=softcap)):
+                raise AssertionError(f"decode_attention (long path) {arch} "
+                                     f"S={s}: not bit for bit")
+            row = {"config": arch, "B": b, "KH": kh, "G": g, "hd": hd,
+                   "S": s, "cluster": pa.plan_of(a["qq"], a["k_planes"])[1],
+                   "cluster_ms": time_ms(lambda: pa.decode_attention(
+                       *args, p, pact, pact, softcap=softcap), 20),
+                   "long_ms": time_ms(lambda: pa.decode_attention(
+                       *args, p, pact, pact, softcap=softcap, path="long"),
+                       20)}
+            row["long_over_cluster"] = row["long_ms"] / row["cluster_ms"]
+            rows.append(row)
+            print("[kernels] decode_attention below the cap, long path "
+                  "forced " + json.dumps(row), flush=True)
+            del a, args
+            torch.cuda.empty_cache()
+    return rows
 
 
 VARIANTS = ("qwen1.5-4b", "gemma2-9b", "stablelm-12b")
@@ -1316,6 +1452,7 @@ def _requests(cfg, seed, n=REQUESTS):
 COUNTERS = (("pann_matmul_act", "pann_matmul", "launches"),
             ("pann_matmul_packed_act", "pann_matmul_packed", "launches"),
             ("decode_attention", "pann_attention", "launches"),
+            ("decode_attention_long", "pann_attention", "long_launches"),
             ("pann_matmul", "pann_matmul", "pann_matmul_launches"),
             ("pann_matmul_packed", "pann_matmul_packed",
              "pann_matmul_packed_launches"),
@@ -1736,6 +1873,170 @@ def full_width_serve(arch: str = "llama3-8b", seed: int = 0,
         out["frontend"]["encoder_layers"] = cfg.encoder_layers
         out["frontend"]["input_shape"] = list(frontend.made[0].shape)
     del engine, frontend
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 4g: long-context decode. gemma2-9b at full width, one local and
+# one global layer (VARIANT_LAYERS), serving its 8,192-token context
+# (Gemma 2, arXiv:2408.00118): the global layer's 8,192-row cache is past
+# B3's cap (7,168 at G = 2, hd = 256), so its attention takes the long
+# path; the local layer's ring of 4,096 rows wraps once
+LONG_ARCH = "gemma2-9b"
+LONG_MAX_LEN = 8_192
+LONG_GEN = 32
+LONG_PROMPT = LONG_MAX_LEN - LONG_GEN
+LONG_REQUESTS = 4
+LONG_TIMED_STEPS = 64      # the last steps, timed on the host clock
+
+
+def long_context_serve(seed: int = 4) -> dict:
+    """Phase 4g: LONG_REQUESTS requests of LONG_PROMPT tokens and LONG_GEN
+    generated ones, one wave at batch BATCH, through graphs on 'packed'
+    with the 4-bit cache at max_len LONG_MAX_LEN. Checks: graphed steps,
+    nothing captured after warmup, no launch outside a replay, the slot's
+    cache rows (the local ring 4,096, the global layer 8,192), and the
+    last step (at position 8,190) run once more on 'ref' from a copy of
+    the state it started from: logits bit for bit. Reports the host ms a
+    step over the last LONG_TIMED_STEPS steps and B3's device ms at the
+    last step's operands (the long path on the global cache, the cluster
+    kernel on the local ring)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import pann_attention as pa
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+    from repro_torch.serve_engine import Request, ServeEngine
+    cfg = served_config(LONG_ARCH, quant=QuantConfig(mode="none"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, _init_params(cfg, seed), ladder_bits=LADDER,
+                         max_batch=BATCH, max_len=LONG_MAX_LEN,
+                         backend="packed", cache_bits=CACHE_BITS,
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not engine.graphed:
+        raise AssertionError("phase 4g: the engine does not run graphs")
+    specs = MD.layer_specs(engine.cfg)
+    g = cfg.num_heads // cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    rows = [T.cache_rows(sp, LONG_MAX_LEN) for sp in specs]
+    long_layers = sum(r > pa.max_seq_len(g, hd) for r in rows)
+    per_step = _graph_launches(cfg)
+    per_step["decode_attention"] -= long_layers
+    per_step["decode_attention_long"] = long_layers
+    if long_layers != 1:
+        raise AssertionError(f"phase 4g: cache rows {rows}, want one layer "
+                             f"past B3's cap {pa.max_seq_len(g, hd)}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_capture_counts(engine, counts, per_step)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               LONG_PROMPT).astype(np.int32),
+                    max_new_tokens=LONG_GEN, power_budget_bits=LADDER[1])
+            for i in range(LONG_REQUESTS)]
+    n_steps = LONG_PROMPT + LONG_GEN - 1
+    run, seen, rec = engine._run_step, [0], {}
+
+    def step(bits, slot):
+        i = seen[0]
+        seen[0] += 1
+        if i == n_steps - LONG_TIMED_STEPS:
+            torch.cuda.synchronize()
+            rec["t0"] = time.perf_counter()
+        if i != n_steps - 1:
+            return run(bits, slot)
+        torch.cuda.synchronize()
+        rec["t1"] = time.perf_counter()
+        rec.update(bits=bits, state=_clone(slot.state),
+                   tok=slot.tok.clone())
+        logits = run(bits, slot)
+        rec["logits"] = logits.clone()
+        rec["rows"] = [(c.k_s.shape[1], int(c.length)) for c in
+                       slot.state.caches]
+        return logits
+
+    engine._run_step = step
+    t0 = time.perf_counter()
+    try:
+        responses = engine.generate(reqs)
+        torch.cuda.synchronize()
+    finally:
+        del engine._run_step
+    wall = time.perf_counter() - t0
+    engine.assert_no_recompile()
+    if _counts() != counts:
+        raise AssertionError(f"a wrapper launched while serving: {counts} "
+                             f"-> {_counts()}: a step ran outside a graph")
+    if seen[0] != n_steps:
+        raise AssertionError(f"phase 4g: {seen[0]} steps, want {n_steps}")
+    if rec["rows"] != [(r, n_steps) for r in rows] or rows != [
+            4096 if sp.window else LONG_MAX_LEN for sp in specs]:
+        raise AssertionError(f"phase 4g: cache (rows, length) "
+                             f"{rec['rows']}, want rows {rows}")
+    for r in responses:
+        if len(r.tokens) != LONG_GEN or not all(0 <= t < cfg.vocab_size
+                                                for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
+    # the last step once more on 'ref' (the plain versions) from its state
+    ref_cfg = dataclasses.replace(engine.cfg, kernel_backend="ref")
+    ref_logits, _ = MD.decode_step(engine.variants[rec["bits"]], ref_cfg,
+                                   rec["state"], rec["tok"])
+    if not torch.isfinite(rec["logits"]).all():
+        raise AssertionError("phase 4g: the last step's logits not finite")
+    if not torch.equal(ref_logits, rec["logits"]):
+        d = (ref_logits - rec["logits"]).abs().max().item()
+        raise AssertionError(f"phase 4g: 'ref' logits differ from 'packed' "
+                             f"by {d} at the last step")
+    del ref_logits
+    # B3 at the last step's operands: the long path on the global cache,
+    # the cluster kernel on the local ring
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qq = torch.randint(0, 128, (BATCH, cfg.num_kv_heads, g, hd),
+                       generator=gen, device="cuda", dtype=torch.int32)
+    q_z = torch.full((), 41.0, device="cuda")
+    q_scale = torch.full((), 0.004, device="cuda")
+    pact = torch.full((), float(CACHE_BITS), device="cuda")
+    pos = torch.full((), n_steps - 1, dtype=torch.int32, device="cuda")
+    b3 = {}
+    for sp, cache in zip(specs, rec["state"].caches):
+        args = (qq, q_z, q_scale, cache.k_planes, cache.k_s, cache.k_z,
+                cache.v_planes, cache.v_s, cache.v_z, pos, pact, pact)
+        key = "local ring" if sp.window else "global"
+        path = pa.plan_of(qq, cache.k_planes)
+        b3[key] = {"rows": cache.k_s.shape[1], "path": path[0],
+                   "cluster": path[1], "device_ms": time_ms(
+                       lambda: pa.decode_attention(
+                           *args, softcap=cfg.attn_softcap), 10)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_ms = (rec["t1"] - rec["t0"]) / (LONG_TIMED_STEPS - 1) * 1e3
+    out = {"config": f"{LONG_ARCH} full width, {cfg.num_layers} layers (one "
+                     f"local, one global), random weights seed {seed}",
+           "backend": "packed", "cache_bits": CACHE_BITS,
+           "max_batch": BATCH, "max_len": LONG_MAX_LEN,
+           "prompt": LONG_PROMPT, "gen": LONG_GEN,
+           "requests": LONG_REQUESTS, "graphed": engine.graphed,
+           "store_build_s": build_s, "warmup_s": warmup_s,
+           "generate_s": wall, "decode_steps": n_steps,
+           "compilations_after_warmup": engine.compilations_after_warmup,
+           "cache_rows": engine.describe()["cache_rows"],
+           "launches": counts, "launches_per_captured_step": per_step,
+           "host_ms_per_step_last": host_ms,
+           "host_ms_per_step_is": f"the last {LONG_TIMED_STEPS - 1} steps "
+                                  f"(positions {n_steps - LONG_TIMED_STEPS}"
+                                  f"..{n_steps - 2}), both ends synchronised",
+           "mean_ms_per_step": wall / n_steps * 1e3,
+           "b3_last_step": b3,
+           "last_step_ref_logits_bit_identical": True,
+           "peak_mem_gb": peak_gb,
+           "tokens": {r.uid: r.tokens for r in responses}}
+    del engine, rec
     torch.cuda.empty_cache()
     return out
 
@@ -4910,13 +5211,15 @@ def _mesh_arch(arch: str, rank: int) -> dict:
 
 
 def _clone(tree):
-    """A copy of a params subtree: the store build pops each weight out
-    of the tree it is handed."""
+    """A device copy of a params subtree (the store build pops each weight
+    out of the tree it is handed) or of a decode state (NamedTuples)."""
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree if tree is None else tree.clone()
 
 
 def _mesh_encode(cfg, frontend_params: dict, rank: int) -> dict:
@@ -5443,6 +5746,9 @@ def main() -> int:
           f"{plane_err}", flush=True)
     att_by_config, att_checks = timed("attention", check_attention, gen)
     att_rows = att_by_config["llama3-8b"]
+    att_long = timed("attention_long", check_long_attention, gen)
+    att_caps = timed("attention_past_caps", check_attention_past_caps)
+    att_fork = timed("attention_long_below_cap", time_long_below_cap)
     variant_mm = timed("variant_matmuls", check_variant_matmuls)
     ragged = timed("ragged_dispatch", check_ragged_dispatch)
     print("[kernels] serving_linear at a ragged N (C8): " + json.dumps(
@@ -5580,6 +5886,19 @@ def main() -> int:
               + f"; wave-start frontend {fe['b2_launches_per_wave']} B2, ms "
               + json.dumps([round(x, 3) for x in fe["ms"]]), flush=True)
     mark("4f")
+
+    # phase 4g: long-context decode, gemma2-9b's 8,192-token context
+    long_ctx = long_context_serve()
+    print("[long] " + json.dumps({k: v for k, v in long_ctx.items()
+                                  if k != "tokens"}), flush=True)
+    print(f"[long] {LONG_ARCH} at S = {LONG_MAX_LEN}: "
+          f"{long_ctx['host_ms_per_step_last']:.3f} host ms a step over the "
+          f"last steps; B3 long path "
+          f"{long_ctx['b3_last_step']['global']['device_ms']:.4f} device ms "
+          f"a step (the local ring's cluster kernel "
+          f"{long_ctx['b3_last_step']['local ring']['device_ms']:.4f})",
+          flush=True)
+    mark("4g")
 
     # phase 5: backends agree, and the v1 artifact round trip, on each
     # served config cut to 2 layers, mixtral to 1, zamba2 to 8, seamless
@@ -6120,6 +6439,28 @@ def main() -> int:
                    if n["launches"].get(e["name"])}
         if by_case:
             e["launches_13a_by_case"] = by_case
+    # B3's long path: its launches in phase 4g's serve (the global layer a
+    # step), timed at phase 3's gemma2-9b operands at S = 8,192, the 4g
+    # step's shape, with every long row beside it
+    long_rows = [dict(r, per_step=int(r["config"] == LONG_ARCH
+                                      and r["S"] == LONG_MAX_LEN))
+                 for r in att_long]
+    e = _kernel_entry(
+        "decode_attention_long", "src/repro_torch/csrc/pann_attention.cu",
+        "src/repro/kernels/pann_attention.py:188", long_rows,
+        long_ctx["launches"]["decode_attention_long"], "per_step",
+        max(r["max_abs_err"] for r in att_long + att_caps),
+        "one call at phase 4g's step shape (gemma2-9b, S = 8,192, 4 planes, "
+        "full cache), cold L2")
+    e["row"] = "B3·long"
+    e["launches_are"] = ("the wrapper's count while phase 4g's warmup "
+                         "captured the decode graphs")
+    e["step_ms_4g"] = long_ctx["b3_last_step"]["global"]["device_ms"]
+    e["past_caps_checked"] = [[c["config"], c["G"], c["hd"], c["S"]]
+                              for c in att_caps]
+    e["below_cap_long_over_cluster"] = [
+        [r["config"], r["S"], r["long_over_cluster"]] for r in att_fork]
+    kernels.append(e)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on its path")
@@ -6128,6 +6469,9 @@ def main() -> int:
               "build_s": build.build_seconds, "sass": sass,
               "kernels": kernels,
               "serve": serve, "layerwise": layerwise, "variants": variants,
+              "attention_long": att_long, "long_context": long_ctx,
+              "attention_past_caps": att_caps,
+              "attention_long_below_cap": att_fork,
               "variant_matmuls": variant_mm, "attention": att_by_config,
               "backends": agree, "backends_variants": agree_variants,
               "unfused": unfused,

@@ -231,7 +231,9 @@ def slot_specs(tree: Any, mesh) -> Any:
     every head's softmax, and the attention kernel's reduction over S
     would run in another float order on each rank, so a step would no
     longer equal one rank's bit for bit. With whole heads on each rank the
-    kernel runs as it does on one rank, on fewer heads."""
+    kernel runs as it does on one rank, on fewer heads. A windowed layer's
+    ring (``models.attention.is_ring``) is laid out as a full cache is:
+    its rows stay whole on every rank."""
 
     def rule(path, leaf):
         shape = tuple(leaf.shape)

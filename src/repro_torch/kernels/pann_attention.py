@@ -16,8 +16,19 @@ int8 tensor cores, and the blocks exchange their softmax maxima, fp64
 partial sums, largest V scale and int32 PV partials through distributed
 shared memory. ``q_z``, ``q_scale``, ``k_pact`` and ``v_pact`` reach the
 kernel as device pointers and are clamped and rounded there, so the
-wrapper launches no kernel of its own. Shared memory bounds S:
-``max_seq_len`` (12,032 at G = 4, hd = 128 and 7 cache planes).
+wrapper launches no kernel of its own. Shared memory bounds the cluster
+kernel's S: ``max_seq_len`` (12,032 at G = 4, hd = 128 and 7 cache
+planes).
+
+Past that cap the wrapper launches the long path instead (the same
+source's ``decode_attention_long_kernel``, counted in ``long_launches``):
+clusters of ``LONG_CLUSTER`` blocks a (batch, kv head) walk their chunks
+of whole ``LONG_TILE``-row tiles in three passes (scores into a (B, KH,
+G, S) fp32 scratch with the maxima; the exps and fp64 partial sums; the
+probability codes and the int32 PV a tile at a time), exchanging the
+same maxima, sums, V scale and partials through distributed shared
+memory, so it gives the plain version's bits at any S. Only the int32 PV
+bounds it: ``max_long_seq_len`` (33,785,872 positions).
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ from repro_torch.kernels import ref as _ref
 Tensor = torch.Tensor
 
 launches = 0     # kernel launches since the caller last reset it
+long_launches = 0   # long-path launches since the caller last reset it
 
 decode_attention_plain = _ref.decode_attention_ref
 
@@ -46,6 +58,8 @@ MIN_CHUNK = 64          # positions a block is worth a cluster rank for
 ROW_PAD = 32
 MAX_GROUP = 8
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+LONG_CLUSTER = 8        # blocks a (batch, kv head) on the long path
+LONG_TILE = 256         # cached rows a long-path block holds at once
 
 
 def _chunk_pad(s: int, c: int) -> int:
@@ -67,6 +81,33 @@ def max_seq_len(group: int, head_dim: int,
     largest cluster) must fit DYN_SMEM_BYTES."""
     per_row = n_planes * max(head_dim // 8, 4) + 6 * group + 8
     return CLUSTERS[-1] * (DYN_SMEM_BYTES // per_row // ROW_PAD * ROW_PAD)
+
+
+def max_long_seq_len() -> int:
+    """Largest S the long path takes: an output's int32 PV sum is at most
+    127 * sum(pq) <= 127 * (2^14 + S / 2) (each probability code rounds up
+    by at most half), which must stay below 2^31."""
+    return 2 * ((2 ** 31 - 1) // 127 - int(_ref.PROB_SCALE))
+
+
+def long_chunk(s: int) -> int:
+    """Positions a long-path block walks: S / LONG_CLUSTER rounded up to
+    whole tiles, so every tile lies in one block."""
+    chunk = -(-s // LONG_CLUSTER)
+    return -(-chunk // LONG_TILE) * LONG_TILE
+
+
+def launch_plan(s: int, heads: int, group: int, head_dim: int,
+                n_planes: int, max_clusters) -> tuple[str, int]:
+    """("cluster", C) from ``cluster_size`` up to ``max_seq_len``, else
+    ("long", LONG_CLUSTER); raises past ``max_long_seq_len``."""
+    if s <= max_seq_len(group, head_dim, n_planes):
+        return "cluster", cluster_size(s, heads, group, head_dim, n_planes,
+                                       max_clusters)
+    if s > max_long_seq_len():
+        raise ValueError(f"cache length {s} exceeds the int32 PV bound "
+                         f"{max_long_seq_len()}")
+    return "long", LONG_CLUSTER
 
 
 def cluster_size(s: int, heads: int, group: int, head_dim: int,
@@ -106,12 +147,12 @@ def _max_clusters(index: int, n_planes: int, s: int, kh: int, group: int,
     return active.value
 
 
-def cluster_of(qq: Tensor, k_planes: Tensor) -> int:
-    """The cluster size ``decode_attention`` launches for these operands
-    (CUDA tensors)."""
+def plan_of(qq: Tensor, k_planes: Tensor) -> tuple[str, int]:
+    """The path and cluster size ``decode_attention`` launches for these
+    operands (CUDA tensors)."""
     b, kh, g, hd = qq.shape
     n_planes, s = k_planes.shape[1:3]
-    return cluster_size(
+    return launch_plan(
         s, b * kh, g, hd, n_planes,
         lambda c: _max_clusters(qq.device.index, n_planes, s, kh, g, hd, c))
 
@@ -122,11 +163,17 @@ def _launcher():
                        + (ctypes.c_float, build.P))
 
 
+def _long_launcher():
+    return build.entry("pann_attention", "decode_attention_long_launch",
+                       (build.P,) * 14 + (build.I,) * 8
+                       + (ctypes.c_float, build.P))
+
+
 def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
                      k_planes: Tensor, k_s: Tensor, k_z: Tensor,
                      v_planes: Tensor, v_s: Tensor, v_z: Tensor,
                      pos: Tensor, k_pact=None, v_pact=None, *, window=None,
-                     softcap: float = 0.0) -> Tensor:
+                     softcap: float = 0.0, path=None) -> Tensor:
     """Argument shapes as ``kernels.ref.decode_attention_ref``; ``pos`` is
     a 0-dim int32 (the caches share one length across the batch), and
     ``k_pact``/``v_pact`` are 0-dim counts of LIVE low planes (None = all),
@@ -135,8 +182,12 @@ def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
     On the card ``q_z``, ``q_scale`` and the counts must be 1-element
     float32 tensors (the kernel reads them through their pointers), and
     ``qq`` must hold codes in [0, 255] (the serving path's are in
-    [0, 127]): the kernel multiplies them as bytes. Returns (B, K, G, hd)
-    fp32."""
+    [0, 127]): the kernel multiplies them as bytes. ``path="long"``
+    launches the long path at any S (``chip_smoke.py`` times it below the
+    cap beside the cluster kernel); None takes ``plan_of``'s. Returns (B,
+    K, G, hd) fp32."""
+    if path not in (None, "long"):
+        raise ValueError(f"path {path!r} is not None or 'long'")
     if qq.device.type == "cpu":
         return decode_attention_plain(qq, q_z, q_scale, k_planes, k_s, k_z,
                                       v_planes, v_s, v_z, pos, window=window,
@@ -172,15 +223,26 @@ def decode_attention(qq: Tensor, q_z: Tensor, q_scale: Tensor,
                          f"float32 tensors on {qq.device}")
     if k_planes.data_ptr() % 16 or v_planes.data_ptr() % 16:
         raise ValueError("cache planes must be 16-byte aligned")
-    c = cluster_of(qq, k_planes)
+    plan = plan_of(qq, k_planes)
+    path, c = plan if path is None else ("long", LONG_CLUSTER)
     out = torch.empty((b, kh, g, hd), dtype=torch.float32, device=qq.device)
     ptrs = [build.ptr(t) for t in (qq, q_z, q_scale, k_pact, v_pact, pos,
                                    k_planes, k_s, k_z, v_planes, v_s, v_z,
                                    out)]
-    err = _launcher()(*ptrs, b, n_planes, s, kh, g, hd, c,
-                      -1 if window is None else int(window), float(softcap),
-                      build.stream_of(qq))
+    win = -1 if window is None else int(window)
+    global launches, long_launches
+    if path == "long":
+        # the scores, then their exps, of every position: (B, KH, G, S)
+        scratch = torch.empty((b, kh, g, s), dtype=torch.float32,
+                              device=qq.device)
+        err = _long_launcher()(*ptrs, build.ptr(scratch), b, n_planes, s,
+                               kh, g, hd, long_chunk(s), win, float(softcap),
+                               build.stream_of(qq))
+        build.check(err, "decode_attention (long path)")
+        long_launches += 1
+        return out
+    err = _launcher()(*ptrs, b, n_planes, s, kh, g, hd, c, win,
+                      float(softcap), build.stream_of(qq))
     build.check(err, "decode_attention")
-    global launches
     launches += 1
     return out

@@ -318,12 +318,11 @@ def decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, par,
         b = b // shards.data
     kwargs = {k: v for k, v in input_specs(cfg, shape).items()
               if k in ("enc_inputs", "image_embeds")}
-    # a config windowed in every layer (mixtral) caches min(seq, window)
-    # positions, as the reference sizes its caches; the port refuses a
-    # cache longer than the window (ROADMAP C2)
-    max_len = min(shape.seq_len, cfg.sliding_window or shape.seq_len)
+    # the cell's context: a windowed layer caches its ring of min(seq,
+    # window) rows, as the reference sizes its caches, a global layer seq
     with local_ops.use_shards(shards):      # the rank's heads
-        state = MD.init_decode_state(params, step_cfg, b, max_len, **kwargs)
+        state = MD.init_decode_state(params, step_cfg, b, shape.seq_len,
+                                     **kwargs)
     tokens = torch.empty((shape.global_batch, 1), dtype=torch.int64,
                          device="meta")
 

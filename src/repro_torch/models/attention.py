@@ -12,6 +12,20 @@ and read by ``kernels.dispatch.decode_attention``. Unlike the JAX
 package, whose arrays are immutable, the port writes each new token into
 the cache IN PLACE (``index_copy_`` at the device-resident position), so a
 decode step allocates no new cache; a cache belongs to one decode state.
+
+A windowed layer's cache of at most ``window`` rows is a ring
+(``is_ring``): position ``pos`` is written at row ``pos mod rows``,
+computed on the device from ``length``, and attention reads every row
+written so far with no window mask, since the ring holds exactly the
+window's last positions. Both attention products, the softmax maximum and
+the V scale are independent of row order, and the fp64 softmax
+denominator is rounded once, so a ring's quantized decode equals a
+decode over a cache of every position masked to the window bit for bit.
+The reference sizes the cache the same (``min(max_len, window)`` rows)
+but writes at the absolute position, which drops every token from
+position ``window`` on (ROADMAP C2); its decode over a cache of
+``max_len`` rows is the function the ring is held against. RoPE stays at
+the absolute position.
 """
 from __future__ import annotations
 
@@ -242,6 +256,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def is_ring(rows: int, window: Optional[int]) -> bool:
+    """A windowed layer's cache of at most ``window`` rows is a ring."""
+    return window is not None and rows <= window
+
+
+def _cache_row(pos: Tensor, rows: int, ring: bool) -> Tensor:
+    """The (1,) int64 row position ``pos`` is written at: ``pos mod rows``
+    in a ring (on the device, no host sync), else ``pos``."""
+    idx = pos.reshape(1).to(torch.int64)
+    return torch.remainder(idx, rows) if ring else idx
+
+
 def _write_pos(buf: Tensor, idx: Tensor, new: Tensor) -> None:
     """buf[:, idx] = new cast to buf's dtype, in place; a 1-byte (float8)
     cache through its bytes, as index_copy_ has no float8 kernel."""
@@ -270,18 +296,19 @@ def decode_attend(x: Tensor, cache, p: dict, cfg: ModelConfig, *,
     if isinstance(cache, QuantKVCache):
         return _decode_attend_quant(x, cache, p, cfg, q, k_new, v_new,
                                     window=window)
-    idx = pos.reshape(1).to(torch.int64)
+    s_max = cache.k.shape[1]
+    ring = is_ring(s_max, window)
+    idx = _cache_row(pos, s_max, ring)
     _write_pos(cache.k, idx, k_new)
     _write_pos(cache.v, idx, v_new)
-    s_max = cache.k.shape[1]
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, hd) * hd ** -0.5
     scores = torch.einsum("btkgh,bskh->btkgs", qg, cache.k.to(qg.dtype))
     if cfg.attn_softcap > 0:
         scores = L.softcap(scores, cfg.attn_softcap)
     k_pos = torch.arange(s_max, device=x.device)
-    valid = k_pos <= pos
-    if window is not None:
+    valid = k_pos <= pos            # a ring: every row once it wraps
+    if window is not None and not ring:
         valid &= (pos - k_pos) < window
     scores = torch.where(valid, scores, torch.full((), NEG_INF,
                                                    device=x.device))
@@ -326,15 +353,15 @@ def _mesh_cache_ranges(shards, k_new: Tensor, v_new: Tensor) -> tuple:
 
 
 def _cache_write(planes: Tensor, s_row: Tensor, z_row: Tensor, new: Tensor,
-                 s: Tensor, z: Tensor, n_lvl, pos: Tensor):
+                 s: Tensor, z: Tensor, n_lvl, row: Tensor):
     """Encode one token and write its packed planes and quantizer row at
-    ``pos``, in place."""
+    cache row ``row`` (a ring's ``_cache_row``), in place."""
     codes = quant.affine_encode(new.to(torch.float32),
                                 s[:, None, None, None],
                                 z[:, None, None, None], n_lvl)
     codes = codes[:, 0].to(torch.int32)                     # (B, K, hd)
     tok = KREF.pack_cache_codes(codes).movedim(0, 1)        # (B, P, K, d8)
-    idx = pos.reshape(1).to(torch.int64)
+    idx = row.reshape(1).to(torch.int64)
     planes.index_copy_(2, idx, tok[:, :, None])
     s_row.index_copy_(1, idx, s[:, None].contiguous())
     z_row.index_copy_(1, idx, z[:, None].contiguous())
@@ -347,7 +374,8 @@ def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
     """Write this token's K/V at the rung's cache bits, then attend through
     the packed planes (``kernels.dispatch.decode_attention``). Cache bits
     come from the rung's ``kv_cache`` device leaves (``k_nlvl``/``v_nlvl``),
-    else from the static ``cfg.cache_bits``."""
+    else from the static ``cfg.cache_bits``. A ring attends with no window:
+    the kernel reads rows [0, min(pos, rows - 1)]."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = cache.length
@@ -368,13 +396,16 @@ def _decode_attend_quant(x: Tensor, cache: QuantKVCache, p: dict,
         k_rng, v_rng = _mesh_cache_ranges(shards, k_new, v_new)
     ks, kz = _cache_rows(k_new, kc.get("k_s"), kc.get("k_z"), k_nlvl, k_rng)
     vs, vz = _cache_rows(v_new, kc.get("v_s"), kc.get("v_z"), v_nlvl, v_rng)
+    ring = is_ring(cache.k_s.shape[1], window)
+    idx = _cache_row(pos, cache.k_s.shape[1], ring)
     _cache_write(cache.k_planes, cache.k_s, cache.k_z, k_new, ks, kz,
-                 k_nlvl, pos)
+                 k_nlvl, idx)
     _cache_write(cache.v_planes, cache.v_s, cache.v_z, v_new, vs, vz,
-                 v_nlvl, pos)
+                 v_nlvl, idx)
     out = KD.decode_attention(q.reshape(b, cfg.num_heads, hd), cache,
                               cfg.kernel_backend or "ref",
-                              num_kv_heads=cfg.num_kv_heads, window=window,
+                              num_kv_heads=cfg.num_kv_heads,
+                              window=None if ring else window,
                               softcap=cfg.attn_softcap,
                               k_nlvl=k_nlvl, v_nlvl=v_nlvl)
     y = L.project(out.to(x.dtype).reshape(b, 1, -1), p["wo"], cfg, "attn.wo")

@@ -125,12 +125,13 @@ def init_shared_attn(gen: torch.Generator, cfg: ModelConfig,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device) -> Any:
-    """The layer's decode state: an attention layer's cache of ``max_len``
-    positions, a mamba layer's ``SSMState`` (a mamba_attn layer's paired
-    with the shared block's cache), an rwkv layer's ``RWKVState``. A
-    windowed layer whose window is shorter than ``max_len`` is refused: the
-    reference sizes its cache at the window and drops the writes past it,
-    and a ring buffer is not ported yet (ROADMAP C2)."""
+    """The layer's decode state: an attention layer's cache, a mamba
+    layer's ``SSMState`` (a mamba_attn layer's paired with the shared
+    block's cache of ``max_len`` positions), an rwkv layer's
+    ``RWKVState``. A windowed layer's cache holds ``min(max_len, window)``
+    rows, the size the reference allocates, and is a ring at any
+    ``max_len`` (``models.attention.is_ring``); an unwindowed layer's
+    holds ``max_len``."""
     _check_kind(spec)
     if spec.kind in ("mamba", "mamba_attn"):
         ssm = S.init_ssm_state(cfg, batch, dtype, device)
@@ -139,13 +140,13 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
         return ssm
     if spec.kind == "rwkv":
         return R.init_rwkv_state(cfg, batch, dtype, device)
-    if spec.window and spec.window < max_len:
-        raise ValueError(
-            f"windowed layer: window {spec.window} < max_len {max_len}; a "
-            f"cache of {spec.window} rows would be written past its end at "
-            f"position {spec.window} (ROADMAP C2: windowed caches past the "
-            "window are not ported)")
-    return A.init_cache(cfg, batch, max_len, dtype, device)
+    return A.init_cache(cfg, batch, cache_rows(spec, max_len), dtype, device)
+
+
+def cache_rows(spec: LayerSpec, max_len: int) -> int:
+    """Rows of an attention layer's cache: a windowed layer's ring keeps
+    the last ``window`` positions."""
+    return min(max_len, spec.window) if spec.window else max_len
 
 
 def _residual(x: Tensor, delta: Tensor, p: dict, cfg: ModelConfig,

@@ -70,6 +70,7 @@ from repro_torch.models import model as MD
 from repro_torch.models import rwkv as R
 from repro_torch.models import serving
 from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 from repro_torch.serve_engine.ladder import build_ladder, select_rung
 from repro_torch.serve_engine.scheduler import (Request, Response, Scheduler,
                                                 Wave)
@@ -807,6 +808,19 @@ class ServeEngine:
 
     # -- reporting ----------------------------------------------------------
 
+    def cache_rows(self) -> dict:
+        """Rows of each attention layer kind's KV cache in a slot: a
+        windowed layer's ring keeps min(max_len, window), the others
+        max_len (zamba2's shared block at its mamba_attn layers)."""
+        rows = {}
+        for spec in MD.layer_specs(self.cfg):
+            if spec.kind in ("mamba", "rwkv"):
+                continue
+            kind = spec.kind + (f" (window {spec.window})" if spec.window
+                                else "")
+            rows[kind] = T.cache_rows(spec, self.max_len)
+        return rows
+
     def describe(self) -> dict:
         total_macs = sum(m.macs for m in self.profile)
         mesh = None
@@ -837,6 +851,7 @@ class ServeEngine:
                        for op in self.ladder],
             "max_batch": self.max_batch,
             "max_len": self.max_len,
+            "cache_rows": self.cache_rows(),
             "compilations_after_warmup": self.compilations_after_warmup,
             "steps_by_rung": dict(self.steps_by_rung),
             "rung_switches": self.rung_switches,

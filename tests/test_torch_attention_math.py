@@ -21,15 +21,22 @@ card):
   probability codes split into low 7 bits (A rows g) and high bits (rows
   8 + g), the sums over warps and ranks, garbage in the shared-memory
   rows outside the mask adding nothing;
-- the in-kernel clamp and round of the live-plane counts.
+- the in-kernel clamp and round of the live-plane counts;
+- the long path (caches past ``max_seq_len``): LONG_CLUSTER blocks a head
+  over chunks of whole LONG_TILE-row tiles, scores and their exps through
+  the global scratch, the three passes with the same exchanges, the V
+  rows and probability codes a tile at a time with the PV accumulators
+  carried across tiles, and the wrapper's choice between the two paths.
 
 The emulation is held bit for bit against the plain version
 ``kernels.ref.decode_attention_ref`` (torch, CPU) for clusters of 1-8
 blocks, 1-7 live planes, G in {1, 4, 8}, hd in {16, 128, 160, 256}, the
-first,
-middle and last position, windows that mask whole chunks, and softcap 0
-and > 0. The transcendental steps (``expf``, ``tanhf``) are taken from
-torch on the CPU, as the plain version takes them: the card's own
+first, middle and last position, windows that mask whole chunks, and
+softcap 0 and > 0; the long path at (1, 1, 4, 128), S = 12,288 and (1,
+1, 2, 256), S = 7,200 with ragged positions, windows that mask whole
+tiles and blocks, softcap and 1, 4 and 7 live planes. The
+transcendental steps (``expf``, ``tanhf``) are taken from torch on the
+CPU, as the plain version takes them: the card's own
 ``expf``/``tanhf`` are held against the plain version on the card by
 ``chip_smoke.py``. Tolerance: bit-identical (0).
 """
@@ -353,6 +360,98 @@ def emulate(a: dict, pos: int, window, softcap: float, c: int,
     return out
 
 
+def emulate_long(a: dict, pos: int, window, softcap: float, k_pact=None,
+                 v_pact=None, seed: int = 0) -> np.ndarray:
+    """The long-path kernel's output (B, KH, G, hd): LONG_CLUSTER blocks
+    over chunks of whole tiles, pass 1's scores (the cluster kernel's QK^T
+    steps from the block's first valid row) and maxima, pass 2's fp64
+    partial sums (warp (g, part) lane l: positions v0 + 32 part + l +
+    32 wpg n in turn, the shuffle tree, the warps of g, then the ranks),
+    pass 3 a tile at a time (V rows copied for the tile's valid rows over
+    the last tile's, codes 0 outside them, the PV steps of the tile's
+    32-row groups holding valid rows)."""
+    rng = np.random.default_rng(seed)
+    b_n, kh_n, g_n, hd = a["qq"].shape
+    n_planes, s = a["k_planes"].shape[1:3]
+    d8 = hd // 8
+    tile = tpa.LONG_TILE
+    qz = int(np.float32(a["q_z"]).astype(np.int32))
+    kp = live_planes(k_pact, n_planes)
+    vp = live_planes(v_pact, n_planes)
+    w = window if window is not None else -1
+    s_lo = max(0, pos - w + 1) if w > 0 else 0
+    s_hi = min(pos, s - 1)
+    wpg = WARPS // g_n
+    chunk = tpa.long_chunk(s)
+    out = np.zeros((b_n, kh_n, g_n, hd), np.float32)
+    for b in range(b_n):
+        for kh in range(kh_n):
+            q = a["qq"][b, kh].astype(np.int64)
+            scg = np.zeros((g_n, s), np.float32)     # the global scratch
+            blocks = []
+            for r in range(tpa.LONG_CLUSTER):
+                c0 = r * chunk
+                v0, v1 = max(c0, s_lo), min(c0 + chunk, s, s_hi + 1)
+                blk = dict(v0=v0, v1=v1, m=np.full(g_n, NEG_INF, np.float32),
+                           vmax=np.float32(0.0))
+                if v1 > v0:
+                    scg[:, v0:v1] = qk_scores(
+                        a["k_planes"][b, :, v0:v1, kh], q, qz,
+                        a["q_scale"], a["k_s"][b, v0:v1], a["k_z"][b, v0:v1],
+                        softcap, kp, hd)
+                    blk["m"] = scg[:, v0:v1].max(-1)
+                    blk["vmax"] = np.float32(a["v_s"][b, v0:v1].max())
+                blocks.append(blk)
+            m = np.max([blk["m"] for blk in blocks], axis=0)
+            sv_ref = np.float32(max(np.float32(1e-12),
+                                    max(blk["vmax"] for blk in blocks)))
+            denom = np.zeros(g_n)
+            for blk in blocks:                        # ranks in rank order
+                v0, v1 = blk["v0"], blk["v1"]
+                n = max(0, v1 - v0)
+                n_it = max(1, -(-n // (32 * wpg)))
+                for g in range(g_n):
+                    e = torch.exp(torch.from_numpy(scg[g, v0:v0 + n]
+                                                   - m[g])).numpy()
+                    scg[g, v0:v0 + n] = e
+                    ed = np.zeros(n_it * 32 * wpg)
+                    ed[:n] = e
+                    seq = np.cumsum(ed.reshape(n_it, wpg, 32), axis=0)[-1]
+                    tot = 0.0
+                    for wp in range(wpg):
+                        tot += warp_sum_tree(seq[wp])
+                    denom[g] += tot
+            denom = denom.astype(np.float32)
+            pv = np.zeros((g_n, hd), np.int64)
+            corr = np.zeros(g_n, np.int64)
+            for blk in blocks:
+                v0, v1 = blk["v0"], blk["v1"]
+                if v1 <= v0:
+                    continue
+                # the shared tile: garbage before the first copy, then each
+                # tile's rows written over the last tile's
+                vsm = rng.integers(0, 256, (P, tile, d8)).astype(np.uint8)
+                for t0 in range(v0 // tile * tile, v1, tile):
+                    a0, a1 = max(t0, v0), min(t0 + tile, v1)
+                    vsm[:vp, a0 - t0:a1 - t0] = \
+                        a["v_planes"][b, :vp, a0:a1, kh]
+                    ratio = a["v_s"][b, a0:a1] / sv_ref
+                    pr = scg[:, a0:a1] / denom[:, None]
+                    qv = np.rint((pr * ratio[None]) * PROB_SCALE)
+                    assert qv.min() >= 0 and qv.max() <= 1 << 14
+                    pq = np.zeros((g_n, tile), np.int64)
+                    pq[:, a0 - t0:a1 - t0] = qv.astype(np.int64)
+                    corr += (qv.astype(np.int64)
+                             * np.rint(a["v_z"][b, a0:a1]).astype(np.int64)
+                             ).sum(-1)
+                    pv += pv_partial(vsm, (pq & 127).astype(np.uint8),
+                                     (pq >> 7).astype(np.uint8), vp,
+                                     a0 - t0, a1 - t0, hd)
+            scale = sv_ref / PROB_SCALE
+            out[b, kh] = ((pv - corr[:, None]).astype(np.float32) * scale)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # operands
 # ---------------------------------------------------------------------------
@@ -503,16 +602,22 @@ def test_cluster_size_follows_occupancy_and_shared_memory():
     the card holds at once, one block of 256 threads per SM slot; read off
     the card for the serve's shape): the serve's S = 48 stays in one block,
     S = 4096 spreads over 7 blocks a head so the 32 clusters fit one wave;
-    above max_seq_len it raises, and with no cluster held it raises."""
+    above max_seq_len it takes the long path, and with no cluster held it
+    raises."""
     held = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 39, 7: 32, 8: 30}
-    pick = lambda s: tpa.cluster_size(s, 32, 4, 128, P, held.get)  # noqa
+
+    def pick(s):
+        path, c = tpa.launch_plan(s, 32, 4, 128, P, held.get)
+        assert path == ("cluster" if s <= top else "long")
+        return c
+    top = tpa.max_seq_len(4, 128)
     assert pick(48) == 1
     assert pick(4096) == 7
     assert pick(1000) > 1
-    top = tpa.max_seq_len(4, 128)
     assert pick(top) >= 1
+    assert pick(top + 1) == tpa.LONG_CLUSTER
     with pytest.raises(ValueError):
-        pick(top + 1)
+        tpa.cluster_size(top + 1, 32, 4, 128, P, held.get)
     with pytest.raises(RuntimeError):
         tpa.cluster_size(4096, 32, 4, 128, P, lambda c: 0)
     for s in (48, 1000, 4096, top):
@@ -589,3 +694,99 @@ def test_emulated_kernel_random_shapes(seed, c, g, hd, s, bits, pos_frac,
     want = plain(a, pos, window, 0.0)
     got = emulate(a, pos, window, 0.0, c, seed=seed)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the long path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g,hd", [(4, 128), (2, 256), (1, 64), (8, 160)])
+def test_long_path_is_taken_past_the_cap_and_bounded_by_int32(g, hd):
+    """launch_plan keeps the cluster sizes up to max_seq_len (S = 48,
+    1,000, 4,096 as cluster_size picks them), takes the long path from
+    max_seq_len + 1 on, at 524,288 (long_500k) too, and raises only past
+    the int32 PV bound, where 127 * (2^14 + S / 2) passes 2^31."""
+    held = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 39, 7: 32, 8: 30}
+    top = tpa.max_seq_len(g, hd)
+    for s in (48, 1000, 4096):
+        if s <= top:
+            assert tpa.launch_plan(s, 32, g, hd, P, held.get) == (
+                "cluster", tpa.cluster_size(s, 32, g, hd, P, held.get))
+    assert tpa.launch_plan(top + 1, 32, g, hd, P, held.get) == (
+        "long", tpa.LONG_CLUSTER)
+    assert tpa.launch_plan(524_288, 32, g, hd, P, lambda c: 0)[0] == "long"
+    big = tpa.max_long_seq_len()
+    assert 127 * (2 ** 14 + big / 2) < 2 ** 31
+    assert 127 * (2 ** 14 + (big + 2) / 2) >= 2 ** 31
+    assert tpa.launch_plan(big, 32, g, hd, P, held.get)[0] == "long"
+    with pytest.raises(ValueError):
+        tpa.launch_plan(big + 1, 32, g, hd, P, held.get)
+
+
+@pytest.mark.parametrize("s", [12_033, 12_288, 32_768, 131_072, 524_288,
+                               7_169, 33_785_872])
+def test_long_chunks_tile_every_position_once(s):
+    """long_chunk: whole tiles, LONG_CLUSTER chunks cover [0, S), every
+    position in exactly one tile of one block, whatever the mask."""
+    chunk = tpa.long_chunk(s)
+    assert chunk % tpa.LONG_TILE == 0
+    assert (tpa.LONG_CLUSTER - 1) * chunk < s <= tpa.LONG_CLUSTER * chunk
+    for s_lo, s_hi in ((0, s - 1), (s // 3, s // 2), (s - 1, s - 1), (0, 0),
+                       (s - 300, s - 1)):
+        seen = 0
+        for r in range(tpa.LONG_CLUSTER):
+            c0 = r * chunk
+            v0, v1 = max(c0, s_lo), min(c0 + chunk, s, s_hi + 1)
+            if v1 <= v0:
+                continue
+            for t0 in range(v0 // tpa.LONG_TILE * tpa.LONG_TILE, v1,
+                            tpa.LONG_TILE):
+                assert c0 <= t0 and t0 + tpa.LONG_TILE <= c0 + chunk
+                seen += min(t0 + tpa.LONG_TILE, v1) - max(t0, v0)
+        assert seen == s_hi - s_lo + 1
+
+
+@pytest.mark.parametrize("g,hd,s", [(4, 128, 12_288), (2, 256, 7_200)])
+@pytest.mark.parametrize("bits", [1, 4, 7])
+def test_emulated_long_path_is_the_plain_version(g, hd, s, bits):
+    """The long path past max_seq_len, bit-identical to
+    decode_attention_ref: the last position, a ragged middle one, a window
+    that masks whole tiles and blocks, one ending mid-tile, the first
+    position; softcap 0 and 50 in turn; pact as a device count."""
+    assert s > tpa.max_seq_len(g, hd)
+    a = operands(1000 * bits + g, g=g, hd=hd, s=s, bits=bits)
+    cases = ((s - 1, None, 0.0), (s // 2 + 37, None, 50.0),
+             (s - 1, 700, 0.0), (s // 3 + 5, 4_000, 50.0), (0, None, 0.0))
+    for pos, window, softcap in cases:
+        want = plain(a, pos, window, softcap)
+        got = emulate_long(a, pos, window, softcap, k_pact=float(bits),
+                           v_pact=bits + 0.3, seed=pos)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_emulated_long_path_ring_position():
+    """A ring's step past its rows: pos beyond S with no window reads every
+    row (s_hi = S - 1), as the plain version's ``k_pos <= pos`` does."""
+    s = tpa.max_seq_len(2, 256) + 40
+    a = operands(77, g=2, hd=256, s=s, bits=4)
+    for pos in (s, 3 * s + 11):
+        want = plain(a, pos, None, 50.0)
+        np.testing.assert_array_equal(want, plain(a, s - 1, None, 50.0))
+        got = emulate_long(a, pos, None, 50.0, k_pact=4.0, v_pact=4.0)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_wrapper_path_option_on_the_cpu():
+    """``decode_attention(..., path="long")`` (the forced long path that
+    ``chip_smoke.py`` times below the cap) is the plain version on CPU
+    tensors, as None is; any other path is refused."""
+    a = operands(31, b=2, kh=2, g=2, hd=32, s=70)
+    args = [torch.from_numpy(np.asarray(a[k])) for k in KEYS]
+    pos = torch.tensor(50, dtype=torch.int32)
+    want = plain(a, 50, 16, 30.0)
+    for path in (None, "long"):
+        got = tpa.decode_attention(*args, pos, window=16, softcap=30.0,
+                                   path=path)
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="path"):
+        tpa.decode_attention(*args, pos, path="cluster")

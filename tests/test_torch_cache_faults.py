@@ -10,9 +10,12 @@ reasons (RMSNorm, RoPE, silu and softmax ulps between XLA-CPU and
 torch-CPU; here such an ulp can also move a K/V value across a float8
 rounding tie). The worst measured gap is printed by the test.
 
-C2: a windowed layer whose window is shorter than ``max_len`` is refused
-by ``init_layer_cache``, on the host, with an error that names ROADMAP
-C2; the reference's dropped writes past the window are not copied.
+C2: a windowed layer's cache holds ``min(max_len, window)`` rows, the
+size the reference allocates, in both cache kinds and at any
+``max_len``, and is a ring (``models.attention.is_ring``); an unwindowed
+layer's holds ``max_len``. The reference's dropped writes past the window
+are not copied: ``tests/test_torch_long_context.py`` holds the ring
+against the reference's decode over full-length caches.
 """
 import dataclasses
 
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from repro.models import model as RMD
+from repro_torch.models import attention as A
 from repro_torch.models import model as TMD
 from repro_torch.models import transformer as T
 from test_torch_common import port_cfg, ref_cfg
@@ -85,21 +89,40 @@ def test_float8_kv_cache_matches_reference(bits):
     assert not np.array_equal(full, got["packed"])
 
 
-def test_windowed_cache_shorter_than_max_len_is_refused():
+def _rows(cache) -> int:
+    return (cache.k_s if isinstance(cache, A.QuantKVCache)
+            else cache.k).shape[1]
+
+
+@pytest.mark.parametrize("cache_bits", [None, 4])
+def test_windowed_cache_is_a_ring_of_window_rows(cache_bits):
+    """A window of 16 at max_len 17: a ring of 16 rows (the fp cache, its
+    float8 kind and the packed planes); within the window every position
+    has its row, and an unwindowed layer holds max_len rows."""
+    kinds = ([dict(kv_cache_dtype=""), dict(kv_cache_dtype=FP8)]
+             if cache_bits is None else [dict()])
+    for kind in kinds:
+        cfg = dataclasses.replace(port_cfg(), cache_bits=cache_bits, **kind)
+        spec = T.LayerSpec("attn", 16)
+        ring = T.init_layer_cache(cfg, spec, 2, 17, torch.float32, "cpu")
+        assert _rows(ring) == 16 and A.is_ring(_rows(ring), spec.window)
+        assert _rows(T.init_layer_cache(cfg, spec, 2, 12, torch.float32,
+                                        "cpu")) == 12
+        whole = T.init_layer_cache(cfg, T.LayerSpec("attn"), 2, 40,
+                                   torch.float32, "cpu")
+        assert _rows(whole) == 40 and not A.is_ring(40, None)
+        if kind.get("kv_cache_dtype") == FP8:
+            assert ring.k.dtype == getattr(torch, FP8)
+
+
+@pytest.mark.parametrize("cache_bits", [None, 4])
+def test_windowed_decode_state_holds_window_rows(cache_bits):
+    """Through a windowed config's decode state, both cache kinds: a window
+    of 8 at max_len 17 and 12 gives rings of 8 rows, at max_len 8 the 8
+    rows it always had."""
     cfg = port_cfg()
-    spec = T.LayerSpec("attn", 16)
-    with pytest.raises(ValueError, match="ROADMAP C2"):
-        T.init_layer_cache(cfg, spec, 2, 17, torch.float32, "cpu")
-    # within the window the cache holds every position
-    assert T.init_layer_cache(cfg, spec, 2, 16, torch.float32,
-                              "cpu").k.shape[1] == 16
-    assert T.init_layer_cache(cfg, T.LayerSpec("attn"), 2, 40,
-                              torch.float32, "cpu").k.shape[1] == 40
-    # and through a windowed config's decode state, both cache kinds
     _, tv = _views(2, None)
-    for cache_bits in (None, 4):
-        swa = dataclasses.replace(cfg, sliding_window=8,
-                                  cache_bits=cache_bits)
-        with pytest.raises(ValueError, match="ROADMAP C2"):
-            TMD.init_decode_state(tv, swa, 2, 12)
-        TMD.init_decode_state(tv, swa, 2, 8)
+    swa = dataclasses.replace(cfg, sliding_window=8, cache_bits=cache_bits)
+    for max_len in (17, 12, 8):
+        state = TMD.init_decode_state(tv, swa, 2, max_len)
+        assert [_rows(c) for c in state.caches] == [8] * cfg.num_layers

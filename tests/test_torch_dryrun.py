@@ -225,3 +225,36 @@ def test_reduced_cross_decode_cell(arch, quant, monkeypatch):
                                serve_quant=quant == "pann_serve")
     assert record["flops_per_device"] * 256 >= \
         unsharded["flops_per_device"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b"])
+def test_reduced_windowed_decode_cell(arch, monkeypatch):
+    """``decode_32k`` of the windowed configs at --reduced on the fake
+    256-rank group: the decode state is made at the cell's 32,768
+    positions, each windowed layer's cache a ring of min(32768, 16) rows
+    and each global layer's 32,768 rows (gemma2's local and global
+    layers; mixtral windowed in every layer, so its caches are the 16 rows
+    the cell gave them before rings), and the step records."""
+    from repro_torch.models import model as TMD
+    from repro_torch.models import transformer as TT
+    states = []
+    real = TMD.init_decode_state
+
+    def kept(*args, **kwargs):
+        states.append(real(*args, **kwargs))
+        return states[-1]
+
+    monkeypatch.setattr(TMD, "init_decode_state", kept)
+    record = TDR.run_cell(arch, "decode_32k", False, verbose=False,
+                          reduced=True)
+    assert record["n_devices"] == 256 and record["shape"] == "decode_32k"
+    assert record["flops_per_device"] > 0
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    seq = tconfigs.SHAPES_BY_NAME["decode_32k"].seq_len
+    specs = TMD.layer_specs(cfg)
+    (state,) = states
+    rows = [c.k.shape[1] for c in state.caches]
+    assert rows == [TT.cache_rows(s, seq) for s in specs]
+    assert rows == [16 if s.window else seq for s in specs]
+    if arch == "gemma2-9b":
+        assert sorted(set(rows)) == [16, seq]

@@ -134,6 +134,27 @@ def test_cache_specs_match_reference(arch, mesh):
     assert port == ref_leaves
 
 
+@pytest.mark.parametrize("cache_bits", [None, 4])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_slot_specs_keep_a_ring_on_whole_kv_heads(mesh, cache_bits):
+    """A windowed layer's ring (gemma2-smoke's local layers at max_len 40:
+    16 rows) takes the specs a cache of max_len rows takes: the batch on
+    "data", whole KV heads on "model", the rows whole (C14)."""
+    import dataclasses
+    from repro_torch.models import attention as TA
+    m = MESHES[mesh]
+    _, tcfg = _cfgs("gemma2-9b")
+    cfg = dataclasses.replace(tcfg, cache_bits=cache_bits)
+    specs = TMD.layer_specs(cfg)
+    dtype = TMD._dtype(cfg)
+    rings = [TT.init_layer_cache(cfg, s, BATCH, 40, dtype, "meta")
+             for s in specs]
+    fulls = [TA.init_cache(cfg, BATCH, 40, dtype, "meta") for _ in specs]
+    rows = [(c.k_s if cache_bits else c.k).shape[1] for c in rings]
+    assert rows == [16 if s.window else 40 for s in specs] and 16 in rows
+    assert TSH.slot_specs(rings, m) == TSH.slot_specs(fulls, m)
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_input_sharding_and_batch_axis_match_reference(mesh):
     m = MESHES[mesh]
